@@ -1,0 +1,449 @@
+"""Compression-pipeline composition (paper §3.3, Algorithm 1), in torch.
+
+A compressor is a 5-tuple of module instances.  The driver below is the
+paper's Algorithm 1, array-vectorized: it never names a concrete module —
+composition is data ("spec").  The container format is the JAX package's v1
+container, byte for byte: the header records the module spec, so
+``decompress(blob)`` rebuilds the exact pipeline, and blobs move freely
+between the two packages.
+
+Array math runs in torch on the compressor's device; byte-level coding
+(Huffman, lossless backends, msgpack headers, checksums) runs on the host.
+Entry points take a ``device`` and default to ``"cuda"``; without a card they
+raise unless the caller asks for ``"cpu"``.
+
+Named factory pipelines ported so far:
+
+  sz3_lorenzo     — pure dual-quant Lorenzo + linear quant + Huffman + zstd
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from . import _msgpack
+from . import encoders as enc_mod
+from . import integrity
+from . import lossless as ll_mod
+from . import telemetry as tel
+from . import predictors as pred_mod
+from . import preprocess as pre_mod
+from . import quantizers as quant_mod
+from .config import CompressionConfig, ErrorBoundMode
+from .integrity import (
+    ContainerError,
+    IntegrityError,
+    SalvageReport,
+    decode_errors,
+    guard_alloc,
+    guard_count,
+    guard_shape,
+)
+
+_MAGIC = b"SZ3J"
+_VERSION = 1
+
+#: accepted values for the ``verify=`` policy on the decode entry points
+VERIFY_MODES = ("strict", "salvage", "off")
+
+Device = Union[str, torch.device, None]
+
+#: container dtype strings <-> torch dtypes (the JAX package writes numpy's
+#: ``dtype.str``; compress turns every other input dtype into float32)
+_DTYPES = {"<f4": torch.float32, "<f8": torch.float64}
+_DTYPE_STR = {v: k for k, v in _DTYPES.items()}
+
+_MODULES = {
+    "preprocessor": pre_mod._REGISTRY,
+    "predictor": pred_mod._REGISTRY,
+    "quantizer": quant_mod._REGISTRY,
+    "encoder": enc_mod._REGISTRY,
+    "lossless": ll_mod._REGISTRY,
+}
+
+
+def resolve_device(device: Device) -> torch.device:
+    """The device an entry point runs on: ``"cuda"`` unless told otherwise,
+    and an error — never a quiet CPU run — when that device is absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run on the CPU"
+        )
+    return dev
+
+
+def _torch_dtype(s: Any, what: str) -> torch.dtype:
+    if s not in _DTYPES:
+        raise ContainerError(
+            f"container {what} {s!r} is not one repro_torch decodes (have "
+            f"{sorted(_DTYPES)})"
+        )
+    return _DTYPES[s]
+
+
+def _as_tensor(data, device: torch.device) -> torch.Tensor:
+    if isinstance(data, torch.Tensor):
+        t = data.detach()
+    else:
+        t = torch.from_numpy(np.ascontiguousarray(np.asarray(data)))
+    if t.dtype not in _DTYPE_STR:
+        t = t.to(torch.float32)
+    return t.to(device).contiguous()
+
+
+def _finite_stats(data: torch.Tensor) -> Tuple[float, float]:
+    """(value range, abs max) over FINITE elements — a stray nan/inf must
+    not blow a REL bound up to nan for every other point.  Cheap common
+    path: one min/max pass; the masked pass only runs when needed."""
+    if not data.numel():
+        return 0.0, 0.0
+    mn, mx = float(data.min()), float(data.max())
+    if not (np.isfinite(mn) and np.isfinite(mx)):
+        fin = data[torch.isfinite(data)]
+        if not fin.numel():
+            return 0.0, 0.0
+        mn, mx = float(fin.min()), float(fin.max())
+    return mx - mn, max(abs(mn), abs(mx))
+
+
+def pack_container(header: Dict[str, Any], body: bytes) -> bytes:
+    """The container wire format: magic + int64 (header, body) lengths +
+    msgpack header + body + integrity trailer.
+
+    The trailer (see :mod:`.integrity`) sits BEYOND the declared body length,
+    so readers that honour the declared lengths skip it; it checksums the
+    whole body as one chunk.  The header gains an ``itg`` flag under the
+    header checksum so strict verification can detect a stripped trailer.
+    ``integrity.trailers_disabled()`` suppresses both."""
+    if integrity.WRITE_TRAILERS:
+        header = dict(header)
+        header["itg"] = 1
+    hbytes = _msgpack.packb(header)
+    head = _MAGIC + np.asarray([len(hbytes), len(body)], np.int64).tobytes() + hbytes
+    if not integrity.WRITE_TRAILERS:
+        return head + body
+    with tel.span("integrity", bytes=len(body)):
+        trailer = integrity.build_trailer(head, body, None)
+    return head + body + trailer
+
+
+def container_body(blob: bytes, body_off: int) -> bytes:
+    """The body slice DECLARED by the prologue — never the raw tail, which
+    may carry the integrity trailer (or attacker-appended bytes)."""
+    blen = int.from_bytes(blob[12:20], "little", signed=True)
+    return blob[body_off : body_off + blen]
+
+
+@dataclasses.dataclass
+class CompressionResult:
+    blob: bytes
+    ratio: float
+    codes: Optional[np.ndarray] = None  # quantization integers (paper Fig 3)
+    meta: Optional[Dict[str, Any]] = None
+
+
+class SZ3Compressor:
+    """The general compressor of paper Algorithm 1."""
+
+    kind = "sz3"
+
+    def __init__(
+        self,
+        preprocessor: pre_mod.Preprocessor = None,
+        predictor: pred_mod.Predictor = None,
+        quantizer: quant_mod.QuantizerBase = None,
+        encoder: enc_mod.Encoder = None,
+        lossless: ll_mod.LosslessBackend = None,
+        conf: CompressionConfig = None,
+        device: Device = "cuda",
+    ):
+        self.preprocessor = preprocessor or pre_mod.Identity()
+        self.predictor = predictor or pred_mod.LorenzoPredictor()
+        self.quantizer = quantizer or quant_mod.LinearScaleQuantizer()
+        self.encoder = encoder or enc_mod.HuffmanEncoder()
+        self.lossless = lossless or ll_mod.Zstd()
+        self.conf = conf or CompressionConfig()
+        self.device = device
+
+    # -- spec (for the self-describing container) ---------------------------
+    def spec(self) -> Dict[str, Any]:
+        return {
+            "kind": self.kind,
+            "preprocessor": self.preprocessor.name,
+            "predictor": self.predictor.name,
+            "quantizer": self.quantizer.name,
+            "quant_radius": self.quantizer.radius,
+            "encoder": self.encoder.name,
+            "lossless": self.lossless.name,
+        }
+
+    @staticmethod
+    def from_spec(spec: Dict[str, Any], device: Device = "cuda") -> "SZ3Compressor":
+        for role, registry in _MODULES.items():
+            if spec[role] not in registry:
+                raise ContainerError(
+                    f"container {role} {spec[role]!r} is not yet ported to "
+                    "repro_torch"
+                )
+        return SZ3Compressor(
+            preprocessor=pre_mod.make(spec["preprocessor"]),
+            predictor=pred_mod.make(spec["predictor"]),
+            quantizer=quant_mod.make(spec["quantizer"], radius=spec["quant_radius"]),
+            encoder=enc_mod.make(spec["encoder"]),
+            lossless=ll_mod.make(spec["lossless"]),
+            device=device,
+        )
+
+    # -- Algorithm 1 ---------------------------------------------------------
+    def compress(
+        self, data, conf: CompressionConfig = None, with_stats: bool = False
+    ) -> CompressionResult:
+        """Compress a numpy array or torch tensor on this compressor's device."""
+        conf = conf or self.conf
+        data = _as_tensor(data, resolve_device(self.device))
+        pdata, conf2, pre_meta = self.preprocessor.forward(data, conf)  # line 1
+        rng, absmax = _finite_stats(pdata)
+        abs_eb = conf2.resolve_abs_eb(rng, absmax)
+        if abs_eb <= 0:
+            abs_eb = np.finfo(np.float64).tiny
+        self.quantizer.begin(abs_eb, pdata.dtype)
+        with tel.span("predict", bytes=pdata.numel() * pdata.element_size()):
+            codes_t, pred_meta = self.predictor.compress(pdata, self.quantizer, conf2)  # 2-5
+        codes = quant_mod.to_host(codes_t).astype(self.quantizer.code_dtype)
+        with tel.span("huffman", bytes=codes.nbytes):
+            enc_bytes = self.encoder.encode(codes)  # lines 9-10
+        q_bytes = self.quantizer.save()  # line 8
+        header = {
+            "v": _VERSION,
+            "spec": self.spec(),
+            "shape": list(data.shape),
+            "pshape": list(pdata.shape),
+            "dtype": _DTYPE_STR[data.dtype],
+            "pdtype": _DTYPE_STR[pdata.dtype],
+            "mode": conf.mode.value,
+            "eb": float(conf.eb),
+            "abs_eb": float(abs_eb),
+            "block_size": int(conf2.block_size),
+            **(
+                {"eb_rel": float(conf.eb_rel)}
+                if conf.eb_rel is not None
+                else {}
+            ),
+            "interp_kind": conf2.interp_kind,
+            "lorenzo_order": int(conf2.lorenzo_order),
+            "n_codes": int(codes.size),
+            "enc_len": len(enc_bytes),
+            "q_len": len(q_bytes),
+            "pre_meta": dict(pre_meta),
+            "pred_meta": dict(pred_meta),
+        }
+        with tel.span("lossless", bytes=len(enc_bytes) + len(q_bytes)):
+            body = self.lossless.compress(enc_bytes + q_bytes)  # line 11
+        blob = pack_container(header, body)
+        ratio = data.numel() * data.element_size() / max(1, len(blob))
+        return CompressionResult(
+            blob=blob,
+            ratio=ratio,
+            codes=codes if with_stats else None,
+            meta=pred_meta if with_stats else None,
+        )
+
+
+def parse_header(blob: bytes) -> Tuple[Dict[str, Any], int]:
+    """Parse the container prologue; rejects truncated/corrupt blobs with
+    :class:`~repro_torch.core.integrity.ContainerError` (a ``ValueError``).
+    Every length field is bounded by the actual buffer BEFORE any slice or
+    allocation, so a hostile prologue cannot direct reads outside the blob
+    or declare absurd sizes."""
+    if len(blob) < 20:
+        raise ContainerError(
+            f"truncated SZ3J container: {len(blob)} bytes, need at least 20"
+        )
+    if blob[:4] != _MAGIC:
+        raise ContainerError("not an SZ3J container")
+    lens = np.frombuffer(blob, np.int64, count=2, offset=4)
+    hlen, blen = int(lens[0]), int(lens[1])
+    if hlen < 0 or blen < 0 or 20 + hlen + blen > len(blob):
+        raise ContainerError(
+            f"corrupt SZ3J container: header={hlen} body={blen} bytes do not "
+            f"fit the {len(blob)}-byte buffer"
+        )
+    try:
+        header = _msgpack.unpackb(blob[20 : 20 + hlen])
+    except ValueError as e:
+        raise ContainerError(f"corrupt SZ3J container header: {e}") from e
+    if not isinstance(header, dict):
+        raise ContainerError("corrupt SZ3J container header: not a map")
+    return header, 20 + hlen
+
+
+def decompress(blob: bytes, verify: str = "strict", device: Device = None):
+    """Self-describing decompression — rebuilds the pipeline from the header
+    and runs it on ``device`` (default ``"cuda"``).  Returns a tensor on that
+    device.
+
+    Reads v1 single-pipeline containers whose modules are ported; every
+    other container kind raises :class:`ContainerError` naming it.
+
+    ``verify`` is the integrity policy (see :mod:`.integrity`):
+
+    * ``"strict"`` (default) — verify the trailer's checksums before decode;
+      raise :class:`IntegrityError` naming the damage.  Blobs written before
+      the trailer era carry no checksums and pass unverified.
+    * ``"salvage"`` — return ``(data, SalvageReport)``; a v1 body is one
+      entropy stream, so damage loses the whole array (zero-filled).
+    * ``"off"`` — skip checksum verification (malformed-structure errors
+      still raise).
+
+    Every malformed-input failure raises a ``ValueError`` subclass.
+    """
+    if verify not in VERIFY_MODES:
+        raise ValueError(f"verify must be one of {VERIFY_MODES}, got {verify!r}")
+    dev = resolve_device(device)
+    blob = bytes(blob)
+    with decode_errors("container"):
+        header, body_off = parse_header(blob)
+        if verify == "salvage":
+            return _decompress_salvage(blob, header, body_off, dev)
+        if verify == "strict":
+            try:
+                with tel.span("integrity", bytes=len(blob)):
+                    integrity.verify_container(blob, header, body_off)
+            except IntegrityError:
+                tel.metric_count("sz3_verify_failures_total")
+                tel.count("verify_failures")
+                raise
+        _check_ported(header)
+        return _decompress_v1(blob, header, body_off, dev)
+
+
+def _check_ported(header: Dict[str, Any]) -> None:
+    """Raise :class:`ContainerError` naming a container kind this package
+    cannot decode yet (every kind but the v1 single pipeline)."""
+    if header.get("v", _VERSION) >= 2 and header.get("kind") is not None:
+        raise ContainerError(
+            f"container kind {header.get('kind')!r} (v{header.get('v')}) is "
+            "not yet ported to repro_torch"
+        )
+    spec = header["spec"]
+    if not isinstance(spec, dict):
+        raise ContainerError("corrupt container: spec is not a map")
+    kind = spec.get("kind")
+    if kind != SZ3Compressor.kind:
+        raise ContainerError(
+            f"container kind {kind!r} is not yet ported to repro_torch"
+        )
+
+
+def _decompress_v1(
+    blob: bytes, header: Dict[str, Any], body_off: int, device: torch.device
+) -> torch.Tensor:
+    """The v1 single-pipeline decode path, with every header-declared size
+    bounded before allocation."""
+    spec = header["spec"]
+    comp = SZ3Compressor.from_spec(spec, device=device)
+    dtype = _torch_dtype(header["dtype"], "dtype")
+    pdtype = _torch_dtype(header["pdtype"], "pdtype")
+    shape = guard_shape(header["shape"], dtype.itemsize, "shape")
+    pshape = guard_shape(header["pshape"], pdtype.itemsize, "pshape")
+    enc_len = guard_alloc(header["enc_len"], "enc_len")
+    q_len = guard_alloc(header["q_len"], "q_len")
+    plain_len = guard_alloc(enc_len + q_len, "enc_len+q_len")
+    with tel.span("lossless", bytes=plain_len):
+        body = comp.lossless.decompress_bounded(
+            container_body(blob, body_off), plain_len
+        )
+    if len(body) != plain_len:
+        raise ContainerError(
+            f"v1 body decompressed to {len(body)} bytes; header declares "
+            f"{plain_len} (enc_len={enc_len} + q_len={q_len})"
+        )
+    enc_bytes = body[:enc_len]
+    q_bytes = body[enc_len:]
+    n_elems = int(np.prod(pshape, dtype=np.int64)) if pshape else 1
+    n_codes = guard_count(header["n_codes"], 2 * n_elems + 4096, "n_codes")
+    comp.quantizer.begin(header["abs_eb"], pdtype)
+    comp.quantizer.load(q_bytes)
+    with tel.span("huffman", bytes=len(enc_bytes)):
+        codes = comp.encoder.decode(enc_bytes, n_codes)
+    conf = CompressionConfig(
+        mode=ErrorBoundMode(header["mode"]),
+        eb=header["eb"],
+        block_size=header["block_size"],
+        interp_kind=header["interp_kind"],
+        lorenzo_order=header["lorenzo_order"],
+        quant_radius=spec["quant_radius"],
+    )
+    with tel.span("predict", bytes=n_elems * pdtype.itemsize):
+        pdata = comp.predictor.decompress(
+            torch.from_numpy(np.ascontiguousarray(codes)).to(device),
+            pshape,
+            pdtype,
+            comp.quantizer,
+            conf,
+            header["pred_meta"],
+        )
+    data = comp.preprocessor.inverse(pdata, conf, header["pre_meta"])
+    if data.numel() != int(np.prod(shape, dtype=np.int64)):
+        raise ContainerError(f"decoded {data.numel()} elements for shape {list(shape)}")
+    return data.to(dtype).reshape(shape)
+
+
+def _decompress_salvage(
+    blob: bytes, header: Dict[str, Any], body_off: int, device: torch.device
+):
+    """``verify="salvage"``: a v1 body is one entropy stream, so it is
+    all-or-nothing — a failed checksum or decode zero-fills the whole array
+    and records one damage entry.  A damaged HEADER is not salvageable and
+    raises :class:`IntegrityError`."""
+    res = integrity.inspect(blob, header, body_off)
+    if res.has_trailer and not res.header_ok:
+        raise IntegrityError(
+            "container header bytes fail their checksum — shape, dtype and "
+            "chunk table are untrustworthy, nothing can be salvaged",
+            region="header",
+        )
+    _check_ported(header)
+    dtype = _torch_dtype(header["dtype"], "dtype")
+    shape = guard_shape(header["shape"], dtype.itemsize, "shape")
+    n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+    report = SalvageReport(total_chunks=1, checksummed=res.has_trailer)
+    reason = None
+    if res.has_trailer and not res.whole_ok:
+        reason = "checksum"
+    else:
+        try:
+            with decode_errors("container"):
+                data = _decompress_v1(blob, header, body_off, device)
+            report.recovered.append(0)
+            return data, report
+        except ValueError:
+            reason = "decode-error"
+    report.damage.append(integrity.ChunkDamage(0, 0, n, reason))
+    return torch.zeros(shape, dtype=dtype, device=device), report
+
+
+# ---------------------------------------------------------------------------
+# named pipeline factories
+# ---------------------------------------------------------------------------
+
+def sz3_lorenzo(order: int = 1, route: str = "auto", **kw) -> SZ3Compressor:
+    """Dual-quant Lorenzo + linear quantizer + Huffman + zstd.  ``route``
+    picks the predictor's kernel route (see ``LorenzoPredictor``); ``kw``
+    goes to :class:`SZ3Compressor` (``conf``, ``device``)."""
+    return SZ3Compressor(
+        predictor=pred_mod.LorenzoPredictor(order=order, route=route),
+        quantizer=quant_mod.LinearScaleQuantizer(),
+        encoder=enc_mod.HuffmanEncoder(),
+        lossless=ll_mod.Zstd(),
+        **kw,
+    )
+
+
+PIPELINES = {
+    "sz3_lorenzo": sz3_lorenzo,
+}

@@ -2,7 +2,8 @@
 
 The paper's five-module abstraction (preprocessor -> predictor -> quantizer ->
 encoder -> lossless) composed per §3.3.  Ported so far: the v1 single
-pipeline ``sz3_lorenzo`` and the modules it is built from.
+pipeline ``sz3_lorenzo`` and the modules it is built from, the v3 transform
+coder ``sz3_transform`` and the v6 fast tier ``sz3_fast``.
 """
 from . import telemetry  # noqa: I001  (stdlib-only; imported first)
 from . import encoders, lossless, metrics, predictors, preprocess, quantizers
@@ -23,6 +24,9 @@ from .pipeline import (
     resolve_device,
     sz3_lorenzo,
 )
+from . import fastmode, transform  # noqa: E402  (register their pipelines)
+from .fastmode import FastModeCompressor, sz3_fast
+from .transform import TransformCompressor, sz3_transform
 
 __all__ = [
     "telemetry",
@@ -40,6 +44,12 @@ __all__ = [
     "resolve_device",
     "PIPELINES",
     "sz3_lorenzo",
+    "sz3_transform",
+    "sz3_fast",
+    "TransformCompressor",
+    "FastModeCompressor",
+    "transform",
+    "fastmode",
     "encoders",
     "lossless",
     "metrics",

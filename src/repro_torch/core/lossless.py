@@ -147,6 +147,12 @@ class Zstd(LosslessBackend):
         if self._d is None:
             return _zlib_bounded(data, max_out)
         try:
+            # zstandard honours max_output_size only for frames that do not
+            # declare their content size, so a declared size is checked here,
+            # before anything is inflated
+            declared = _zstd.get_frame_parameters(data).content_size
+            if declared != _zstd.CONTENTSIZE_UNKNOWN and declared > max_out:
+                raise _bomb(max_out, "zstd")
             return self._d.decompress(data, max_output_size=max_out)
         except _zstd.ZstdError as e:
             if "output" in str(e).lower():

@@ -15,6 +15,9 @@ raise unless the caller asks for ``"cpu"``.
 Named factory pipelines ported so far:
 
   sz3_lorenzo     — pure dual-quant Lorenzo + linear quant + Huffman + zstd
+  sz3_transform   — blockwise 4-point DCT + bitplane coding (v3, transform.py)
+  sz3_fast        — SZx-style fixed-length blocks, no entropy stage (v6,
+                    fastmode.py)
 """
 from __future__ import annotations
 
@@ -89,7 +92,9 @@ def _as_tensor(data, device: torch.device) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         t = data.detach()
     else:
-        t = torch.from_numpy(np.ascontiguousarray(np.asarray(data)))
+        a = np.asarray(data)
+        # ascontiguousarray returns at least 1-D; keep a 0-d array 0-d
+        t = torch.from_numpy(np.ascontiguousarray(a).reshape(a.shape))
     if t.dtype not in _DTYPE_STR:
         t = t.to(torch.float32)
     return t.to(device).contiguous()
@@ -286,16 +291,17 @@ def decompress(blob: bytes, verify: str = "strict", device: Device = None):
     and runs it on ``device`` (default ``"cuda"``).  Returns a tensor on that
     device.
 
-    Reads v1 single-pipeline containers whose modules are ported; every
-    other container kind raises :class:`ContainerError` naming it.
+    Reads v1 single-pipeline containers whose modules are ported, v3
+    transform and v6 fast-tier containers; every other container kind
+    raises :class:`ContainerError` naming it.
 
     ``verify`` is the integrity policy (see :mod:`.integrity`):
 
     * ``"strict"`` (default) — verify the trailer's checksums before decode;
       raise :class:`IntegrityError` naming the damage.  Blobs written before
       the trailer era carry no checksums and pass unverified.
-    * ``"salvage"`` — return ``(data, SalvageReport)``; a v1 body is one
-      entropy stream, so damage loses the whole array (zero-filled).
+    * ``"salvage"`` — return ``(data, SalvageReport)``; a v1, v3 or v6 body
+      is one stream, so damage loses the whole array (zero-filled).
     * ``"off"`` — skip checksum verification (malformed-structure errors
       still raise).
 
@@ -317,14 +323,14 @@ def decompress(blob: bytes, verify: str = "strict", device: Device = None):
                 tel.metric_count("sz3_verify_failures_total")
                 tel.count("verify_failures")
                 raise
-        _check_ported(header)
-        return _decompress_v1(blob, header, body_off, dev)
+        return _decoder(header)(blob, header, body_off, dev)
 
 
-def _check_ported(header: Dict[str, Any]) -> None:
-    """Raise :class:`ContainerError` naming a container kind this package
-    cannot decode yet (every kind but the v1 single pipeline)."""
-    if header.get("v", _VERSION) >= 2 and header.get("kind") is not None:
+def _decoder(header: Dict[str, Any]):
+    """The body decoder of a parsed container's generation; raises
+    :class:`ContainerError` naming a container kind this package cannot
+    decode yet."""
+    if header.get("v", _VERSION) >= 2 and header.get("kind") in ("chunked", "pwr"):
         raise ContainerError(
             f"container kind {header.get('kind')!r} (v{header.get('v')}) is "
             "not yet ported to repro_torch"
@@ -333,10 +339,19 @@ def _check_ported(header: Dict[str, Any]) -> None:
     if not isinstance(spec, dict):
         raise ContainerError("corrupt container: spec is not a map")
     kind = spec.get("kind")
+    if kind == "transform":  # v3 blockwise-transform containers
+        from .transform import TransformCompressor  # local: avoids import cycle
+
+        return TransformCompressor._decompress_body
+    if kind == "fast":  # v6 SZx-style fixed-length containers
+        from .fastmode import FastModeCompressor  # local: avoids import cycle
+
+        return FastModeCompressor._decompress_body
     if kind != SZ3Compressor.kind:
         raise ContainerError(
             f"container kind {kind!r} is not yet ported to repro_torch"
         )
+    return _decompress_v1
 
 
 def _decompress_v1(
@@ -396,7 +411,7 @@ def _decompress_v1(
 def _decompress_salvage(
     blob: bytes, header: Dict[str, Any], body_off: int, device: torch.device
 ):
-    """``verify="salvage"``: a v1 body is one entropy stream, so it is
+    """``verify="salvage"``: a v1, v3 or v6 body is one stream, so it is
     all-or-nothing — a failed checksum or decode zero-fills the whole array
     and records one damage entry.  A damaged HEADER is not salvageable and
     raises :class:`IntegrityError`."""
@@ -407,7 +422,7 @@ def _decompress_salvage(
             "chunk table are untrustworthy, nothing can be salvaged",
             region="header",
         )
-    _check_ported(header)
+    decode = _decoder(header)
     dtype = _torch_dtype(header["dtype"], "dtype")
     shape = guard_shape(header["shape"], dtype.itemsize, "shape")
     n = int(np.prod(shape, dtype=np.int64)) if shape else 1
@@ -418,7 +433,7 @@ def _decompress_salvage(
     else:
         try:
             with decode_errors("container"):
-                data = _decompress_v1(blob, header, body_off, device)
+                data = decode(blob, header, body_off, device)
             report.recovered.append(0)
             return data, report
         except ValueError:

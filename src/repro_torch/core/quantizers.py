@@ -38,6 +38,56 @@ def to_host(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
+# ---------------------------------------------------------------------------
+# Bitplane codec (the transform coder's band storage): byte-level coding on
+# the host, in numpy, byte for byte the JAX package's format.
+# ---------------------------------------------------------------------------
+
+def bitplane_encode(vals: np.ndarray) -> bytes:
+    """Encode int64 values as sign bitmap + MSB->LSB magnitude bitplanes."""
+    vals = np.asarray(vals, np.int64).reshape(-1)
+    n = vals.size
+    header = np.empty(2, np.int64)
+    if n == 0:
+        header[:] = (0, 0)
+        return header.tobytes()
+    signs = vals < 0
+    mags = np.abs(vals).astype(np.uint64)
+    maxmag = int(mags.max())
+    nplanes = max(1, maxmag.bit_length())
+    header[:] = (n, nplanes)
+    chunks = [header.tobytes(), np.packbits(signs).tobytes()]
+    # MSB plane first: long zero-runs land together for the lossless stage.
+    for p in range(nplanes - 1, -1, -1):
+        plane = ((mags >> np.uint64(p)) & np.uint64(1)).astype(np.uint8)
+        chunks.append(np.packbits(plane).tobytes())
+    return b"".join(chunks)
+
+
+def bitplane_decode(buf: bytes, offset: int = 0) -> Tuple[np.ndarray, int]:
+    """Inverse of :func:`bitplane_encode`; returns (values, bytes_consumed)."""
+    header = np.frombuffer(buf, np.int64, count=2, offset=offset)
+    n, nplanes = int(header[0]), int(header[1])
+    pos = offset + 16
+    if n == 0:
+        return np.zeros(0, np.int64), pos - offset
+    nbytes_plane = (n + 7) // 8
+    signs = np.unpackbits(
+        np.frombuffer(buf, np.uint8, count=nbytes_plane, offset=pos), count=n
+    ).astype(bool)
+    pos += nbytes_plane
+    mags = np.zeros(n, np.uint64)
+    for p in range(nplanes - 1, -1, -1):
+        plane = np.unpackbits(
+            np.frombuffer(buf, np.uint8, count=nbytes_plane, offset=pos), count=n
+        )
+        mags |= plane.astype(np.uint64) << np.uint64(p)
+        pos += nbytes_plane
+    vals = mags.astype(np.int64)
+    vals[signs] = -vals[signs]
+    return vals, pos - offset
+
+
 class QuantizerBase(abc.ABC):
     """Array-at-a-time analogue of the paper's QuantizerInterface."""
 

@@ -15,6 +15,12 @@ from typing import Any, ContextManager, Union
 _NOOP_SPAN = contextlib.nullcontext()
 
 
+def enabled() -> bool:
+    """Is a trace recording?  Never, until tracing is ported; callers skip
+    building decision records, as the JAX package does with tracing off."""
+    return False
+
+
 def span(name: str, **attrs: Any) -> ContextManager[None]:
     """Open a stage span; a no-op until tracing is ported."""
     return _NOOP_SPAN

@@ -1,11 +1,8 @@
-"""Build, bind and launch the CUDA Lorenzo kernels (``csrc/lorenzo.cu``).
+"""Bind and launch the CUDA Lorenzo kernels (``csrc/lorenzo.cu``).
 
-The source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface, loaded with ``ctypes``.  The first launch builds it
-into ``build/`` beside this file (listed in ``.gitignore``); the library's
-name carries a hash of the source, so an edited source is rebuilt and a
-stale library is never loaded.  Nothing is built or loaded at import: the
-CPU tests import this module on machines with no ``nvcc``.
+The source is built at first launch by :mod:`.._build` (``nvcc`` for
+``sm_90a``, a plain C interface loaded with ``ctypes``, into ``build/``
+beside this file).  Nothing is built or loaded at import.
 
 Each wrapper takes CUDA tensors only, checks device, dtype, shape and
 contiguity, allocates outputs and scratch with ``torch.empty``, launches on
@@ -16,18 +13,14 @@ its plain version (``ref.py``) is made in ``ops.py``, by the tensor's device.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
 import pathlib
-import shutil
-import subprocess
-import threading
-from typing import Dict, List, Tuple
+from typing import Dict, Tuple
 
 import torch
 
+from .._build import NVCC_FLAGS, CudaLibrary, check_launch, stream  # noqa: F401  (NVCC_FLAGS re-exported)
+
 _SRC = pathlib.Path(__file__).parent / "csrc" / "lorenzo.cu"
-_BUILD_DIR = pathlib.Path(__file__).parent / "build"
 
 #: kernel launches per wrapper since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {
@@ -43,75 +36,30 @@ _TILE = 4096  # elements per row-scan tile (kTile in the source)
 _SEG_ROWS = 64  # rows per column-scan segment (kSegRows in the source)
 _THREADS = 256
 
-_lib = None
-_lib_lock = threading.Lock()
-
 
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
 
 
-def nvcc_path() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the Lorenzo CUDA kernels cannot be built")
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
+    for name in ("lorenzo_encode_1d", "lorenzo_encode_2d"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, i64, i64, f32, i32, p]
+        fn.restype = ctypes.c_int
+    for name in ("lorenzo_decode_1d", "lorenzo_decode_2d"):
+        fn = getattr(lib, name)
+        fn.argtypes = [p, p, p, i64, i64, f32, p]
+        fn.restype = ctypes.c_int
+    lib.lorenzo_decode_scratch_words.argtypes = [i64, i64, i32]
+    lib.lorenzo_decode_scratch_words.restype = i64
 
 
-#: no ``--use_fast_math``: the kernels' bit identity with the JAX package
-#: needs IEEE single multiplies
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-)
-
-
-def nvcc_command(out: str) -> List[str]:
-    return [nvcc_path(), *NVCC_FLAGS, "-o", out, str(_SRC)]
-
-
-def library_path() -> pathlib.Path:
-    digest = hashlib.sha256(_SRC.read_bytes()).hexdigest()[:16]
-    return _BUILD_DIR / f"liblorenzo-{digest}.so"
-
-
-def build() -> pathlib.Path:
-    """Compile the source unless a library for this exact source exists."""
-    path = library_path()
-    if path.exists():
-        return path
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    res = subprocess.run(nvcc_command(str(tmp)), capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, path)  # atomic: a concurrent process never loads a torn file
-    return path
-
-
-def load() -> ctypes.CDLL:
-    """The built library with every entry point's C signature declared."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-            for name in ("lorenzo_encode_1d", "lorenzo_encode_2d"):
-                fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, i64, i64, f32, i32, p]
-                fn.restype = ctypes.c_int
-            for name in ("lorenzo_decode_1d", "lorenzo_decode_2d"):
-                fn = getattr(lib, name)
-                fn.argtypes = [p, p, p, i64, i64, f32, p]
-                fn.restype = ctypes.c_int
-            lib.lorenzo_decode_scratch_words.argtypes = [i64, i64, i32]
-            lib.lorenzo_decode_scratch_words.restype = i64
-            _lib = lib
-    return _lib
+LIBRARY = CudaLibrary(_SRC, "lorenzo", _declare)
+build = LIBRARY.build
+load = LIBRARY.load
+library_path = LIBRARY.library_path
 
 
 def _check(t: torch.Tensor, dtype: torch.dtype, what: str) -> Tuple[int, int]:
@@ -130,15 +78,6 @@ def _check(t: torch.Tensor, dtype: torch.dtype, what: str) -> Tuple[int, int]:
     return rows, cols
 
 
-def _raise_on(err: int, what: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
-
-
-def _stream() -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
-
-
 def _encode(name: str, x: torch.Tensor, eb: float, radius: int):
     rows, cols = _check(x, torch.float32, name)
     lib = load()
@@ -149,9 +88,9 @@ def _encode(name: str, x: torch.Tensor, eb: float, radius: int):
             x.data_ptr(), codes.data_ptr(), draw.data_ptr(), rows, cols,
             # float64 on the host, rounded to float32 by ctypes, as the JAX
             # kernel's weak-typed Python float meets its float32 tile
-            1.0 / (2.0 * float(eb)), int(radius), _stream(),
+            1.0 / (2.0 * float(eb)), int(radius), stream(),
         )
-    _raise_on(err, name)
+    check_launch(err, name)
     LAUNCHES[name] += 1
     return codes, draw
 
@@ -165,9 +104,9 @@ def _decode(name: str, d: torch.Tensor, eb: float) -> torch.Tensor:
     with torch.cuda.device(d.device):
         err = getattr(lib, f"lorenzo_{name}")(
             d.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, cols,
-            2.0 * float(eb), _stream(),
+            2.0 * float(eb), stream(),
         )
-    _raise_on(err, name)
+    check_launch(err, name)
     LAUNCHES[name] += 1
     return out
 

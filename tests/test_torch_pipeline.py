@@ -48,6 +48,11 @@ DATA = pathlib.Path(__file__).parent / "data"
 FAULTS = DATA / "faults"
 CORPUS = sorted(DATA.rglob("*.sz3"))
 LORENZO_FIXTURES = {"v1_lorenzo_abs.sz3", "v1_lorenzo.sz3"}
+#: corpus files of the kinds the port decodes (v1 Lorenzo, v3, v6)
+PORTED_FIXTURES = LORENZO_FIXTURES | {
+    "v3_transform_abs.sz3", "v3_transform.sz3",
+    "v6_fast_mixed_abs.sz3", "v6_fast_const_rel.sz3", "v6_fast.sz3",
+}
 CPU = "cpu"
 
 MODES = {
@@ -234,25 +239,34 @@ def test_v1_fault_fixture_corrupt_salvage_loses_everything():
 
 
 def test_mutation_grid_contract_through_the_port():
-    """Every grid mutation of a trailer-carrying v1 blob decodes to the
-    pristine bits or raises a ValueError subclass; strict catches most."""
-    blob = _port_blob(FIELDS["2d"], _confs("abs")[1])
-    pristine = tc.decompress(blob, device=CPU).numpy()
-    n = strict_errors = 0
-    for name, mut in faults.mutation_grid(blob, seed=7):
-        n += 1
-        for verify in ("strict", "salvage", "off"):
-            try:
-                got = tc.decompress(mut, verify=verify, device=CPU)
-            except ValueError:
-                strict_errors += verify == "strict"
-                continue
-            if verify == "salvage":
-                got, report = got
-                assert isinstance(report, tc.SalvageReport)
-            elif verify == "strict":
-                _assert_same_bits(got.numpy(), pristine)
-    assert n >= 15 and strict_errors >= n // 2
+    """Every grid mutation of a trailer-carrying v1, v3 (both routes) or v6
+    (both routes) port blob decodes to the pristine bits or raises a
+    ValueError subclass; strict catches most."""
+    conf = _confs("abs")[1]
+    blobs = [
+        _port_blob(FIELDS["2d"], conf),
+        tc.sz3_transform(device=CPU).compress(FIELDS["2d"], conf).blob,
+        tc.sz3_transform(route="force", device=CPU).compress(FIELDS["nan"], conf).blob,
+        tc.sz3_fast(device=CPU).compress(FIELDS["nan"], conf).blob,
+        tc.sz3_fast(route="force", device=CPU).compress(FIELDS["1d"], conf).blob,
+    ]
+    for blob in blobs:
+        pristine = tc.decompress(blob, device=CPU).numpy()
+        n = strict_errors = 0
+        for name, mut in faults.mutation_grid(blob, seed=7):
+            n += 1
+            for verify in ("strict", "salvage", "off"):
+                try:
+                    got = tc.decompress(mut, verify=verify, device=CPU)
+                except ValueError:
+                    strict_errors += verify == "strict"
+                    continue
+                if verify == "salvage":
+                    got, report = got
+                    assert isinstance(report, tc.SalvageReport)
+                elif verify == "strict":
+                    _assert_same_bits(got.numpy(), pristine)
+        assert n >= 15 and strict_errors >= n // 2
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +296,7 @@ def test_malformed_input_raises_value_error(case, verify):
 
 
 @pytest.mark.parametrize(
-    "path", [p for p in CORPUS if p.name not in LORENZO_FIXTURES and "corrupt" not in p.name],
+    "path", [p for p in CORPUS if p.name not in PORTED_FIXTURES and "corrupt" not in p.name],
     ids=lambda p: p.name,
 )
 def test_unported_kinds_raise_container_error(path):
@@ -319,6 +333,8 @@ def test_default_device_is_cuda_and_never_falls_back():
 def test_port_imports_neither_jax_nor_repro():
     code = (
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.lorenzo.ops\n"
+        "import repro_torch.core.transform, repro_torch.core.fastmode\n"
+        "import repro_torch.kernels.transform.ops, repro_torch.kernels.fastmode.ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -424,11 +440,10 @@ def test_lossless_same_bytes_and_bounded(name):
     packed = port.compress(data)
     assert packed == ref.compress(data)
     assert port.decompress_bounded(packed, len(data)) == data
-    # zstandard honours max_output_size only for frames that do not declare
-    # their content size, and these do, in both packages
-    if name in ("gzip", "lzma") or port.name == "gzip":
-        with pytest.raises(tc.ContainerError):
-            port.decompress_bounded(packed, len(data) // 2)
+    # every backend refuses to inflate past the declared size; for zstd the
+    # frame's declared content size is checked before inflating
+    with pytest.raises(tc.ContainerError):
+        port.decompress_bounded(packed, len(data) // 2)
 
 
 def test_zstd_damage_raises_typed_error():

@@ -6,14 +6,19 @@ Phases, one JSON line each:
 
 1. environment: the card, torch and CUDA versions, which host packages
    import (they decide the container's lossless backend and checksum);
-2. build: compile the three CUDA sources under
+2. build: compile the four CUDA sources under
    ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, all at once);
 3. kernels: each kernel against its plain version on the card, bit for bit
    (NaN equal to NaN), at the main paths' shapes and ragged ones, with its
    time, the plain version's time, a PyTorch library call's time and its
    bound: the four Lorenzo kernels, the float32 transform (``fwd``/``inv``,
    1d and 2d modes), the float64 transform axis product (against numpy's
-   product on the host) and the fast tier's ``block_stats`` (bs 128, 256);
+   product on the host), the fast tier's ``block_stats`` (bs 128, 256) and
+   the three KV-quantization kernels (``absmax`` and
+   ``quantize_with_scale`` bit for bit, NaN and all-zero columns included;
+   ``dequant_matmul`` within ``(K+2) * 2**-24 * (|a| @ |deq|)`` of a
+   float64 product, as its plain version is) at one layer's V cache of
+   Qwen1.5-0.5B at a 32K-token prompt, (32768, 1024), and ragged shapes;
 4. main paths, each on a smooth 1800x3600 float32 field (the shape of an
    SDRBench CESM-ATM 2-D field) and on a 2^24+3-element series (HACC-like
    particle data, cut from HACC's 280,953,867 elements so the host coding
@@ -21,7 +26,19 @@ Phases, one JSON line each:
    ``sz3_lorenzo``, ``sz3_transform`` and ``sz3_fast``;
 5. host route: small 3-D fields compressed on the card and on the CPU give
    the same bytes (``sz3_lorenzo``, ``sz3_transform``), and so do
-   ``sz3_transform`` fields with an axis that pads to exactly 4.
+   ``sz3_transform`` fields with an axis that pads to exactly 4;
+6. compressed DP step: a seeded gradient tree with Qwen1.5-0.5B's full
+   shapes (463,987,712 parameters) through ``compressed_reduce_tree``
+   (``int8:bs=512`` and ``int4:bs=512``) on a one-rank NCCL group opened
+   through a ``FileStore`` in a temporary directory, every block within its
+   bound and the card's codes equal to ``encode_host`` on the host copy;
+   then three ``adamw.update`` steps with compressed moments
+   (``int8:bs=256``);
+7. KV prefill: ``quantize_prefill``/``dequantize_prefill`` on one layer's K
+   and V, (1, 32768, 16, 64), within the per-token bound and equal to
+   ``encode_host``; then ``kv_quantize`` on the V cache as (32768, 1024) and
+   ``kv_dequant_matmul`` with 128 rows of attention weights — the
+   KV-quantization kernels' main path.
 
 Each main path must launch its kernels (the launch counters are zeroed just
 before the path and read just after), keep the error bound, write the same
@@ -61,6 +78,7 @@ _F64_RATE = 34e12
 _LORENZO_SRC = "src/repro_torch/kernels/lorenzo/csrc/lorenzo.cu"
 _TRANSFORM_SRC = "src/repro_torch/kernels/transform/csrc/transform.cu"
 _FASTMODE_SRC = "src/repro_torch/kernels/fastmode/csrc/fastmode.cu"
+_KVQUANT_SRC = "src/repro_torch/kernels/kvquant/csrc/kvquant.cu"
 #: summary name -> (source, the TPU kernel or host code it replaces)
 _KERNELS = {
     "encode_1d": (_LORENZO_SRC, "src/repro/kernels/lorenzo/kernel.py:107"),
@@ -73,6 +91,9 @@ _KERNELS = {
     "transform_inv_1d": (_TRANSFORM_SRC, "src/repro/kernels/transform/kernel.py:60 (inv :83)"),
     "transform_axis_f64": (_TRANSFORM_SRC, "src/repro/core/transform.py:92 (_apply_axis, numpy on the host; no TPU kernel)"),
     "block_stats": (_FASTMODE_SRC, "src/repro/kernels/fastmode/kernel.py:35"),
+    "absmax": (_KVQUANT_SRC, "src/repro/kernels/kvquant/kernel.py:56"),
+    "quantize_with_scale": (_KVQUANT_SRC, "src/repro/kernels/kvquant/kernel.py:70"),
+    "dequant_matmul": (_KVQUANT_SRC, "src/repro/kernels/kvquant/kernel.py:106"),
 }
 #: bytes each kernel must move per element (inputs read once, outputs
 #: written once) and the ALU operations it does per element
@@ -80,6 +101,11 @@ _BYTES_PER_ELEM = {"encode_1d": 12, "encode_2d": 12, "decode_1d": 8, "decode_2d"
 _OPS_PER_ELEM = {"encode_1d": 6, "encode_2d": 9, "decode_1d": 3, "decode_2d": 4}
 N1D = (1 << 24) + 3
 SHAPE2D = (1800, 3600)
+#: Qwen1.5-0.5B (src/repro/configs/qwen1_5_0_5b.py): 24 layers, d_model
+#: 1024, 16 heads of 64 (16 KV heads), d_ff 2816, vocab 151936, 32K context
+QWEN = {"layers": 24, "d": 1024, "ff": 2816, "vocab": 151936, "kv_heads": 16, "hd": 64, "context": 32768}
+#: rows of attention weights read against the quantized V cache
+KV_QUERIES = 128
 
 RESULTS: dict = {}
 
@@ -184,14 +210,15 @@ def phase_environment() -> str:
 
 def _kernel_modules():
     from repro_torch.kernels.fastmode import kernel as FK
+    from repro_torch.kernels.kvquant import kernel as KK
     from repro_torch.kernels.lorenzo import kernel as LK
     from repro_torch.kernels.transform import kernel as TK
 
-    return {"lorenzo": LK, "transform": TK, "fastmode": FK}
+    return {"lorenzo": LK, "transform": TK, "fastmode": FK, "kvquant": KK}
 
 
 def phase_build() -> None:
-    """Build the three CUDA sources at once: one nvcc process each."""
+    """Build the four CUDA sources at once: one nvcc process each."""
     mods = _kernel_modules()
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
@@ -216,6 +243,7 @@ def all_launches() -> dict:
     out = dict(mods["lorenzo"].LAUNCHES)
     out.update({f"transform_{k}": v for k, v in mods["transform"].LAUNCHES.items()})
     out.update(mods["fastmode"].LAUNCHES)
+    out.update(mods["kvquant"].LAUNCHES)
     return out
 
 
@@ -426,12 +454,119 @@ def block_stats_kernels(timer, bw: float, x2d: torch.Tensor, x1d: torch.Tensor) 
     return cases
 
 
+def v_cache(shape, seed: int) -> torch.Tensor:
+    """A float32 stand-in for a V cache made on the card: unit-normal values
+    with a per-channel scale spread over e^-2..e^2, as projected heads have."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    spread = torch.exp(4 * torch.rand((1, shape[-1]), generator=g, device="cuda") - 2)
+    return torch.randn(shape, generator=g, device="cuda") * spread
+
+
+def attention_rows(rows: int, keys: int, seed: int) -> torch.Tensor:
+    """Softmax rows over ``keys`` positions: what reads the V cache."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return torch.softmax(2 * torch.randn((rows, keys), generator=g, device="cuda"), dim=-1)
+
+
+def f64_matmul_check(out: torch.Tensor, a: torch.Tensor, q: torch.Tensor, s: torch.Tensor) -> float:
+    """max |out - A @ deq| / ((K+2) 2^-24 (|A| @ |deq|)) against a float64
+    product on the card: the textbook bound of a float32 dot product of K
+    terms in any order; above 1 the product is wrong."""
+    deq = q.double() * s.double()[None, :]
+    a64 = a.double()
+    tol = (a.shape[1] + 2) * 2.0**-24 * (a64.abs() @ deq.abs())
+    ratio = (out.double() - a64 @ deq).abs() / tol.clamp_min(torch.finfo(torch.float64).tiny)
+    return float(ratio.max())
+
+
+def kvquant_kernels(timer, bw: float, seed: int) -> dict:
+    """absmax and quantize_with_scale bit for bit, dequant_matmul within the
+    float64 bound, at the KV path's shapes and ragged ones."""
+    from repro_torch.kernels.kvquant import kernel as K
+    from repro_torch.kernels.kvquant import ref as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # library yardstick in full float32
+    cases = {}
+    T, C = QWEN["context"], QWEN["kv_heads"] * QWEN["hd"]
+    for label, shape in (("main", (T, C)), ("ragged", (300, 96)), ("ragged", (33, 200))):
+        x = v_cache(shape, seed + shape[0])
+        n = x.numel()
+        amax = K.absmax(x)
+        torch.cuda.synchronize()
+        want = R.absmax(x)
+        case = {
+            "name": "absmax",
+            "shape": list(shape),
+            "bit_identical": same_bits(amax, want),
+            "max_abs_err": max_abs_diff([(amax, want)]),
+            "kernel_ms": timer(lambda: K.absmax(x)),
+            "plain_ms": timer(lambda: R.absmax(x)),
+            "library_ms": timer(lambda: torch.amax(x.abs(), 0)),
+            **bound(4 * n + 4 * shape[1], 2 * n, bw),
+        }
+        _check_case(f"absmax {label} {shape[0]}x{shape[1]}", case)
+        scale = R.scale_from_absmax(amax)
+        q = K.quantize_with_scale(x, scale)
+        torch.cuda.synchronize()
+        want_q = R.quantize_with_scale(x, scale)
+        qcase = {
+            "name": "quantize_with_scale",
+            "shape": list(shape),
+            "bit_identical": torch.equal(q, want_q),
+            "max_abs_err": max_abs_diff([(q, want_q)]),
+            "kernel_ms": timer(lambda: K.quantize_with_scale(x, scale)),
+            "plain_ms": timer(lambda: R.quantize_with_scale(x, scale)),
+            "library_ms": None,
+            **bound(5 * n + 4 * shape[1], 4 * n, bw),
+        }
+        _check_case(f"quantize_with_scale {label} {shape[0]}x{shape[1]}", qcase)
+        rows = KV_QUERIES if label == "main" else 48
+        a = attention_rows(rows, shape[0], seed + 1)
+        out = K.dequant_matmul(a, q, scale)
+        torch.cuda.synchronize()
+        plain = R.dequant_matmul(a, q, scale)
+        kernel_ratio, plain_ratio = f64_matmul_check(out, a, q, scale), f64_matmul_check(plain, a, q, scale)
+        M, Kd, N = rows, shape[0], shape[1]
+        mcase = {
+            "name": "dequant_matmul",
+            "shape": [M, Kd, N],
+            "split_k": list(K.split_k(M, Kd, N)),
+            "err_over_f64_bound": kernel_ratio,
+            "plain_err_over_f64_bound": plain_ratio,
+            "max_abs_err": max_abs_diff([(out, plain)]),
+            "kernel_ms": timer(lambda: K.dequant_matmul(a, q, scale)),
+            "plain_ms": timer(lambda: R.dequant_matmul(a, q, scale)),
+            "library_ms": timer(lambda: torch.matmul(a, q.float() * scale)),
+            **bound(4 * M * Kd + Kd * N + 4 * N + 4 * M * N, 2 * M * N * Kd, bw),
+        }
+        emit(f"kernel dequant_matmul {label} {M}x{Kd}x{N}", **mcase)
+        if not (kernel_ratio <= 1 and plain_ratio <= 1):
+            raise AssertionError(f"dequant_matmul at {M}x{Kd}x{N}: error over the float64 bound "
+                                 f"{kernel_ratio} (kernel), {plain_ratio} (plain)")
+        if label == "main":
+            cases.update({"absmax": case, "quantize_with_scale": qcase, "dequant_matmul": mcase})
+    # NaN, inf and all-zero columns: bit for bit with the plain versions
+    x = v_cache((4096, 256), seed + 9)
+    x[:, 1] = 0.0
+    x[100, 2] = float("nan")
+    x[:, 3] = float("nan")
+    x[7, 4] = float("inf")
+    amax, want = K.absmax(x), R.absmax(x)
+    scale = R.scale_from_absmax(amax)
+    if not (same_bits(amax, want) and torch.equal(K.quantize_with_scale(x, scale), R.quantize_with_scale(x, scale))):
+        raise AssertionError("absmax/quantize_with_scale with nan, inf or zero columns differ from their plain versions")
+    emit("kernel kvquant nan/inf/zero columns", shape=[4096, 256], bit_identical=True,
+         nan_scale=bool(torch.isnan(scale[2]) and torch.isnan(scale[3])), zero_column_scale=float(scale[1]))
+    return cases
+
+
 def phase_kernels(seed: int, bw: float, x2d: torch.Tensor, x1d: torch.Tensor) -> dict:
     timer = Timer()
     g = torch.Generator(device="cuda").manual_seed(seed)
     cases = lorenzo_kernels(timer, g, bw)
     cases.update(transform_kernels(timer, bw, x2d, torch.cat([x1d, x1d[-1:]])))  # 2^24+4
     cases.update(block_stats_kernels(timer, bw, x2d, x1d))
+    cases.update(kvquant_kernels(timer, bw, seed))
     return cases
 
 
@@ -634,6 +769,229 @@ def phase_host_route(seed: int) -> None:
         emit("axis of 4 sz3_transform", shape=list(shape), same_bytes_as_cpu=True, max_abs_err=err)
 
 
+def qwen_tree(seed: int, scale: float) -> dict:
+    """A tree with Qwen1.5-0.5B's full parameter shapes, as the JAX
+    package's ``init_lm`` lays it out (layers stacked under ``blocks``),
+    filled on the card from ``seed``: 463,987,712 float32 values."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    L, d, ff = QWEN["layers"], QWEN["d"], QWEN["ff"]
+
+    def leaf(*shape):
+        return torch.randn(shape, generator=g, device="cuda") * scale
+
+    return {
+        "embed": leaf(QWEN["vocab"], d),
+        "final_norm": {"w": leaf(d)},
+        "blocks": {
+            "ln1": {"w": leaf(L, d)},
+            "ln2": {"w": leaf(L, d)},
+            "attn": {"wq": leaf(L, d, d), "wk": leaf(L, d, d), "wv": leaf(L, d, d), "wo": leaf(L, d, d),
+                     "bq": leaf(L, d), "bk": leaf(L, d), "bv": leaf(L, d)},
+            "mlp": {"w1": leaf(L, d, ff), "w3": leaf(L, d, ff), "w2": leaf(L, ff, d)},
+        },
+    }
+
+
+def codes_equal_host(c, x: torch.Tensor, pol, chunk: int = 1 << 26) -> int:
+    """The card's fixed-tier codes of flat ``x`` against the numpy mirror
+    ``encode_host`` on the host copy, chunk by chunk (block-aligned chunks:
+    each block is encoded on its own, and the last chunk ends where ``x``
+    ends, so its edge padding is the whole vector's).  Returns the blocks
+    compared; raises on the first difference."""
+    from repro_torch.core import jitmode as J
+
+    host = x.cpu().numpy()
+    chunk -= chunk % pol.bs
+    fields = {f: getattr(c, f).cpu() for f in ("codes", "scale", "tags", "base")}
+    blocks = 0
+    for start in range(0, host.size, chunk):
+        h = J.encode_host(host[start : start + chunk], pol)
+        b0 = start // pol.bs
+        for f, card in fields.items():
+            want = getattr(h, f)
+            if not same_bits(card[b0 : b0 + want.shape[0]], want):
+                raise AssertionError(f"{f} of blocks {b0}..{b0 + want.shape[0]} differ from encode_host")
+        blocks += h.scale.shape[0]
+    if blocks != c.scale.shape[0]:
+        raise AssertionError(f"compared {blocks} blocks of {c.scale.shape[0]}")
+    return blocks
+
+
+def block_error_over_bound(c, x: torch.Tensor) -> float:
+    """max over blocks of max |decode - x| / bound()."""
+    from repro_torch.core import jitmode as J
+
+    err = (J.decode(c) - x).abs()
+    nb = c.scale.shape[0]
+    err = torch.nn.functional.pad(err, (0, nb * c.bs - c.n)).reshape(nb, c.bs).amax(dim=1)
+    return float((err / c.bound()).max())
+
+
+def phase_dp_step(seed: int) -> None:
+    """The compressed data-parallel reduction on a one-rank NCCL group, then
+    three AdamW steps with compressed moments, at Qwen1.5-0.5B's shapes."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import tree as tree_util
+    from repro_torch.compression import grad as G
+    from repro_torch.compression import opt_state as OS
+    from repro_torch.core import jitmode as J
+    from repro_torch.optim import adamw
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    grads = qwen_tree(seed + 20, 1e-3)
+    leaves, _ = tree_util.flatten(grads)
+    n = sum(leaf.numel() for leaf in leaves)
+    if n != 463_987_712:
+        raise AssertionError(f"the Qwen1.5-0.5B tree holds {n} parameters, not 463,987,712")
+    largest = max(leaves, key=lambda t: t.numel())
+    with tempfile.TemporaryDirectory(dir=ROOT / "chiprun_out") as tmp:
+        store = dist.FileStore(str(pathlib.Path(tmp) / "store"), 1)
+        dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+        try:
+            # NCCL sets up its communicator at the first collective: not timed
+            warm = {"w": torch.ones(4096, device="cuda")}
+            G.compressed_reduce_tree(warm, G.init_feedback(warm, 1), None, "int8:bs=512")
+            for spec in ("int8:bs=512", "int4:bs=512"):
+                pol = G.as_policy(spec)
+                fb = G.init_feedback(grads, 1)
+                out, t_reduce = _timed(lambda: G.compressed_reduce_tree(grads, fb, None, pol))
+                out_tree, new_fb = out
+                # dp = 1: the shard is the bf16-rounded flat vector; the
+                # reduction's output and feedback are its decode and residual
+                shard = G._flatten_tree(grads)[0].to(torch.bfloat16).to(torch.float32)
+                c, t_enc = _timed(lambda: J.encode(shard, pol))
+                dec, t_dec = _timed(lambda: J.decode(c))
+                flat_out = G._flatten_tree(out_tree)[0]
+                if not (same_bits(flat_out, dec) and same_bits(new_fb, shard - dec)):
+                    raise AssertionError(f"{spec}: the reduction's output or feedback is not its codes' decode")
+                ratio = block_error_over_bound(c, shard)
+                if not ratio <= 1.0:
+                    raise AssertionError(f"{spec}: a block's error is {ratio} times its bound")
+                blocks = codes_equal_host(c, shard, pol)
+                c_leaf = J.encode(largest.reshape(-1), pol)
+                leaf_blocks = codes_equal_host(c_leaf, largest.reshape(-1), pol)
+                wire = G.collective_bytes(n, 1, pol)
+                if c.wire_bytes() != wire["ag_bytes"]:
+                    raise AssertionError(f"{spec}: {c.wire_bytes()} code bytes, the byte model says {wire['ag_bytes']}")
+                emit(
+                    f"dp step {spec}",
+                    parameters=n,
+                    reduce_s=t_reduce,
+                    encode_s=t_enc,
+                    decode_s=t_dec,
+                    encode_GBps=4 * n / t_enc / 1e9,
+                    decode_GBps=4 * n / t_dec / 1e9,
+                    wire_bytes=wire,
+                    max_block_error_over_bound=ratio,
+                    blocks_equal_to_encode_host=blocks,
+                    largest_leaf=list(largest.shape),
+                    largest_leaf_blocks_equal_to_encode_host=leaf_blocks,
+                    peak_device_bytes=torch.cuda.max_memory_allocated(),
+                )
+                del out, out_tree, new_fb, shard, c, dec, flat_out, c_leaf
+        finally:
+            dist.destroy_process_group()
+    del grads, leaves, largest
+    # three AdamW steps with compressed moments on the same shapes
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = qwen_tree(seed + 21, 0.02)
+    cfg = adamw.AdamWConfig(lr=1e-3, compress_moments=True, moment_policy="int8:bs=256")
+    state = adamw.init_state(params, cfg)
+    steps = []
+    for step in range(3):
+        g = qwen_tree(seed + 30 + step, 1e-3)
+        (params, state, met), t_step = _timed(lambda: adamw.update(params, g, state, cfg))
+        steps.append({"seconds": t_step, "grad_norm": float(met["grad_norm"])})
+        del g
+    p_leaves = tree_util.flatten(params)[0]
+    if not all(bool(torch.isfinite(p).all()) for p in p_leaves):
+        raise AssertionError("AdamW with compressed moments gave non-finite parameters")
+    moments = [c for k in ("m", "v") for c in tree_util.flatten(state[k])[0]]
+    if not all(isinstance(c, OS.Compressed) for c in moments):
+        raise AssertionError("AdamW state holds uncompressed moments")
+    moment_bytes = sum(c.nbytes() for c in moments)
+    emit(
+        "adamw compressed moments",
+        parameters=n,
+        policy=cfg.moment_policy,
+        steps=steps,
+        moment_bytes=moment_bytes,
+        float32_moment_bytes=2 * 4 * n,
+        moment_ratio=2 * 4 * n / moment_bytes,
+        peak_device_bytes=torch.cuda.max_memory_allocated(),
+    )
+
+
+def phase_kv_path(seed: int, launches_total: dict) -> None:
+    """Prefill codes for one layer's K and V, then the V cache through the
+    KV-quantization kernels: the kernels' main path."""
+    from repro_torch.compression import kvcache as KVC
+    from repro_torch.core import jitmode as J
+    from repro_torch.kernels.kvquant import ops as kvops
+    from repro_torch.kernels.kvquant import ref as R
+
+    T, H, hd = QWEN["context"], QWEN["kv_heads"], QWEN["hd"]
+    k = v_cache((1, T, H, hd), seed + 40)
+    v = v_cache((1, T, H, hd), seed + 41)
+    a = attention_rows(KV_QUERIES, T, seed + 42)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    prefill = {}
+    for name, x in (("k", k), ("v", v)):
+        c = KVC.quantize_prefill(x)
+        back = KVC.dequantize_prefill(c)
+        prefill[name] = (c, back)
+    v_cache_2d = v.reshape(T, H * hd)
+    q, scale = kvops.kv_quantize(v_cache_2d)
+    out = kvops.kv_dequant_matmul(a, q, scale)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    for name in ("absmax", "quantize_with_scale", "dequant_matmul"):
+        if launches[name] == 0:
+            raise AssertionError(f"KV path: kernel {name} was not launched")
+        launches_total[name] += launches[name]
+    report = {}
+    for name, x in (("k", k), ("v", v)):
+        c, back = prefill[name]
+        err = (back - x).abs().amax(dim=-1)  # one block per token vector
+        ratio = float((err / c.bound()[..., 0]).max())
+        if not ratio <= 1.0:
+            raise AssertionError(f"KV prefill {name}: a token's error is {ratio} times its bound")
+        flat = J.BlockCodes(codes=c.codes.reshape(-1, c.codes.shape[-1]), scale=c.scale.reshape(-1),
+                            tags=c.tags.reshape(-1), base=c.base.reshape(-1), n=x.numel(), bits=c.bits, bs=hd)
+        blocks = codes_equal_host(flat, x.reshape(-1), KVC.prefill_policy(hd))
+        report[name] = {"max_token_error_over_bound": ratio, "blocks_equal_to_encode_host": blocks}
+    q_plain, s_plain = R.quantize(v_cache_2d)
+    if not (torch.equal(q, q_plain) and same_bits(scale, s_plain)):
+        raise AssertionError("KV path: kv_quantize differs from its plain version")
+    ratio = f64_matmul_check(out, a, q, scale)
+    if not ratio <= 1.0:
+        raise AssertionError(f"KV path: kv_dequant_matmul error is {ratio} times the float64 bound")
+    deq_err = float((R.dequantize(q, scale) - v_cache_2d).abs().div(scale[None, :] * 0.5).max())
+    if not deq_err <= 1.0002:  # scale/2, and the JAX test's 0.5001 for the product's rounding
+        raise AssertionError(f"KV path: kv_quantize error is {deq_err} times half the scale")
+    emit(
+        "kv path",
+        shape=[1, T, H, hd],
+        seconds=seconds,
+        prefill=report,
+        prefill_code_bytes=sum(c.codes.numel() + 9 * c.scale.numel() for c, _ in prefill.values()),
+        float32_bytes=2 * 4 * k.numel(),
+        kv_quantize_error_over_half_scale=deq_err,
+        dequant_matmul_shape=[KV_QUERIES, T, H * hd],
+        dequant_matmul_err_over_f64_bound=ratio,
+        launches={n: c for n, c in launches.items() if c},
+    )
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -650,6 +1008,15 @@ def main() -> int:
         phase_main_path(pipeline, "2-D", x2d, launches)
         phase_main_path(pipeline, "1-D", x1d, launches)
     phase_host_route(args.seed)
+    t_paths = time.perf_counter()
+    phase_dp_step(args.seed)
+    t_dp = time.perf_counter()
+    phase_kv_path(args.seed, launches)
+    RESULTS["phase_seconds"] = {
+        "up to the host routes": t_paths - t0,
+        "dp step": t_dp - t_paths,
+        "kv path": time.perf_counter() - t_dp,
+    }
     summary = {
         "kernels": [
             {

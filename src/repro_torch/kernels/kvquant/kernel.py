@@ -1,0 +1,139 @@
+"""Bind and launch the CUDA KV-quantization kernels (``csrc/kvquant.cu``).
+
+The source is built at first launch by :mod:`.._build` (``nvcc`` for
+``sm_90a``, a plain C interface loaded with ``ctypes``, into ``build/``
+beside this file).  Nothing is built or loaded at import.
+
+Each wrapper takes CUDA tensors only, checks device, dtype, shape and
+contiguity, allocates its outputs (and the matmul's split-K workspace)
+with ``torch.empty``, launches on ``torch.cuda.current_stream()``, raises
+if the launch reports an error, and adds one to its entry in
+:data:`LAUNCHES`.  The choice between the kernels and their plain versions
+(``ref.py``) is made in ``ops.py``, by the tensors' device.
+"""
+from __future__ import annotations
+
+import ctypes
+import pathlib
+from typing import Dict, Tuple
+
+import torch
+
+from .._build import CudaLibrary, check_launch, stream
+
+_SRC = pathlib.Path(__file__).parent / "csrc" / "kvquant.cu"
+
+#: kernel launches since the last :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {"absmax": 0, "quantize_with_scale": 0, "dequant_matmul": 0}
+
+#: the matmul's output tile and K step (``MM_BM``/``MM_BN``/``MM_BK``)
+_TILE, _BK = 64, 16
+#: split K until about this many blocks are in flight (two per SM of an H100)
+_TARGET_BLOCKS = 264
+#: the absmax kernel's rows per block (``AM_BAND``); the grid's y dimension
+#: holds at most 65535 bands
+_AM_BAND = 512
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.kvquant_absmax.argtypes = [p, p, i64, i64, p]
+    lib.kvquant_absmax.restype = i32
+    lib.kvquant_quantize.argtypes = [p, p, p, i64, i64, i32, p]
+    lib.kvquant_quantize.restype = i32
+    lib.kvquant_dequant_matmul.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i32, p]
+    lib.kvquant_dequant_matmul.restype = i32
+
+
+LIBRARY = CudaLibrary(_SRC, "kvquant", _declare)
+build = LIBRARY.build
+load = LIBRARY.load
+library_path = LIBRARY.library_path
+
+
+def _check(name: str, t: torch.Tensor, dtype: torch.dtype, ndim: int) -> torch.Tensor:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: the CUDA kernel needs a CUDA tensor, got {t.device}")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.ndim != ndim or 0 in t.shape:
+        raise ValueError(f"{name}: expected a non-empty {ndim}-D tensor, got {tuple(t.shape)}")
+    return t.contiguous()
+
+
+def absmax(x: torch.Tensor) -> torch.Tensor:
+    """(T, C) float32 -> per-column max |x|, (C,) float32; NaN propagates."""
+    x = _check("absmax", x, torch.float32, 2)
+    T, C = x.shape
+    if _cdiv(T, _AM_BAND) > 65535:
+        raise ValueError(f"absmax: {T} rows exceed the kernel's grid ({65535 * _AM_BAND})")
+    lib = load()
+    bits = torch.zeros(C, dtype=torch.int32, device=x.device)  # +0.0f
+    with torch.cuda.device(x.device):
+        err = lib.kvquant_absmax(x.data_ptr(), bits.data_ptr(), T, C, stream())
+    check_launch(err, "absmax")
+    LAUNCHES["absmax"] += 1
+    return bits.view(torch.float32)
+
+
+def quantize_with_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """(T, C) float32 and per-column scale (C,) -> int8 codes (T, C)."""
+    x = _check("quantize_with_scale", x, torch.float32, 2)
+    scale = _check("quantize_with_scale", scale, torch.float32, 1)
+    T, C = x.shape
+    if scale.shape[0] != C or scale.device != x.device:
+        raise ValueError(f"quantize_with_scale: scale {tuple(scale.shape)} on {scale.device} "
+                         f"does not fit x {tuple(x.shape)} on {x.device}")
+    q = torch.empty((T, C), dtype=torch.int8, device=x.device)
+    vec = int(C % 4 == 0 and x.data_ptr() % 16 == 0 and scale.data_ptr() % 16 == 0 and q.data_ptr() % 4 == 0)
+    lib = load()
+    with torch.cuda.device(x.device):
+        err = lib.kvquant_quantize(x.data_ptr(), scale.data_ptr(), q.data_ptr(), T, C, vec, stream())
+    check_launch(err, "quantize_with_scale")
+    LAUNCHES["quantize_with_scale"] += 1
+    return q
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_k(M: int, K: int, N: int) -> Tuple[int, int]:
+    """(kchunk, splits): split K while the output tiles alone leave the card
+    idle, each split at least 256 deep and a whole number of K steps."""
+    tiles = _cdiv(M, _TILE) * _cdiv(N, _TILE)
+    splits = max(1, min(_cdiv(_TARGET_BLOCKS, tiles), K // 256))
+    kchunk = _cdiv(_cdiv(K, splits), _BK) * _BK
+    return kchunk, _cdiv(K, kchunk)
+
+
+def dequant_matmul(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    """a (M, K) float32 @ (q (K, N) int8 as float32) * scale (N,) -> (M, N)
+    float32, accumulated in IEEE float32 (no TF32, no tensor cores)."""
+    a = _check("dequant_matmul", a, torch.float32, 2)
+    q = _check("dequant_matmul", q, torch.int8, 2)
+    scale = _check("dequant_matmul", scale, torch.float32, 1)
+    M, K = a.shape
+    K2, N = q.shape
+    if K2 != K or scale.shape[0] != N or not (a.device == q.device == scale.device):
+        raise ValueError(f"dequant_matmul: a {tuple(a.shape)}, q {tuple(q.shape)}, "
+                         f"scale {tuple(scale.shape)} do not fit or are on different devices")
+    if _cdiv(M, _TILE) > 65535:
+        raise ValueError(f"dequant_matmul: {M} rows exceed the kernel's grid ({65535 * _TILE})")
+    kchunk, splits = split_k(M, K, N)
+    ws = torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
+    out = torch.empty((M, N), dtype=torch.float32, device=a.device)
+    lib = load()
+    with torch.cuda.device(a.device):
+        err = lib.kvquant_dequant_matmul(
+            a.data_ptr(), q.data_ptr(), scale.data_ptr(), ws.data_ptr(), out.data_ptr(),
+            M, K, N, kchunk, splits, stream(),
+        )
+    check_launch(err, "dequant_matmul")
+    LAUNCHES["dequant_matmul"] += 1
+    return out

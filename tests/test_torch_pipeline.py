@@ -335,6 +335,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import sys, repro_torch, repro_torch.core, repro_torch.kernels.lorenzo.ops\n"
         "import repro_torch.core.transform, repro_torch.core.fastmode\n"
         "import repro_torch.kernels.transform.ops, repro_torch.kernels.fastmode.ops\n"
+        "import repro_torch.core.jitmode, repro_torch.compression, repro_torch.optim, repro_torch.tree\n"
+        "import repro_torch.kernels.kvquant.ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

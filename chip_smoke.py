@@ -6,7 +6,7 @@ Phases, one JSON line each:
 
 1. environment: the card, torch and CUDA versions, which host packages
    import (they decide the container's lossless backend and checksum);
-2. build: compile the four CUDA sources under
+2. build: compile the five CUDA sources under
    ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, all at once);
 3. kernels: each kernel against its plain version on the card, bit for bit
    (NaN equal to NaN), at the main paths' shapes and ragged ones, with its
@@ -19,11 +19,21 @@ Phases, one JSON line each:
    ``dequant_matmul`` within ``(K+2) * 2**-24 * (|a| @ |deq|)`` of a
    float64 product, as its plain version is) at one layer's V cache of
    Qwen1.5-0.5B at a 32K-token prompt, (32768, 1024), and ragged shapes;
+   and the bitplane transpose (``encode``/``decode``) on the 6,480,000
+   integers the v3 coder hands its host bitplane codec for the 1800x3600
+   field, on 2^24+3 uniform uint32 and on n = 0, 5, 16385, with its planes
+   held against the host codec's;
 4. main paths, each on a smooth 1800x3600 float32 field (the shape of an
    SDRBench CESM-ATM 2-D field) and on a 2^24+3-element series (HACC-like
    particle data, cut from HACC's 280,953,867 elements so the host coding
    stages fit the run), REL 1e-4, compress and decompress on the card:
-   ``sz3_lorenzo``, ``sz3_transform`` and ``sz3_fast``;
+   ``sz3_lorenzo``, ``sz3_transform`` and ``sz3_fast``; then the bitplane
+   transpose's own entry point on the v3 coder's integers; then the v2
+   chunked engine ``sz3_chunked`` on both inputs (4 MiB chunks: 7 of the
+   field, 17 of the series; per-chunk picks among ``sz3_lorenzo``,
+   ``sz3_lr`` and ``sz3_interp``) and with ``speed_tier="throughput"`` on
+   the series (``sz3_fast`` joins the contest), each also at ``workers=4``;
+   then ``sz3_lr`` and ``sz3_interp`` alone on the field;
 5. host route: small 3-D fields compressed on the card and on the CPU give
    the same bytes (``sz3_lorenzo``, ``sz3_transform``), and so do
    ``sz3_transform`` fields with an axis that pads to exactly 4;
@@ -41,9 +51,10 @@ Phases, one JSON line each:
    KV-quantization kernels' main path.
 
 Each main path must launch its kernels (the launch counters are zeroed just
-before the path and read just after), keep the error bound, write the same
-bytes as the plain versions on the CPU (``device="cpu", route="force"``),
-and decode on the CPU within the bound.
+before the path and read just after; the chunked engine exactly once per
+chunk routed to a kernel), keep the error bound, write the same bytes as
+the plain versions on the CPU (``device="cpu", route="force"``), and decode
+on the CPU within the bound.
 
 The last three lines are the ``{"kernels": [...]}`` summary, the card's name
 and power limit as ``nvidia-smi`` prints them, and
@@ -64,6 +75,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -79,6 +91,7 @@ _LORENZO_SRC = "src/repro_torch/kernels/lorenzo/csrc/lorenzo.cu"
 _TRANSFORM_SRC = "src/repro_torch/kernels/transform/csrc/transform.cu"
 _FASTMODE_SRC = "src/repro_torch/kernels/fastmode/csrc/fastmode.cu"
 _KVQUANT_SRC = "src/repro_torch/kernels/kvquant/csrc/kvquant.cu"
+_BITPLANE_SRC = "src/repro_torch/kernels/bitplane/csrc/bitplane.cu"
 #: summary name -> (source, the TPU kernel or host code it replaces)
 _KERNELS = {
     "encode_1d": (_LORENZO_SRC, "src/repro/kernels/lorenzo/kernel.py:107"),
@@ -94,6 +107,8 @@ _KERNELS = {
     "absmax": (_KVQUANT_SRC, "src/repro/kernels/kvquant/kernel.py:56"),
     "quantize_with_scale": (_KVQUANT_SRC, "src/repro/kernels/kvquant/kernel.py:70"),
     "dequant_matmul": (_KVQUANT_SRC, "src/repro/kernels/kvquant/kernel.py:106"),
+    "bitplane_encode": (_BITPLANE_SRC, "src/repro/kernels/bitplane/kernel.py:36"),
+    "bitplane_decode": (_BITPLANE_SRC, "src/repro/kernels/bitplane/kernel.py:49"),
 }
 #: bytes each kernel must move per element (inputs read once, outputs
 #: written once) and the ALU operations it does per element
@@ -182,6 +197,20 @@ def particle_series(n: int, seed: int) -> torch.Tensor:
     return (128.0 + 100.0 * torch.sin(2 * math.pi * 3 * t) + walk).to(torch.float32)
 
 
+def host_crc32c_rate(nbytes: int = 64 << 20) -> float:
+    """MB/s of the port's numpy CRC32C (what verifies CRC32C trailers where
+    ``google_crc32c`` is missing) over ``nbytes`` random bytes, on this host's
+    CPU; needs no card (``python3 -c "import chip_smoke;
+    print(chip_smoke.host_crc32c_rate())"`` from the repository root)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core import integrity
+
+    data = np.random.default_rng(3).integers(0, 256, nbytes, dtype=np.uint8).tobytes()
+    t0 = time.perf_counter()
+    integrity.crc32c_numpy(data)
+    return nbytes / (time.perf_counter() - t0) / 1e6
+
+
 def phase_environment() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this needs an NVIDIA GPU")
@@ -195,6 +224,9 @@ def phase_environment() -> str:
             host[mod] = True
         except ImportError:
             host[mod] = False
+    from repro_torch.core import quantizers
+
+    quantizers.check_numpy_sum_order()  # raises where blobs would not be the JAX package's
     emit(
         "environment",
         nvidia_smi=line,
@@ -203,22 +235,26 @@ def phase_environment() -> str:
         torch=torch.__version__,
         cuda=torch.version.cuda,
         python=sys.version.split()[0],
+        numpy=np.__version__,
         host_packages=host,
+        numpy_sum_order="pairwise (probed)",
+        host_crc32c_numpy_MBps=host_crc32c_rate(),
     )
     return line
 
 
 def _kernel_modules():
+    from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.fastmode import kernel as FK
     from repro_torch.kernels.kvquant import kernel as KK
     from repro_torch.kernels.lorenzo import kernel as LK
     from repro_torch.kernels.transform import kernel as TK
 
-    return {"lorenzo": LK, "transform": TK, "fastmode": FK, "kvquant": KK}
+    return {"lorenzo": LK, "transform": TK, "fastmode": FK, "kvquant": KK, "bitplane": BK}
 
 
 def phase_build() -> None:
-    """Build the four CUDA sources at once: one nvcc process each."""
+    """Build the five CUDA sources at once: one nvcc process each."""
     mods = _kernel_modules()
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
@@ -244,6 +280,7 @@ def all_launches() -> dict:
     out.update({f"transform_{k}": v for k, v in mods["transform"].LAUNCHES.items()})
     out.update(mods["fastmode"].LAUNCHES)
     out.update(mods["kvquant"].LAUNCHES)
+    out.update({f"bitplane_{k}": v for k, v in mods["bitplane"].LAUNCHES.items()})
     return out
 
 
@@ -560,13 +597,120 @@ def kvquant_kernels(timer, bw: float, seed: int) -> dict:
     return cases
 
 
-def phase_kernels(seed: int, bw: float, x2d: torch.Tensor, x1d: torch.Tensor) -> dict:
+def v3_coder_integers(x2d: torch.Tensor) -> torch.Tensor:
+    """|integers| the v3 coder hands its host bitplane codec for ``x2d`` at
+    REL 1e-4 (the bands, the DC band delta-coded), as uint32 on the card."""
+    import repro_torch.core as tc
+    from repro_torch.core import transform
+
+    seen = []
+    host_encode = transform.bitplane_encode
+
+    def capture(vals):
+        seen.append(np.asarray(vals, np.int64))
+        return host_encode(vals)
+
+    transform.bitplane_encode = capture
+    try:
+        tc.sz3_transform().compress(x2d, tc.CompressionConfig(mode=tc.ErrorBoundMode.REL, eb=1e-4))
+    finally:
+        transform.bitplane_encode = host_encode
+    mags = np.abs(np.concatenate(seen))
+    if mags.size != x2d.numel() or int(mags.max()) >= 1 << 32:
+        raise AssertionError(f"the v3 coder's integers: {mags.size} values, max {int(mags.max())}")
+    return torch.from_numpy(mags.astype(np.uint32)).cuda()
+
+
+def _u32_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| of two uint32 tensors, as integers."""
+    wide = [t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF for t in (a, b)]
+    return float((wide[0] - wide[1]).abs().max())
+
+
+def _host_planes_match(words: torch.Tensor, vals: torch.Tensor) -> int:
+    """The transpose's plane content against the host codec's planes
+    (MSB-first), as ``tests/test_kernels.py`` holds the JAX codecs; returns
+    the planes compared."""
+    from repro_torch.core import quantizers
+
+    v = vals.cpu().numpy()
+    n = v.size
+    blob = quantizers.bitplane_encode(v.astype(np.int64))
+    nplanes = int(np.frombuffer(blob, np.int64, count=2)[1])
+    nbytes_plane = (n + 7) // 8
+    pos = 16 + nbytes_plane  # header + sign bitmap (all zero)
+    w = words.cpu().view(torch.int32).numpy().view(np.uint32)
+    for i, p in enumerate(range(nplanes - 1, -1, -1)):
+        host = np.frombuffer(blob, np.uint8, count=nbytes_plane, offset=pos + i * nbytes_plane)
+        kern = np.packbits(np.unpackbits(w[p].view(np.uint8), bitorder="little")[:n])
+        if not np.array_equal(host, kern):
+            raise AssertionError(f"bitplane plane {p} differs from the host codec's")
+    if w[nplanes:].any():
+        raise AssertionError("bitplane planes above the host codec's are not zero")
+    return nplanes
+
+
+def bitplane_kernels(timer, bw: float, coder_ints: torch.Tensor, seed: int) -> dict:
+    """encode/decode against their plain versions, bit for bit: (a) the v3
+    coder's integers, (b) 2^24+3 uniform uint32 (all 32 planes live),
+    (c) n = 0, 5, 16385 (padding and an empty input)."""
+    from repro_torch.kernels.bitplane import kernel as K
+    from repro_torch.kernels.bitplane import ops as O
+    from repro_torch.kernels.bitplane import ref as R
+
+    g = torch.Generator(device="cuda").manual_seed(seed + 50)
+    uniform = torch.randint(0, 1 << 32, (N1D,), generator=g, device="cuda", dtype=torch.int64)
+    small = {n: torch.randint(0, 1 << 32, (n,), generator=g, device="cuda", dtype=torch.int64) for n in (0, 5, 16385)}
+    cases = {}
+    for label, vals in [("v3 coder integers", coder_ints), ("uniform", uniform)] + [
+        (f"n={n}", v) for n, v in small.items()
+    ]:
+        v = O._padded_groups(vals, 32 * O.TILE_GROUPS)  # (R, 32) uint32, as the public encode pads
+        w = K.encode(v)
+        torch.cuda.synchronize()
+        w_plain = R.encode(v)
+        back = K.decode(w)
+        torch.cuda.synchronize()
+        back_plain = R.decode(w)
+        n_pad = v.numel()
+        enc_equal = torch.equal(w.view(torch.int32), w_plain.view(torch.int32))
+        dec_equal = torch.equal(back.view(torch.int32), back_plain.view(torch.int32)) and torch.equal(
+            back.view(torch.int32), v.view(torch.int32)
+        )
+        for name, kfn, rfn, arg, got, want, equal in (
+            ("bitplane_encode", K.encode, R.encode, v, w, w_plain, enc_equal),
+            ("bitplane_decode", K.decode, R.decode, w, back, back_plain, dec_equal),
+        ):
+            case = {
+                "name": name,
+                "n": vals.numel(),
+                "shape": list(arg.shape),
+                "bit_identical": bool(equal),
+                "max_abs_err": _u32_err(got, want),
+                "kernel_ms": timer(lambda: kfn(arg)),
+                "plain_ms": timer(lambda: rfn(arg)),
+                "library_ms": None,
+                # 4 B read and 4 B written per value; per bit a shift, a mask,
+                # a shift into place and an add (the definition's arithmetic)
+                **bound(8 * n_pad, 128 * n_pad, bw),
+            }
+            _check_case(f"{name} {label}", case)
+            if label == "v3 coder integers":
+                cases[name] = case
+        if label in ("v3 coder integers", "uniform"):
+            planes = _host_planes_match(w, vals)
+            emit(f"bitplane planes {label}", n=vals.numel(), planes_equal_to_host_codec=planes)
+    return cases
+
+
+def phase_kernels(seed: int, bw: float, x2d: torch.Tensor, x1d: torch.Tensor, coder_ints: torch.Tensor) -> dict:
     timer = Timer()
     g = torch.Generator(device="cuda").manual_seed(seed)
     cases = lorenzo_kernels(timer, g, bw)
     cases.update(transform_kernels(timer, bw, x2d, torch.cat([x1d, x1d[-1:]])))  # 2^24+4
     cases.update(block_stats_kernels(timer, bw, x2d, x1d))
     cases.update(kvquant_kernels(timer, bw, seed))
+    cases.update(bitplane_kernels(timer, bw, coder_ints, seed))
     return cases
 
 
@@ -654,6 +798,175 @@ def phase_main_path(pipeline: str, label: str, x: torch.Tensor, launches_total) 
     )
 
 
+def phase_bitplane_path(coder_ints: torch.Tensor, launches_total: dict) -> None:
+    """The transpose's own entry point (``bitplane_encode`` then
+    ``bitplane_decode``) on the integers the v3 coder stores."""
+    from repro_torch.kernels.bitplane import ops as O
+
+    n = coder_ints.numel()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    (words, back), seconds = _timed(lambda: (lambda w: (w, O.bitplane_decode(w, n)))(O.bitplane_encode(coder_ints)))
+    launches = all_launches()
+    for name in ("bitplane_encode", "bitplane_decode"):
+        if launches[name] != 1:
+            raise AssertionError(f"bitplane path: kernel {name} launched {launches[name]} times, expected 1")
+        launches_total[name] += launches[name]
+    if not torch.equal(back.view(torch.int32), coder_ints.view(torch.int32)):
+        raise AssertionError("bitplane path: decode does not return the coder's integers")
+    if words.shape[1] % 512 or words.shape[1] * 32 < n:
+        raise AssertionError(f"bitplane path: words of shape {tuple(words.shape)} for {n} values")
+    planes = int((words.view(torch.int32) != 0).any(dim=1).sum())
+    emit("main path bitplane", n=n, words_shape=list(words.shape), seconds=seconds,
+         nonzero_planes=planes, round_trip=True, launches={k: v for k, v in launches.items() if v})
+
+
+#: kernels a chunk's pipeline launches per compress + decompress, when the
+#: chunk takes the kernel route: Lorenzo encodes once and decodes twice (the
+#: compress-side verification, then the decode), the fast tier classifies once
+_CHUNK_KERNELS = {
+    "sz3_lorenzo": {1: {"encode_1d": 1, "decode_1d": 2}, 2: {"encode_2d": 1, "decode_2d": 2}},
+    "sz3_fast": {1: {"block_stats": 1}, 2: {"block_stats": 1}},
+}
+
+
+def _chunk_blobs(blob: bytes) -> list:
+    """The v1 blobs of a v2 container's chunks, in order."""
+    import repro_torch.core as tc
+
+    header, body_off = tc.parse_header(blob)
+    return [blob[body_off + c["off"] : body_off + c["off"] + c["len"]] for c in header["chunks"]]
+
+
+def _takes_kernel_route(pipeline: str, n: int) -> bool:
+    """Does a chunk of ``n`` elements take its pipeline's kernel route?  The
+    pipelines' own size floors: smaller chunks take the host route."""
+    from repro_torch.core import fastmode, predictors
+
+    if pipeline == "sz3_lorenzo":
+        return n >= predictors.LorenzoPredictor._KERNEL_MIN_SIZE
+    if pipeline == "sz3_fast":  # the floor counts the blocks, padded
+        bs = fastmode.DEFAULT_BS
+        return -(-n // bs) * bs >= fastmode._KERNEL_MIN_SIZE
+    return False
+
+
+def phase_chunked(label: str, x: torch.Tensor, launches_total: dict, speed_tier: str = "ratio") -> None:
+    """``sz3_chunked`` at REL 1e-4 with 4 MiB chunks: compress and decompress
+    on the card, then every check of a main path, per-chunk picks, the
+    ``workers=4`` blob and exact launch counts per routed chunk."""
+    import repro_torch.core as tc
+
+    conf = tc.CompressionConfig(mode=tc.ErrorBoundMode.REL, eb=1e-4)
+    comp = tc.sz3_chunked(speed_tier=speed_tier)
+    reset_all_launches()
+    res, t_c = _timed(lambda: comp.compress(x, conf, with_stats=True))
+    out, t_d = _timed(lambda: tc.decompress(res.blob))
+    launches = all_launches()
+    chunks = res.meta["chunks"]
+    inner = math.prod(x.shape[1:])
+    expected = {name: 0 for name in ("encode_1d", "decode_1d", "encode_2d", "decode_2d", "block_stats")}
+    for c in chunks:
+        if _takes_kernel_route(c["pipeline"], c["n0"] * inner):
+            for name, k in _CHUNK_KERNELS[c["pipeline"]][x.ndim].items():
+                expected[name] += k
+    for name, want in expected.items():
+        if launches[name] != want:
+            raise AssertionError(f"sz3_chunked {label}: kernel {name} launched {launches[name]} times, "
+                                 f"expected {want} for the chunks routed to it")
+        launches_total[name] += launches[name]
+    body_off = tc.parse_header(res.blob)[1]
+    abs_eb = tc.parse_header(res.blob[body_off : body_off + chunks[0]["len"]])[0]["abs_eb"]  # resolved once
+    if out.shape != x.shape or out.dtype != x.dtype or not bool(torch.isfinite(out).all()):
+        raise AssertionError(f"sz3_chunked {label}: decoded {tuple(out.shape)} {out.dtype}, not finite or not {tuple(x.shape)}")
+    err = float((out.double() - x.double()).abs().max())
+    if err > abs_eb:
+        raise AssertionError(f"sz3_chunked {label}: max error {err} breaks the bound {abs_eb}")
+    x_cpu = x.cpu()
+    plain, t_plain = _timed(lambda: tc.sz3_chunked(speed_tier=speed_tier, device="cpu", route="force").compress(x_cpu, conf).blob)
+    same_as = "plain versions"
+    if plain != res.blob:
+        # route="force" takes the fast tier's kernel route below its size
+        # floor too, as the JAX package's device="force" does; the card
+        # takes the host route there.  Chunk by chunk, the card's bytes are
+        # the plain versions' where it launched a kernel, the CPU host
+        # route's elsewhere.
+        host_blob = tc.sz3_chunked(speed_tier=speed_tier, device="cpu").compress(x_cpu, conf).blob
+        want = [
+            f if _takes_kernel_route(c["pipeline"], c["n0"] * inner) else h
+            for c, f, h in zip(chunks, _chunk_blobs(plain), _chunk_blobs(host_blob))
+        ]
+        picks = [(c["pipeline"], c["n0"]) for c in tc.parse_header(plain)[0]["chunks"]]
+        if _chunk_blobs(res.blob) != want or picks != [(c["pipeline"], c["n0"]) for c in chunks]:
+            raise AssertionError(f"sz3_chunked {label}: the card's blob differs from the plain versions' blob")
+        same_as = "plain versions on kernel-routed chunks, CPU host route on the rest"
+    host = tc.decompress(res.blob, device="cpu")
+    host_err = float((host.double() - x_cpu.double()).abs().max())
+    if host_err > abs_eb:
+        raise AssertionError(f"sz3_chunked {label}: CPU decode error {host_err} breaks the bound {abs_eb}")
+    par, t_par = _timed(lambda: tc.sz3_chunked(speed_tier=speed_tier, workers=4).compress(x, conf).blob)
+    if par != res.blob:
+        raise AssertionError(f"sz3_chunked {label}: the workers=4 blob differs from the serial one")
+    out4, t_d4 = _timed(lambda: tc.decompress(res.blob, workers=4))
+    if not same_bits(out4, out):
+        raise AssertionError(f"sz3_chunked {label}: the workers=4 decode differs from the serial one")
+    mb = x.numel() * x.element_size() / 1e6
+    emit(
+        f"main path sz3_chunked {label}" + ("" if speed_tier == "ratio" else f" {speed_tier}"),
+        shape=list(x.shape),
+        speed_tier=speed_tier,
+        mode="rel",
+        eb=1e-4,
+        abs_eb=abs_eb,
+        chunks=len(chunks),
+        picks=[c["pipeline"] for c in chunks],
+        chunk_rows=[c["n0"] for c in chunks],
+        ratio=res.ratio,
+        blob_bytes=len(res.blob),
+        compress_s=t_c,
+        decompress_s=t_d,
+        compress_MBps=mb / t_c,
+        decompress_MBps=mb / t_d,
+        workers4_compress_s=t_par,
+        workers4_decompress_s=t_d4,
+        plain_cpu_compress_s=t_plain,
+        max_abs_err=err,
+        cpu_decode_max_abs_err=host_err,
+        same_bytes_as=same_as,
+        workers4_same_bytes=True,
+        launches={k: v for k, v in launches.items() if v},
+        expected_launches={k: v for k, v in expected.items() if v},
+        stages=stage_breakdown("sz3_chunked", x, conf, lambda: tc.sz3_chunked(speed_tier=speed_tier)),
+    )
+
+
+def phase_paper_pipeline(pipeline: str, x: torch.Tensor) -> None:
+    """``sz3_lr`` or ``sz3_interp`` alone on the field: no kernels; the card
+    writes the CPU's bytes and both decodes keep the bound."""
+    import repro_torch.core as tc
+
+    conf = tc.CompressionConfig(mode=tc.ErrorBoundMode.REL, eb=1e-4)
+    res, t_c = _timed(lambda: tc.PIPELINES[pipeline]().compress(x, conf))
+    out, t_d = _timed(lambda: tc.decompress(res.blob))
+    abs_eb = tc.parse_header(res.blob)[0]["abs_eb"]
+    err = float((out.double() - x.double()).abs().max())
+    if out.shape != x.shape or err > abs_eb:
+        raise AssertionError(f"{pipeline}: max error {err} breaks the bound {abs_eb}")
+    x_cpu = x.cpu()
+    cpu, t_cpu = _timed(lambda: tc.PIPELINES[pipeline](device="cpu").compress(x_cpu, conf).blob)
+    if cpu != res.blob:
+        raise AssertionError(f"{pipeline}: the card's blob differs from the CPU's")
+    host_err = float((tc.decompress(res.blob, device="cpu").double() - x_cpu.double()).abs().max())
+    if host_err > abs_eb:
+        raise AssertionError(f"{pipeline}: CPU decode error {host_err} breaks the bound {abs_eb}")
+    mb = x.numel() * x.element_size() / 1e6
+    emit(f"main path {pipeline} 2-D", shape=list(x.shape), mode="rel", eb=1e-4, abs_eb=abs_eb,
+         ratio=res.ratio, blob_bytes=len(res.blob), compress_s=t_c, decompress_s=t_d,
+         compress_MBps=mb / t_c, decompress_MBps=mb / t_d, cpu_compress_s=t_cpu,
+         max_abs_err=err, cpu_decode_max_abs_err=host_err, same_bytes_as_cpu=True,
+         stages=stage_breakdown(pipeline, x, conf))
+
+
 def _stage_patches(pipeline: str):
     """(owner, attribute, label) of the stage functions each pipeline runs;
     a function used by both directions is timed in both."""
@@ -672,6 +985,21 @@ def _stage_patches(pipeline: str):
         return host_lossless + [
             (predictors.LorenzoPredictor, "compress", "predict (device)"),
             (predictors.LorenzoPredictor, "decompress", "inverse (device)"),
+            (encoders.HuffmanEncoder, "encode", "huffman encode (host)"),
+            (encoders.HuffmanEncoder, "decode", "huffman decode (host)"),
+        ]
+    if pipeline in ("sz3_lr", "sz3_interp", "sz3_chunked"):
+        from repro_torch.core import chunking
+
+        return host_lossless + [
+            (chunking, "select_pipeline", "select (host sample)"),
+            (predictors.LorenzoPredictor, "compress", "predict (device)"),
+            (predictors.CompositePredictor, "compress", "predict (device)"),
+            (predictors.InterpolationPredictor, "compress", "predict (device)"),
+            (predictors.LorenzoPredictor, "decompress", "inverse (device)"),
+            (predictors.CompositePredictor, "decompress", "inverse (device)"),
+            (predictors.InterpolationPredictor, "decompress", "inverse (device)"),
+            (fastmode.FastModeCompressor, "_encode_blocks", "fast-tier blocks (device + host packing)"),
             (encoders.HuffmanEncoder, "encode", "huffman encode (host)"),
             (encoders.HuffmanEncoder, "decode", "huffman decode (host)"),
         ]
@@ -694,21 +1022,36 @@ def _stage_patches(pipeline: str):
     ]
 
 
-def stage_breakdown(pipeline: str, x: torch.Tensor, conf) -> dict:
+#: pipelines whose stages nest (the chunk contest's trial compressions run
+#: the same predictors, Huffman and lossless stages): only the outermost
+#: wrapped call is timed, so the stages add up to at most the total
+_OUTERMOST_ONLY = {"sz3_chunked", "sz3_lr", "sz3_interp"}
+
+
+def stage_breakdown(pipeline: str, x: torch.Tensor, conf, make=None) -> dict:
     """Seconds per stage in one more compress and one more decompress: the
     stage functions are wrapped for this run only (synchronising around
-    each), and the two directions are reported apart."""
+    each), and the two directions are reported apart.  ``make`` builds the
+    compressor (default: the pipeline's factory)."""
     import repro_torch.core as tc
 
+    make = make or tc.PIPELINES[pipeline]
     spent: dict = {}
     saved = []
+    depth = [0]
 
     def wrap(fn, label):
         def timed(*a, **k):
+            if depth[0] and pipeline in _OUTERMOST_ONLY:
+                return fn(*a, **k)
+            depth[0] += 1
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            out = fn(*a, **k)
-            torch.cuda.synchronize()
+            try:
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+            finally:
+                depth[0] -= 1
             spent[label] = spent.get(label, 0.0) + time.perf_counter() - t0
             return out
         return timed
@@ -719,7 +1062,7 @@ def stage_breakdown(pipeline: str, x: torch.Tensor, conf) -> dict:
         wrapped = wrap(fn.__func__ if isinstance(fn, staticmethod) else fn, label)
         setattr(owner, attr, staticmethod(wrapped) if isinstance(fn, staticmethod) else wrapped)
     try:
-        blob, t_c = _timed(lambda: tc.PIPELINES[pipeline]().compress(x, conf).blob)
+        blob, t_c = _timed(lambda: make().compress(x, conf).blob)
         compress = dict(spent, total=t_c)
         spent.clear()
         _, t_d = _timed(lambda: tc.decompress(blob))
@@ -1002,18 +1345,31 @@ def main() -> int:
     phase_build()
     x2d = smooth_field(SHAPE2D, args.seed)
     x1d = particle_series(N1D, args.seed + 1)
-    cases = phase_kernels(args.seed, bw, x2d, x1d)
+    coder_ints = v3_coder_integers(x2d)
+    cases = phase_kernels(args.seed, bw, x2d, x1d, coder_ints)
+    t_kernels = time.perf_counter()
     launches = {name: 0 for name in cases}
     for pipeline in PATHS:
         phase_main_path(pipeline, "2-D", x2d, launches)
         phase_main_path(pipeline, "1-D", x1d, launches)
+    phase_bitplane_path(coder_ints, launches)
+    t_v1 = time.perf_counter()
+    phase_chunked("2-D", x2d, launches)
+    phase_chunked("1-D", x1d, launches)
+    phase_chunked("1-D", x1d, launches, speed_tier="throughput")
+    t_chunked = time.perf_counter()
+    for pipeline in ("sz3_lr", "sz3_interp"):
+        phase_paper_pipeline(pipeline, x2d)
     phase_host_route(args.seed)
     t_paths = time.perf_counter()
     phase_dp_step(args.seed)
     t_dp = time.perf_counter()
     phase_kv_path(args.seed, launches)
     RESULTS["phase_seconds"] = {
-        "up to the host routes": t_paths - t0,
+        "environment, build, kernels": t_kernels - t0,
+        "v1/v3/v6 and bitplane main paths": t_v1 - t_kernels,
+        "sz3_chunked paths": t_chunked - t_v1,
+        "sz3_lr, sz3_interp, host routes": t_paths - t_chunked,
         "dp step": t_dp - t_paths,
         "kv path": time.perf_counter() - t_dp,
     }

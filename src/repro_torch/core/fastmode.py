@@ -60,7 +60,7 @@ from . import telemetry as tel
 from .config import CompressionConfig, ErrorBoundMode
 from .integrity import ContainerError, guard_alloc, guard_count, guard_shape
 from .pipeline import CompressionResult, container_body, pack_container
-from .quantizers import to_host, true_div
+from .quantizers import pairwise_rowsum, to_host, true_div
 from ..kernels.fastmode import ops as fops
 
 _VERSION6 = 6
@@ -126,20 +126,6 @@ def _required_bits(maxmag: torch.Tensor) -> torch.Tensor:
     m = maxmag.to(torch.int64)
     _, e = torch.frexp(m.to(torch.float64))
     return torch.where(m > 0, e, 0).to(torch.uint8)
-
-
-def _pairwise_rowsum(v: torch.Tensor) -> torch.Tensor:
-    """Row sums of a (rows, 128 or 256) tensor in numpy's pairwise order
-    (``np.add.reduce`` along a contiguous axis): eight running sums over
-    every eighth element, combined as a tree; a 256-long row is two 128-long
-    halves, summed."""
-    if v.shape[1] > 128:
-        h = v.shape[1] // 2
-        return _pairwise_rowsum(v[:, :h]) + _pairwise_rowsum(v[:, h:])
-    r = v[:, 0:8]
-    for i in range(8, v.shape[1], 8):
-        r = r + v[:, i:i + 8]
-    return ((r[:, 0] + r[:, 1]) + (r[:, 2] + r[:, 3])) + ((r[:, 4] + r[:, 5]) + (r[:, 6] + r[:, 7]))
 
 
 def _pad_blocks_1d(x: torch.Tensor, bs: int) -> Tuple[torch.Tensor, int]:
@@ -217,7 +203,7 @@ class FastModeCompressor:
         bs = self.bs
         eb = max(float(abs_eb), float(np.finfo(np.float64).tiny))
         xb, _n = _pad_blocks_1d(x64, bs)
-        means = true_div(_pairwise_rowsum(xb), float(bs))
+        means = true_div(pairwise_rowsum(xb), float(bs))
         means = torch.where(torch.isfinite(means), means, 0.0)
         resid = xb - means[:, None]
         const = resid.abs().amax(dim=1) <= eb
@@ -314,7 +300,7 @@ class FastModeCompressor:
             dev_hint = stats[1]
         else:
             # float64 accumulator, numpy's summation order
-            means_st = true_div(_pairwise_rowsum(xb.to(torch.float64)), float(bs)).to(pdtype)
+            means_st = true_div(pairwise_rowsum(xb.to(torch.float64)), float(bs)).to(pdtype)
             dev_hint = None
         # blocks whose mean is non-finite (an inf/nan inside) restart from a
         # masked mean so the REST of the block still codes cheaply; the
@@ -325,7 +311,7 @@ class FastModeCompressor:
             fin = torch.isfinite(xbad)
             cnt = torch.clamp(fin.sum(dim=1), min=1).to(torch.float64)
             means_st = means_st.clone()
-            means_st[bad] = (_pairwise_rowsum(torch.where(fin, xbad, 0.0)) / cnt).to(pdtype)
+            means_st[bad] = (pairwise_rowsum(torch.where(fin, xbad, 0.0)) / cnt).to(pdtype)
             dev_hint = None  # hint no longer matches the stored means
         resid = xb - means_st[:, None]  # storage dtype, the only big temp
         if dev_hint is not None:

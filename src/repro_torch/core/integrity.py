@@ -20,7 +20,8 @@ byte-deterministic.
 Checksum algorithm: CRC32C (Castagnoli) via ``google_crc32c`` when the C
 extension is importable, else ``zlib.crc32``; the trailer records which
 (``a``), so blobs verify wherever they land.  This is a format rule shared
-with the JAX package, not a device fallback.
+with the JAX package, not a device fallback.  Where ``google_crc32c`` is
+absent, a CRC32C trailer is still verified, by :func:`crc32c_numpy`.
 
 Threat model — what the checksums DO defend: accidental corruption (storage
 bit rot, truncated writes, torn reads, bad NICs) is detected before decode
@@ -43,10 +44,13 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import os
 import struct
 import zlib
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from . import _msgpack
 
@@ -184,7 +188,95 @@ def guard_shape(shape: Any, itemsize: int, what: str = "shape") -> Tuple[int, ..
 # checksums
 # ---------------------------------------------------------------------------
 
+#: CRC32C's reflected polynomial (Castagnoli)
+_CRC32C_POLY = 0x82F63B78
+#: inputs below this many bytes run as one Python loop over the bytes
+_CRC32C_SERIAL = 256
+
+
+@functools.lru_cache(maxsize=None)
+def _crc32c_tables() -> np.ndarray:
+    """(4, 256) slicing-by-4 tables; row 0 is the byte table."""
+    t = np.arange(256, dtype=np.uint32)
+    for _ in range(8):
+        t = np.where(t & 1, (t >> 1) ^ np.uint32(_CRC32C_POLY), t >> 1).astype(np.uint32)
+    rows = [t]
+    for _ in range(3):
+        rows.append(rows[-1] >> 8 ^ t[rows[-1] & 0xFF])
+    return np.stack(rows)
+
+
+def _apply_op(op: np.ndarray, x: np.ndarray) -> np.ndarray:
+    """A linear map of CRC registers, given as its (4, 256) byte tables."""
+    return op[0][x & 0xFF] ^ op[1][(x >> 8) & 0xFF] ^ op[2][(x >> 16) & 0xFF] ^ op[3][x >> 24]
+
+
+@functools.lru_cache(maxsize=None)
+def _zero_ops() -> Tuple[np.ndarray, ...]:
+    """Byte tables of Z_(2^i), i < 64: the register map of feeding 2^i zero
+    bytes (CRC without pre/post inversion is linear over GF(2))."""
+    t = _crc32c_tables()[0]
+    basis = (np.arange(256, dtype=np.uint32)[None, :] << (8 * np.arange(4, dtype=np.uint32))[:, None])
+    op = t[basis & 0xFF] ^ (basis >> 8)  # one zero byte
+    ops = [op]
+    for _ in range(63):
+        ops.append(_apply_op(ops[-1], _apply_op(ops[-1], basis)))
+    return tuple(ops)
+
+
+def _shift_zeros(x: np.ndarray, nbytes: int) -> np.ndarray:
+    """Registers ``x`` after ``nbytes`` zero bytes."""
+    ops = _zero_ops()
+    i = 0
+    while nbytes:
+        if nbytes & 1:
+            x = _apply_op(ops[i], x)
+        nbytes >>= 1
+        i += 1
+    return x
+
+
+def crc32c_numpy(data, value: int = 0) -> int:
+    """CRC32C of ``data`` continuing from ``value``, as
+    ``google_crc32c.extend(value, data)`` computes it, in numpy.
+
+    The bytes are zero-padded at the FRONT to L lanes of S bytes (leading
+    zeros leave a zero register unchanged), the L lane registers advance
+    together four bytes per step through slicing-by-4 tables, and adjacent
+    lanes merge pairwise, log2(L) times: crc(A || B) = Z_|B|(crc(A)) ^
+    crc(B).  The start register enters the same way: Z_n(~value)."""
+    buf = np.frombuffer(data, np.uint8)
+    n = buf.size
+    start = np.asarray([~value & 0xFFFFFFFF], np.uint32)
+    if n < _CRC32C_SERIAL:
+        t = _crc32c_tables()[0].tolist()
+        r = int(start[0])
+        for b in buf.tolist():
+            r = t[(r ^ b) & 0xFF] ^ (r >> 8)
+        return ~r & 0xFFFFFFFF
+    tabs = _crc32c_tables()
+    S = 1 << max(4, min(8, (n // 4096).bit_length() - 1))  # bytes per lane: 16..256
+    L = -(-n // S)
+    padded = np.zeros(L * S, np.uint8)
+    padded[L * S - n :] = buf
+    words = np.ascontiguousarray(padded.view("<u4").reshape(L, S // 4).T)
+    r = np.zeros(L, np.uint32)
+    for w in words:
+        r = r ^ w
+        r = tabs[3][r & 0xFF] ^ tabs[2][(r >> 8) & 0xFF] ^ tabs[1][(r >> 16) & 0xFF] ^ tabs[0][r >> 24]
+    span = S
+    while r.size > 1:
+        if r.size % 2:  # a zero lane in front: leading zeros change nothing
+            r = np.concatenate([np.zeros(1, np.uint32), r])
+        r = _shift_zeros(r[0::2], span) ^ r[1::2]
+        span *= 2
+    reg = _shift_zeros(start, n) ^ r
+    return int(~reg[0] & 0xFFFFFFFF)
+
+
 def _crc32c(data, value: int = 0) -> int:
+    if _crc32c_mod is None:
+        return crc32c_numpy(data, value)
     return int(_crc32c_mod.extend(value, bytes(data)))
 
 

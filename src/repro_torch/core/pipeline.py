@@ -14,7 +14,12 @@ raise unless the caller asks for ``"cpu"``.
 
 Named factory pipelines ported so far:
 
+  sz3_lr          — composite(Lorenzo+regression) + linear quant + Huffman
+                    + zstd (= SZ2 [8])
+  sz3_interp      — interpolation + linear quant + Huffman + zstd ([17])
   sz3_lorenzo     — pure dual-quant Lorenzo + linear quant + Huffman + zstd
+  sz3_chunked     — chunked engine, per-chunk pipeline selection (v2,
+                    chunking.py)
   sz3_transform   — blockwise 4-point DCT + bitplane coding (v3, transform.py)
   sz3_fast        — SZx-style fixed-length blocks, no entropy stage (v6,
                     fastmode.py)
@@ -115,13 +120,17 @@ def _finite_stats(data: torch.Tensor) -> Tuple[float, float]:
     return mx - mn, max(abs(mn), abs(mx))
 
 
-def pack_container(header: Dict[str, Any], body: bytes) -> bytes:
+def pack_container(
+    header: Dict[str, Any], body: bytes, chunk_bounds: Optional[Any] = None
+) -> bytes:
     """The container wire format: magic + int64 (header, body) lengths +
     msgpack header + body + integrity trailer.
 
     The trailer (see :mod:`.integrity`) sits BEYOND the declared body length,
-    so readers that honour the declared lengths skip it; it checksums the
-    whole body as one chunk.  The header gains an ``itg`` flag under the
+    so readers that honour the declared lengths skip it.  ``chunk_bounds``
+    lists body-relative ``(off, len)`` of independently decodable chunks for
+    per-chunk checksums (the v2 writer passes its chunk table); None
+    checksums the whole body as one chunk.  The header gains an ``itg`` flag under the
     header checksum so strict verification can detect a stripped trailer.
     ``integrity.trailers_disabled()`` suppresses both."""
     if integrity.WRITE_TRAILERS:
@@ -132,7 +141,7 @@ def pack_container(header: Dict[str, Any], body: bytes) -> bytes:
     if not integrity.WRITE_TRAILERS:
         return head + body
     with tel.span("integrity", bytes=len(body)):
-        trailer = integrity.build_trailer(head, body, None)
+        trailer = integrity.build_trailer(head, body, chunk_bounds)
     return head + body + trailer
 
 
@@ -286,22 +295,30 @@ def parse_header(blob: bytes) -> Tuple[Dict[str, Any], int]:
     return header, 20 + hlen
 
 
-def decompress(blob: bytes, verify: str = "strict", device: Device = None):
+def decompress(
+    blob: bytes,
+    workers: Optional[int] = None,
+    verify: str = "strict",
+    device: Device = None,
+):
     """Self-describing decompression — rebuilds the pipeline from the header
     and runs it on ``device`` (default ``"cuda"``).  Returns a tensor on that
     device.
 
-    Reads v1 single-pipeline containers whose modules are ported, v3
-    transform and v6 fast-tier containers; every other container kind
-    raises :class:`ContainerError` naming it.
+    Reads v1 single-pipeline containers whose modules are ported, v2
+    multi-chunk, v3 transform and v6 fast-tier containers; every other
+    container kind raises :class:`ContainerError` naming it.  ``workers``
+    decodes the chunks of a v2 container on that many threads (ignored for
+    single-pipeline blobs).
 
     ``verify`` is the integrity policy (see :mod:`.integrity`):
 
     * ``"strict"`` (default) — verify the trailer's checksums before decode;
       raise :class:`IntegrityError` naming the damage.  Blobs written before
       the trailer era carry no checksums and pass unverified.
-    * ``"salvage"`` — return ``(data, SalvageReport)``; a v1, v3 or v6 body
-      is one stream, so damage loses the whole array (zero-filled).
+    * ``"salvage"`` — return ``(data, SalvageReport)``: a v2 container
+      loses only its damaged chunks (zero-filled); a v1, v3 or v6 body is
+      one stream, so damage loses the whole array.
     * ``"off"`` — skip checksum verification (malformed-structure errors
       still raise).
 
@@ -314,7 +331,7 @@ def decompress(blob: bytes, verify: str = "strict", device: Device = None):
     with decode_errors("container"):
         header, body_off = parse_header(blob)
         if verify == "salvage":
-            return _decompress_salvage(blob, header, body_off, dev)
+            return _decompress_salvage(blob, header, body_off, dev, workers)
         if verify == "strict":
             try:
                 with tel.span("integrity", bytes=len(blob)):
@@ -323,18 +340,27 @@ def decompress(blob: bytes, verify: str = "strict", device: Device = None):
                 tel.metric_count("sz3_verify_failures_total")
                 tel.count("verify_failures")
                 raise
+        if _is_multichunk(header):
+            from .chunking import decompress_chunked  # local: avoids import cycle
+
+            return decompress_chunked(blob, header, body_off, workers, verify, dev)
         return _decoder(header)(blob, header, body_off, dev)
 
 
-def _decoder(header: Dict[str, Any]):
-    """The body decoder of a parsed container's generation; raises
-    :class:`ContainerError` naming a container kind this package cannot
-    decode yet."""
-    if header.get("v", _VERSION) >= 2 and header.get("kind") in ("chunked", "pwr"):
+def _is_multichunk(header: Dict[str, Any]) -> bool:
+    """A v2 "chunked" container; a v4 "pwr" one raises, naming its kind."""
+    if header.get("v", _VERSION) >= 2 and header.get("kind") == "pwr":
         raise ContainerError(
-            f"container kind {header.get('kind')!r} (v{header.get('v')}) is "
-            "not yet ported to repro_torch"
+            f"container kind 'pwr' (v{header.get('v')}) is not yet ported to "
+            "repro_torch"
         )
+    return header.get("v", _VERSION) >= 2 and header.get("kind") == "chunked"
+
+
+def _decoder(header: Dict[str, Any]):
+    """The body decoder of a parsed single-body container's generation;
+    raises :class:`ContainerError` naming a container kind this package
+    cannot decode yet."""
     spec = header["spec"]
     if not isinstance(spec, dict):
         raise ContainerError("corrupt container: spec is not a map")
@@ -409,12 +435,17 @@ def _decompress_v1(
 
 
 def _decompress_salvage(
-    blob: bytes, header: Dict[str, Any], body_off: int, device: torch.device
+    blob: bytes,
+    header: Dict[str, Any],
+    body_off: int,
+    device: torch.device,
+    workers: Optional[int] = None,
 ):
-    """``verify="salvage"``: a v1, v3 or v6 body is one stream, so it is
-    all-or-nothing — a failed checksum or decode zero-fills the whole array
-    and records one damage entry.  A damaged HEADER is not salvageable and
-    raises :class:`IntegrityError`."""
+    """``verify="salvage"``: a v2 container recovers every intact chunk and
+    zero-fills the damaged ones (see ``chunking.salvage_chunked``); a v1, v3
+    or v6 body is one stream, so it is all-or-nothing — a failed checksum or
+    decode zero-fills the whole array and records one damage entry.  A
+    damaged HEADER is not salvageable and raises :class:`IntegrityError`."""
     res = integrity.inspect(blob, header, body_off)
     if res.has_trailer and not res.header_ok:
         raise IntegrityError(
@@ -422,6 +453,10 @@ def _decompress_salvage(
             "chunk table are untrustworthy, nothing can be salvaged",
             region="header",
         )
+    if _is_multichunk(header):
+        from .chunking import salvage_chunked  # local: avoids import cycle
+
+        return salvage_chunked(blob, header, body_off, workers, res, device)
     decode = _decoder(header)
     dtype = _torch_dtype(header["dtype"], "dtype")
     shape = guard_shape(header["shape"], dtype.itemsize, "shape")
@@ -446,6 +481,30 @@ def _decompress_salvage(
 # named pipeline factories
 # ---------------------------------------------------------------------------
 
+def sz3_lr(**kw) -> SZ3Compressor:
+    """Composite (Lorenzo + regression) + linear quantizer + Huffman + zstd
+    (SZ2); ``kw`` goes to :class:`SZ3Compressor` (``conf``, ``device``)."""
+    return SZ3Compressor(
+        predictor=pred_mod.CompositePredictor(),
+        quantizer=quant_mod.LinearScaleQuantizer(),
+        encoder=enc_mod.HuffmanEncoder(),
+        lossless=ll_mod.Zstd(),
+        **kw,
+    )
+
+
+def sz3_interp(kind: str = "cubic", **kw) -> SZ3Compressor:
+    """Multi-level interpolation (``kind`` "linear" or "cubic") + linear
+    quantizer + Huffman + zstd; ``kw`` goes to :class:`SZ3Compressor`."""
+    return SZ3Compressor(
+        predictor=pred_mod.InterpolationPredictor(kind=kind),
+        quantizer=quant_mod.LinearScaleQuantizer(),
+        encoder=enc_mod.HuffmanEncoder(),
+        lossless=ll_mod.Zstd(),
+        **kw,
+    )
+
+
 def sz3_lorenzo(order: int = 1, route: str = "auto", **kw) -> SZ3Compressor:
     """Dual-quant Lorenzo + linear quantizer + Huffman + zstd.  ``route``
     picks the predictor's kernel route (see ``LorenzoPredictor``); ``kw``
@@ -460,5 +519,7 @@ def sz3_lorenzo(order: int = 1, route: str = "auto", **kw) -> SZ3Compressor:
 
 
 PIPELINES = {
+    "sz3_lr": sz3_lr,
+    "sz3_interp": sz3_interp,
     "sz3_lorenzo": sz3_lorenzo,
 }

@@ -7,24 +7,38 @@ Instances:
                                 onto the 2*eb grid once, then the Lorenzo
                                 stencil runs on exact integers; the inverse is
                                 a cumulative sum.  Error bound identical to SZ.
+  * RegressionPredictor       — SZ2 [8] block-wise hyperplane fit; coefficient
+                                streams are themselves quantized.
+  * InterpolationPredictor    — SZ3-Interp [17]: multi-level linear/cubic
+                                spline interpolation with per-level feedback.
+  * CompositePredictor        — SZ2's per-block Lorenzo-vs-regression
+                                selection on strided samples.
   * ZeroPredictor             — predicts 0 (baseline / bypass).
 
 Predictors take and return torch tensors on the caller's device and drive
 the quantizer through its array-at-a-time interface.  Their codes and meta
-are byte-identical to the JAX package's predictors of the same name.
+are byte-identical to the JAX package's predictors of the same name, on the
+CPU and on the card: every float64 value that decides a byte is computed as
+numpy computes it — IEEE divides (``true_div``), block sums in numpy's
+pairwise order (``pairwise_rowsum``), separate multiplies and adds.
+
+The estimators (``estimate_error`` and the helpers under it) score a small
+sample on the host, in numpy, with the JAX package's code: their scores
+decide which pipeline the chunked engine runs on a chunk, and ``log2`` and
+torch's reductions round differently across libraries.
 """
 from __future__ import annotations
 
 import abc
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from . import telemetry as tel
 from .config import CompressionConfig
-from .quantizers import QuantizerBase, to_host, true_div
+from .quantizers import QuantizerBase, check_numpy_sum_order, pairwise_rowsum, to_host, true_div
 from ..kernels.lorenzo import ops as lops
 
 
@@ -57,7 +71,89 @@ def lorenzo_inverse(d: torch.Tensor, order: int = 1) -> torch.Tensor:
     return q
 
 
-def code_bits(abs_errors: torch.Tensor, abs_eb: float, radius: int = 32768) -> float:
+# -- per-block helpers (axis 0 indexes blocks: the caller tiles once via
+#    pad_to_blocks/blockify and every candidate runs batched over the
+#    whole block set) ---------------------------------------------------------
+
+def pad_to_blocks(data: torch.Tensor, b: int) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """Replicate-pad every axis up to a multiple of ``b``; returns
+    (padded, original_shape)."""
+    x = data
+    for ax, s in enumerate(data.shape):
+        pad = (-s) % b
+        if pad:
+            idx = torch.arange(s + pad, device=x.device).clamp_(max=s - 1)
+            x = x.index_select(ax, idx)
+    return x, tuple(data.shape)
+
+
+def blockify(x: torch.Tensor, b: int) -> torch.Tensor:
+    """(n1, n2, ...) -> (nblocks, b, b, ...); all axes must divide by ``b``."""
+    nd = x.ndim
+    shape: List[int] = []
+    for s in x.shape:
+        shape += [s // b, b]
+    y = x.reshape(shape)
+    perm = list(range(0, 2 * nd, 2)) + list(range(1, 2 * nd, 2))
+    return y.permute(perm).reshape((-1,) + (b,) * nd)
+
+
+def unblockify(blocks: torch.Tensor, padded_shape: Sequence[int], b: int) -> torch.Tensor:
+    """Inverse of :func:`blockify`."""
+    nd = len(padded_shape)
+    grid = [s // b for s in padded_shape]
+    y = blocks.reshape(grid + [b] * nd)
+    perm: List[int] = []
+    for i in range(nd):
+        perm += [i, nd + i]
+    return y.permute(perm).reshape(tuple(padded_shape))
+
+
+def block_coords(b: int, nd: int, device=None) -> List[torch.Tensor]:
+    """Centred per-axis float64 coordinates, broadcast-ready against
+    (nb, b, ..., b)."""
+    cs = []
+    for ax in range(nd):
+        c = torch.arange(b, dtype=torch.float64, device=device) - (b - 1) / 2.0
+        shape = [1] * nd
+        shape[ax] = b
+        cs.append(c.reshape(shape))
+    return cs
+
+
+def block_sums(blocks: torch.Tensor) -> torch.Tensor:
+    """Per-block sums of (nb, ...) in the order ``np.sum`` over the block
+    axes takes (one contiguous run per block)."""
+    return pairwise_rowsum(blocks.reshape(blocks.shape[0], -1))
+
+
+def _rint_int64(v: torch.Tensor) -> torch.Tensor:
+    """``np.rint(v).astype(np.int64)``, with x86's answer for what int64
+    cannot hold (nan, inf, |v| >= 2^63): INT64_MIN.  torch's own cast is
+    undefined there and saturates on the card."""
+    ok = torch.isfinite(v) & (v.abs() < 2.0**63)
+    q = torch.round(torch.where(ok, v, 0.0)).to(torch.int64)
+    return torch.where(ok, q, torch.iinfo(torch.int64).min)
+
+
+def _plane(qhat: Sequence[torch.Tensor], cs: Sequence[torch.Tensor], nb: int) -> torch.Tensor:
+    """The hyperplane prediction qhat0 + sum_k qhat_k * c_k per block."""
+    nd = len(cs)
+    pred = qhat[0].reshape((nb,) + (1,) * nd)
+    for k in range(nd):
+        pred = pred + qhat[1 + k].reshape((nb,) + (1,) * nd) * cs[k]
+    return pred
+
+
+# -- estimators: host numpy, the JAX package's code ---------------------------
+
+def _host64(sample) -> np.ndarray:
+    if isinstance(sample, torch.Tensor):
+        sample = to_host(sample)
+    return np.asarray(sample, np.float64)
+
+
+def code_bits(abs_errors, abs_eb: float, radius: int = 32768) -> float:
     """Mean estimated coded bits/element for given |prediction errors|.
 
     Errors become quantization-bin indices (e/(2*eb)); the entropy stage pays
@@ -65,39 +161,121 @@ def code_bits(abs_errors: torch.Tensor, abs_eb: float, radius: int = 32768) -> f
     stored raw (~64 bits).  This is the common currency pipelines are
     contested in.
     """
-    e = abs_errors.to(torch.float64).reshape(-1)
-    if e.numel() == 0:
+    e = _host64(abs_errors).reshape(-1)
+    if e.size == 0:
         return 0.0
-    return _int_code_bits(torch.round(true_div(e, 2.0 * abs_eb)), radius)
+    return _int_code_bits(np.rint(e / (2.0 * abs_eb)), radius)
 
 
-def _int_code_bits(q: torch.Tensor, radius: int) -> float:
+def _int_code_bits(q, radius: int) -> float:
     """Entropy of integer bin indices + raw-storage cost of out-of-range ones."""
-    q = q.abs().reshape(-1)
-    if q.numel() == 0:
+    if isinstance(q, torch.Tensor):
+        q = to_host(q)
+    q = np.abs(np.asarray(q).reshape(-1))
+    if q.size == 0:
         return 0.0
     out = q >= radius
     inr = q[~out]
-    bits = 64.0 * float(out.to(torch.float64).mean())
-    if inr.numel():
-        _, counts = torch.unique(inr, return_counts=True)
-        p = counts.to(torch.float64) / inr.numel()
-        bits += float(-(p * torch.log2(p)).sum()) * float((~out).to(torch.float64).mean())
+    bits = 64.0 * float(out.mean())
+    if inr.size:
+        _, counts = np.unique(inr, return_counts=True)
+        p = counts / inr.size
+        bits += float(-(p * np.log2(p)).sum()) * float((~out).mean())
     return bits
 
 
-def lorenzo_residuals(
-    sample: torch.Tensor, abs_eb: float, order: int = 1, radius: int = 32768
-) -> torch.Tensor:
+def lorenzo_residuals(sample, abs_eb: float, order: int = 1, radius: int = 32768) -> np.ndarray:
     """|Lorenzo prediction error| per sample point (paper: estimate_error):
     the magnitude of the prequantized stencil output, clipped at the code
     range."""
-    x64 = sample.to(torch.float64)
-    if x64.numel() == 0:
-        return torch.zeros(0, dtype=torch.float64, device=sample.device)
-    q = torch.round(true_div(x64, 2.0 * abs_eb))
-    est = lorenzo_filter(q, order).abs() * (2.0 * abs_eb)
-    return torch.clamp(est, max=2.0 * abs_eb * radius)
+    x64 = _host64(sample)
+    if x64.size == 0:
+        return np.zeros(0)
+    q = np.rint(x64 / (2.0 * abs_eb))
+    d = q
+    for _ in range(order):
+        for ax in range(d.ndim):
+            d = np.diff(d, axis=ax, prepend=0)
+    est = np.abs(d) * (2.0 * abs_eb)
+    return np.minimum(est, 2.0 * abs_eb * radius)
+
+
+def regression_residuals(sample, abs_eb: float, block_size: int) -> np.ndarray:
+    """|hyperplane-fit residual| per sample point, block-wise as in SZ2."""
+    res, _ = _regression_fit(sample, block_size)
+    return res
+
+
+def _regression_fit(sample, block_size: int) -> Tuple[np.ndarray, List[np.ndarray]]:
+    """(per-point |residual|, per-stream coefficient values) of the SZ2 fit."""
+    b = max(2, int(block_size))
+    x = _host64(sample)
+    if x.size == 0:
+        return np.zeros(0), []
+    if x.ndim == 0:
+        x = x.reshape(1)
+    nd = x.ndim
+    xp, _ = pad_to_blocks(torch.from_numpy(x), b)
+    blocks = blockify(xp, b).numpy()
+    axes = tuple(range(1, nd + 1))
+    cs = [c.numpy() for c in block_coords(b, nd)]
+    denom = (b**nd) * ((b * b - 1) / 12.0)
+    # nan/inf blocks produce nan residuals/coefficients by design (estimation
+    # only — such points ride the unpredictable fail path when coding)
+    with np.errstate(invalid="ignore", over="ignore"):
+        coeffs = [blocks.mean(axis=axes)]
+        pred = coeffs[0].reshape((-1,) + (1,) * nd)
+        for k in range(nd):
+            beta = (blocks * cs[k]).sum(axis=axes) / denom
+            coeffs.append(beta)
+            pred = pred + beta.reshape((-1,) + (1,) * nd) * cs[k]
+        return np.abs(blocks - pred).reshape(-1), coeffs
+
+
+def regression_bits(sample, abs_eb: float, block_size: int, radius: int = 32768) -> float:
+    """Estimated bits/element for the SZ2 regression stage INCLUDING the
+    quantized, delta-coded coefficient streams."""
+    b = max(2, int(block_size))
+    res, coeffs = _regression_fit(sample, block_size)
+    if res.size == 0:
+        return 0.0
+    bits = code_bits(res, abs_eb, radius)
+    n = res.size
+    for k, vals in enumerate(coeffs):
+        ceb = abs_eb / 2.0 if k == 0 else abs_eb / (2.0 * b)
+        q = np.rint(vals / (2.0 * ceb))
+        bits += _int_code_bits(np.diff(q, prepend=0), radius) * vals.size / n
+    return bits
+
+
+def interp_residuals(sample) -> np.ndarray:
+    """|linear-interpolation residual| pooled over ALL levels, per axis:
+    each point is predicted once, at the level that fills it."""
+    x = _host64(sample)
+    if x.size == 0:
+        return np.zeros(0)
+    errs = []
+    for ax in range(x.ndim):
+        dim = x.shape[ax]
+        if dim < 3:
+            continue
+        s = 1
+        while s < dim:
+            mid = [slice(None)] * x.ndim
+            left = [slice(None)] * x.ndim
+            mid[ax] = slice(s, None, 2 * s)
+            n_mid = len(range(s, dim, 2 * s))
+            left[ax] = slice(0, 2 * s * n_mid, 2 * s)
+            right_idx = np.minimum(np.arange(n_mid) * 2 * s + 2 * s, dim - 1)
+            xl = x[tuple(left)]
+            xr = np.take(x, right_idx, axis=ax)
+            pred = 0.5 * (xl + xr)
+            errs.append(np.abs(x[tuple(mid)] - pred).reshape(-1))
+            s *= 2
+    if not errs:
+        flat = x.reshape(-1)
+        return np.abs(np.diff(flat, prepend=0.0))
+    return np.concatenate(errs)
 
 
 def _pack_mask(mask: torch.Tensor) -> bytes:
@@ -126,12 +304,11 @@ def _patch_fails(out: torch.Tensor, meta: Dict[str, Any], shape) -> torch.Tensor
 class Predictor(abc.ABC):
     name: str = "abstract"
 
-    def estimate_error(
-        self, sample: torch.Tensor, abs_eb: float, conf: CompressionConfig
-    ) -> Optional[float]:
+    def estimate_error(self, sample, abs_eb: float, conf: CompressionConfig) -> Optional[float]:
         """Estimated entropy-coded bits/element this predictor would incur
-        (the paper's ``estimate_error``, §3.2), comparable across predictors
-        (see :func:`code_bits`).  ``None`` means "no cheap estimator"."""
+        (the paper's ``estimate_error``, §3.2) on a sample (tensor or numpy
+        array, scored on the host), comparable across predictors (see
+        :func:`code_bits`).  ``None`` means "no cheap estimator"."""
         return None
 
     @abc.abstractmethod
@@ -167,7 +344,7 @@ class ZeroPredictor(Predictor):
     name = "zero"
 
     def estimate_error(self, sample, abs_eb, conf):
-        return code_bits(sample.to(torch.float64).abs(), abs_eb, conf.quant_radius)
+        return code_bits(np.abs(_host64(sample)), abs_eb, conf.quant_radius)
 
     def compress(self, data, quantizer, conf):
         zeros = torch.zeros(data.numel(), dtype=torch.float64, device=data.device)
@@ -308,10 +485,353 @@ class LorenzoPredictor(Predictor):
         return out
 
 
+# ---------------------------------------------------------------------------
+# Regression predictor (SZ2)
+# ---------------------------------------------------------------------------
+
+def _coef_eb(eb: float, k: int, b: int) -> float:
+    """SZ2's coefficient bounds: eb/2 for the intercept, eb/(2b) per slope."""
+    return eb / 2.0 if k == 0 else eb / (2.0 * b)
+
+
+def _fit_coeffs(blocks: torch.Tensor, b: int) -> List[torch.Tensor]:
+    """Per-block least-squares plane coefficients [beta0, beta_1..beta_nd]:
+    the block mean, and sum(x * c_k) / sum(c_k^2) along each axis (centred
+    coordinates make the normal equations diagonal)."""
+    check_numpy_sum_order()
+    nd = blocks.ndim - 1
+    cs = block_coords(b, nd, blocks.device)
+    denom = (b**nd) * ((b * b - 1) / 12.0)
+    coeffs = [true_div(block_sums(blocks), float(b**nd))]
+    coeffs += [true_div(block_sums(blocks * cs[k]), denom) for k in range(nd)]
+    return coeffs
+
+
+class RegressionPredictor(Predictor):
+    """Block-wise hyperplane fit (SZ2 [8]).
+
+    For each b^d block the least-squares plane f(i) = beta0 + sum_k beta_k*i_k
+    is fitted in closed form.  Coefficients are quantized (eb/2b per slope,
+    eb/2 for the intercept, as in SZ2), delta-coded along the block order,
+    and ride the shared entropy stage.  Edge blocks are replicate-padded; the
+    original extent is restored on decode.
+    """
+
+    name = "regression"
+
+    def estimate_error(self, sample, abs_eb, conf):
+        return regression_bits(sample, abs_eb, conf.block_size, conf.quant_radius)
+
+    def compress(self, data, quantizer, conf):
+        b = int(conf.block_size)
+        nd = data.ndim
+        x, orig_shape = pad_to_blocks(data.to(torch.float64), b)
+        blocks = blockify(x, b)  # (nb, b, ..., b)
+        nb = blocks.shape[0]
+        eb = quantizer.eb
+        coef_q = [
+            _rint_int64(true_div(vals, 2.0 * _coef_eb(eb, k, b)))
+            for k, vals in enumerate(_fit_coeffs(blocks, b))
+        ]
+        qhat = [q.to(torch.float64) * (2.0 * _coef_eb(eb, k, b)) for k, q in enumerate(coef_q)]
+        # delta-encode coefficient streams (adjacent blocks correlate)
+        cc = [quantizer.quantize_int_diff(torch.diff(q, prepend=q.new_zeros(1))) for q in coef_q]
+        pred = _plane(qhat, block_coords(b, nd, blocks.device), nb)
+        dcodes, _ = quantizer.quantize(blocks.reshape(-1), pred.reshape(-1))
+        codes = torch.cat(cc + [dcodes])
+        meta = {
+            "orig_shape": list(orig_shape),
+            "padded_shape": list(x.shape),
+            "nb": int(nb),
+            "b": b,
+        }
+        return codes, meta
+
+    def decompress(self, codes, shape, dtype, quantizer, conf, meta):
+        b = int(meta["b"])
+        nb = int(meta["nb"])
+        padded_shape = tuple(meta["padded_shape"])
+        nd = len(padded_shape)
+        eb = quantizer.eb
+        pos = 0
+        qhat = []
+        for k in range(nd + 1):
+            dq = quantizer.recover_int_diff(codes[pos : pos + nb])
+            pos += nb
+            qhat.append(torch.cumsum(dq, 0).to(torch.float64) * (2.0 * _coef_eb(eb, k, b)))
+        pred = _plane(qhat, block_coords(b, nd, codes.device), nb)
+        recon = quantizer.recover(pred.reshape(-1), codes[pos:])
+        out = unblockify(recon.reshape((nb,) + (b,) * nd), padded_shape, b)
+        sl = tuple(slice(0, s) for s in meta["orig_shape"])
+        return out[sl].to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Interpolation predictor (SZ3-Interp)
+# ---------------------------------------------------------------------------
+
+class InterpolationPredictor(Predictor):
+    """Multi-level spline interpolation [17] with per-level feedback.
+
+    Levels run coarse->fine; within a level each axis pass predicts the
+    odd-stride points from already-reconstructed neighbours via linear or
+    cubic interpolation.  Every point within a pass is independent, so a
+    pass is a few whole-tensor ops: log2(max_dim) * ndim passes in all.
+    """
+
+    name = "interp"
+
+    def __init__(self, kind: Optional[str] = None):
+        self.kind = kind
+
+    def estimate_error(self, sample, abs_eb, conf):
+        return code_bits(interp_residuals(sample), abs_eb, conf.quant_radius)
+
+    # -- pass geometry (host) --------------------------------------------------
+    @staticmethod
+    def _passes(shape: Tuple[int, ...]):
+        """Yield (axis, stride, coords_per_axis) for every pass, coarse->fine."""
+        max_dim = max(shape)
+        level = max(1, int(np.ceil(np.log2(max(2, max_dim)))))
+        for lev in range(level, 0, -1):
+            s = 1 << (lev - 1)
+            if s >= max_dim:
+                continue
+            for ax in range(len(shape)):
+                targets = np.arange(s, shape[ax], 2 * s)
+                if targets.size == 0:
+                    continue
+                other: List[np.ndarray] = []
+                for j in range(len(shape)):
+                    if j == ax:
+                        other.append(targets)
+                    elif j < ax:
+                        other.append(np.arange(0, shape[j], s))
+                    else:
+                        other.append(np.arange(0, shape[j], 2 * s))
+                yield ax, s, other
+
+    @staticmethod
+    def _ix(coords: Sequence[np.ndarray], device) -> Tuple[torch.Tensor, ...]:
+        """``np.ix_`` as torch index tensors on ``device``."""
+        nd = len(coords)
+        out = []
+        for ax, c in enumerate(coords):
+            shape = [1] * nd
+            shape[ax] = c.size
+            out.append(torch.from_numpy(c).to(device).reshape(shape))
+        return tuple(out)
+
+    def _predict_pass(
+        self, xhat: torch.Tensor, ax: int, s: int, coords: Sequence[np.ndarray], kind: str
+    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """Predictions for one pass and the pass's index grid.  The
+        arithmetic is the JAX package's, one IEEE op at a time."""
+        ts = coords[ax]
+        dim = xhat.shape[ax]
+        dev = xhat.device
+
+        def grab(offsets: np.ndarray) -> torch.Tensor:
+            cs = list(coords)
+            cs[ax] = offsets
+            return xhat[self._ix(cs, dev)]
+
+        left = grab(ts - s)
+        has_r = ts + s < dim
+        right = grab(np.where(has_r, ts + s, ts - s))
+        shape_bc = [1] * xhat.ndim
+        shape_bc[ax] = ts.size
+        has_r_bc = torch.from_numpy(has_r).to(dev).reshape(shape_bc)
+        pred = torch.where(has_r_bc, (left + right) * 0.5, left)
+        if kind == "cubic":
+            has_ll = ts - 3 * s >= 0
+            has_rr = ts + 3 * s < dim
+            full = has_ll & has_rr & has_r
+            if full.any():
+                ll = grab(np.where(has_ll, ts - 3 * s, ts - s))
+                rr = grab(np.where(has_rr, ts + 3 * s, ts - s))
+                # (-ll + 9*left + 9*right - rr) / 16, as separate ops: no
+                # fused multiply-add may round it differently
+                cubic = true_div(((-ll) + left * 9.0) + right * 9.0 - rr, 16.0)
+                full_bc = torch.from_numpy(full).to(dev).reshape(shape_bc)
+                pred = torch.where(full_bc, cubic, pred)
+        return pred, self._ix(coords, dev)
+
+    def compress(self, data, quantizer, conf):
+        kind = self.kind or conf.interp_kind
+        x64 = data.to(torch.float64)
+        xhat = torch.zeros_like(x64)
+        all_codes: List[torch.Tensor] = []
+        # anchor point: origin, predicted as 0
+        origin = (0,) * x64.ndim
+        zero = torch.zeros(1, dtype=torch.float64, device=x64.device)
+        c0, r0 = quantizer.quantize(x64[origin].reshape(1), zero)
+        xhat[origin] = r0[0].to(torch.float64)
+        all_codes.append(c0)
+        for ax, s, coords in self._passes(tuple(x64.shape)):
+            pred, idx = self._predict_pass(xhat, ax, s, coords, kind)
+            codes, recon = quantizer.quantize(x64[idx].reshape(-1), pred.reshape(-1))
+            xhat[idx] = recon.reshape(pred.shape).to(torch.float64)
+            all_codes.append(codes)
+        return torch.cat(all_codes), {"kind": kind}
+
+    def decompress(self, codes, shape, dtype, quantizer, conf, meta):
+        kind = meta["kind"]
+        _check_count(codes, shape)
+        xhat = torch.zeros(tuple(shape), dtype=torch.float64, device=codes.device)
+        origin = (0,) * len(shape)
+        zero = torch.zeros(1, dtype=torch.float64, device=codes.device)
+        xhat[origin] = quantizer.recover(zero, codes[0:1])[0].to(torch.float64)
+        pos = 1
+        for ax, s, coords in self._passes(tuple(shape)):
+            pred, idx = self._predict_pass(xhat, ax, s, coords, kind)
+            n = pred.numel()
+            recon = quantizer.recover(pred.reshape(-1), codes[pos : pos + n])
+            xhat[idx] = recon.reshape(pred.shape).to(torch.float64)
+            pos += n
+        return xhat.to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Composite predictor (SZ2 multi-algorithm selection)
+# ---------------------------------------------------------------------------
+
+class CompositePredictor(Predictor):
+    """Block-wise best-of selection between Lorenzo and regression (SZ2 [8]).
+
+    Per block the absolute error of each candidate is estimated on a strided
+    sample (paper: ``estimate_error``); the winner's codes are kept.  Lorenzo
+    runs block-locally on prequantized integers (dual-quant) so the decoder
+    never needs cross-candidate reconstructions.  Selection flags are packed
+    into meta (1 bit per block).
+    """
+
+    name = "composite"
+
+    def estimate_error(self, sample, abs_eb, conf):
+        # best-of its two candidates, mirroring the block-wise contest below,
+        # plus the 1-bit-per-block selection flag it must also code
+        x = _host64(sample)
+        flag_bits = 1.0 / float(max(2, conf.block_size)) ** max(1, x.ndim)
+        return flag_bits + min(
+            code_bits(lorenzo_residuals(x, abs_eb, 1, conf.quant_radius), abs_eb, conf.quant_radius),
+            regression_bits(x, abs_eb, conf.block_size, conf.quant_radius),
+        )
+
+    def compress(self, data, quantizer, conf):
+        b = int(conf.block_size)
+        nd = data.ndim
+        x, orig_shape = pad_to_blocks(data.to(torch.float64), b)
+        blocks = blockify(x, b)  # (nb, b, ..., b)
+        nb = blocks.shape[0]
+        eb = quantizer.eb
+
+        # --- candidate 1: block-local dual-quant Lorenzo ---
+        qfull, _recon, fail = quantizer.prequantize(blocks)
+        d_lor = qfull
+        for ax in range(1, nd + 1):
+            shape = list(d_lor.shape)
+            shape[ax] = 1
+            d_lor = torch.diff(d_lor, dim=ax, prepend=d_lor.new_zeros(shape))
+
+        # --- candidate 2: regression plane from quantized coefficients ---
+        # non-finite block means (nan/inf inputs) quantize to garbage by
+        # design: those blocks lose the contest or their points ride the
+        # unpredictable fail path
+        coef_q = [
+            _rint_int64(true_div(vals, 2.0 * _coef_eb(eb, k, b)))
+            for k, vals in enumerate(_fit_coeffs(blocks, b))
+        ]
+        qhat = [q.to(torch.float64) * (2.0 * _coef_eb(eb, k, b)) for k, q in enumerate(coef_q)]
+        pred_reg = _plane(qhat, block_coords(b, nd, blocks.device), nb)
+
+        # --- estimation on strided samples (paper: estimate_error) ---
+        stride = max(1, int(conf.sample_stride))
+        sample = (slice(None),) + (slice(0, b, stride),) * nd
+        est_lor = torch.clamp(
+            d_lor[sample].abs().to(torch.float64) * (2.0 * eb), max=2.0 * eb * quantizer.radius
+        )
+        est_lor = block_sums(est_lor)
+        est_reg = block_sums((blocks[sample] - pred_reg[sample]).abs())
+        use_reg = est_reg < est_lor
+
+        # --- emit codes: per-block winner, streams interleaved block-major ---
+        # regression coefficient streams are only kept for winning blocks
+        coef_codes = []
+        for qc in coef_q:
+            kept = qc[use_reg]
+            coef_codes.append(quantizer.quantize_int_diff(torch.diff(kept, prepend=kept.new_zeros(1))))
+        lor_codes = quantizer.quantize_int_diff(d_lor[~use_reg].reshape(-1))
+        dcodes, _ = quantizer.quantize(blocks[use_reg].reshape(-1), pred_reg[use_reg].reshape(-1))
+        codes = torch.cat(coef_codes + [lor_codes, dcodes])
+        meta: Dict[str, Any] = {
+            "orig_shape": list(orig_shape),
+            "padded_shape": list(x.shape),
+            "b": b,
+            "nb": int(nb),
+            "flags": _pack_mask(use_reg),
+            "n_reg": int(use_reg.sum()),
+            "nfail": int(fail.sum()),
+        }
+        if meta["nfail"]:
+            lor_fail = fail[~use_reg]
+            meta["fail_mask"] = _pack_mask(lor_fail)
+            meta["fail_vals"] = to_host(blocks[~use_reg][lor_fail]).tobytes()
+        return codes, meta
+
+    def decompress(self, codes, shape, dtype, quantizer, conf, meta):
+        b = int(meta["b"])
+        nb = int(meta["nb"])
+        padded_shape = tuple(meta["padded_shape"])
+        nd = len(padded_shape)
+        eb = quantizer.eb
+        dev = codes.device
+        use_reg = torch.from_numpy(_unpack_mask(meta["flags"], nb)).to(dev)
+        n_reg = int(meta["n_reg"])
+        n_lor = nb - n_reg
+        pos = 0
+        qhat = []
+        for k in range(nd + 1):
+            dq = quantizer.recover_int_diff(codes[pos : pos + n_reg])
+            pos += n_reg
+            qhat.append(torch.cumsum(dq, 0).to(torch.float64) * (2.0 * _coef_eb(eb, k, b)))
+        blk_elems = b**nd
+        d_lor = quantizer.recover_int_diff(codes[pos : pos + n_lor * blk_elems])
+        pos += n_lor * blk_elems
+        qfull = d_lor.reshape((n_lor,) + (b,) * nd)
+        for ax in range(nd, 0, -1):
+            qfull = torch.cumsum(qfull, dim=ax)
+        lor_blocks = quantizer.dequantize_int(qfull).to(torch.float64)
+        if meta.get("nfail"):
+            fl = _unpack_mask(meta["fail_mask"], n_lor * blk_elems)
+            vals = np.frombuffer(meta["fail_vals"], np.float64)
+            if int(fl.sum()) != vals.size:
+                raise ValueError(
+                    f"fail channel holds {vals.size} values for {int(fl.sum())} masked points"
+                )
+            flat = lor_blocks.reshape(-1)
+            flat[torch.from_numpy(fl).to(dev)] = torch.from_numpy(vals.copy()).to(dev)
+        pred_reg = _plane(qhat, block_coords(b, nd, dev), n_reg)
+        reg_recon = quantizer.recover(pred_reg.reshape(-1), codes[pos:])
+        blocks = torch.empty((nb,) + (b,) * nd, dtype=torch.float64, device=dev)
+        blocks[~use_reg] = lor_blocks
+        blocks[use_reg] = reg_recon.reshape((n_reg,) + (b,) * nd).to(torch.float64)
+        out = unblockify(blocks, padded_shape, b)
+        sl = tuple(slice(0, s) for s in meta["orig_shape"])
+        return out[sl].to(dtype)
+
+
 _REGISTRY = {
     "zero": ZeroPredictor,
     "lorenzo": LorenzoPredictor,
+    "regression": RegressionPredictor,
+    "interp": InterpolationPredictor,
+    "composite": CompositePredictor,
 }
+
+
+def register(name: str, cls) -> None:
+    _REGISTRY[name] = cls
 
 
 def make(name: str, **kw) -> Predictor:

@@ -16,6 +16,7 @@ package's quantizer bit for bit: float64 divides are true IEEE divides (see
 from __future__ import annotations
 
 import abc
+import functools
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -32,6 +33,69 @@ def true_div(x: torch.Tensor, s: float) -> torch.Tensor:
     so change a rounded quantization index.  A 0-dim divisor on ``x``'s own
     device keeps the true divide."""
     return x / torch.tensor(s, dtype=x.dtype, device=x.device)
+
+
+def pairwise_rowsum(v: torch.Tensor) -> torch.Tensor:
+    """Row sums of a 2-D tensor, rounded as ``np.sum`` along a contiguous
+    axis rounds them, on every device.
+
+    numpy's pairwise rule, as a fixed sequence of elementwise adds over
+    columns (IEEE adds round alike on the CPU and the card; torch's own
+    reductions use other orders): below 8 terms a running sum; up to 128,
+    eight running sums over every eighth term, combined as a tree, then the
+    remaining terms one by one; above 128, the two halves (the first cut to
+    a multiple of 8) summed recursively.  The reduction starts from its
+    identity 0.0, so a sum of negative zeros is +0.0, as in numpy."""
+    return _pairwise(v, 0, v.shape[1]) + 0.0
+
+
+def _pairwise(v: torch.Tensor, lo: int, n: int) -> torch.Tensor:
+    if n < 8:
+        res = v.new_full((v.shape[0],), -0.0)
+        for i in range(lo, lo + n):
+            res = res + v[:, i]
+        return res
+    if n <= 128:
+        r = v[:, lo : lo + 8]
+        i = 8
+        while i < n - n % 8:
+            r = r + v[:, lo + i : lo + i + 8]
+            i += 8
+        res = ((r[:, 0] + r[:, 1]) + (r[:, 2] + r[:, 3])) + ((r[:, 4] + r[:, 5]) + (r[:, 6] + r[:, 7]))
+        for j in range(i, n):
+            res = res + v[:, lo + j]
+        return res
+    n2 = n // 2
+    n2 -= n2 % 8
+    return _pairwise(v, lo, n2) + _pairwise(v, lo + n2, n - n2)
+
+
+#: block shapes whose sums decide bytes: regression/composite blocks of the
+#: default 6 in 1-3 D, the composite's strided samples, a long run
+_PROBE_SHAPES = ((6,), (2,), (2, 2), (2, 2, 2), (6, 6), (3, 3, 3), (6, 6, 6), (300,))
+
+
+@functools.lru_cache(maxsize=1)
+def check_numpy_sum_order() -> None:
+    """Raise unless this machine's numpy sums blocks in the order
+    :func:`pairwise_rowsum` reproduces (``np.sum`` over the block axes of a
+    C-contiguous (nb, b, ..., b) array, and its mean).  Blobs equal the JAX
+    package's only where it does; checked once per process."""
+    rng = np.random.default_rng(20210614)
+    for shape in _PROBE_SHAPES:
+        x = rng.standard_normal((512,) + shape) * np.exp(rng.uniform(-20, 20, (512,) + (1,) * len(shape)))
+        axes = tuple(range(1, x.ndim))
+        got = pairwise_rowsum(torch.from_numpy(x.reshape(512, -1))).numpy()
+        n = float(np.prod(shape))
+        if not (
+            np.array_equal(got.view(np.int64), x.sum(axis=axes).view(np.int64))
+            and np.array_equal((got / n).view(np.int64), x.mean(axis=axes).view(np.int64))
+        ):
+            raise RuntimeError(
+                f"numpy {np.__version__} sums (512, {', '.join(map(str, shape))}) blocks in "
+                "an order pairwise_rowsum does not reproduce; blobs of the "
+                "regression predictors would differ from the JAX package's"
+            )
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:

@@ -18,7 +18,7 @@ import pathlib
 import shutil
 import subprocess
 import threading
-from typing import Callable, List
+from typing import Callable, Dict, List
 
 import torch
 
@@ -44,6 +44,24 @@ def check_launch(err: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error for its launch."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {err}")
+
+
+#: guards every kernel module's launch counts: the chunked engine launches
+#: kernels from several worker threads, and ``counts[name] += 1`` is a
+#: read-modify-write the interpreter lock does not make atomic
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(counts: Dict[str, int], name: str) -> None:
+    """Add one to ``counts[name]``, safely across threads."""
+    with _COUNT_LOCK:
+        counts[name] += 1
+
+
+def reset_counts(counts: Dict[str, int]) -> None:
+    with _COUNT_LOCK:
+        for k in counts:
+            counts[k] = 0
 
 
 def stream() -> ctypes.c_void_p:

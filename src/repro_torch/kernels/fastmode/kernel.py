@@ -18,7 +18,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .._build import CudaLibrary, check_launch, stream
+from .._build import CudaLibrary, check_launch, count_launch, reset_counts, stream
 from .ref import VALID_BS
 
 _SRC = pathlib.Path(__file__).parent / "csrc" / "fastmode.cu"
@@ -28,8 +28,7 @@ LAUNCHES: Dict[str, int] = {"block_stats": 0}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset_counts(LAUNCHES)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -64,5 +63,5 @@ def block_stats(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
             x.data_ptr(), means.data_ptr(), devs.data_ptr(), nb, bs, stream()
         )
     check_launch(err, "block_stats")
-    LAUNCHES["block_stats"] += 1
+    count_launch(LAUNCHES, "block_stats")
     return means, devs

@@ -19,7 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .._build import CudaLibrary, check_launch, stream
+from .._build import CudaLibrary, check_launch, count_launch, reset_counts, stream
 
 _SRC = pathlib.Path(__file__).parent / "csrc" / "kvquant.cu"
 
@@ -36,8 +36,7 @@ _AM_BAND = 512
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset_counts(LAUNCHES)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -77,7 +76,7 @@ def absmax(x: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         err = lib.kvquant_absmax(x.data_ptr(), bits.data_ptr(), T, C, stream())
     check_launch(err, "absmax")
-    LAUNCHES["absmax"] += 1
+    count_launch(LAUNCHES, "absmax")
     return bits.view(torch.float32)
 
 
@@ -95,7 +94,7 @@ def quantize_with_scale(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     with torch.cuda.device(x.device):
         err = lib.kvquant_quantize(x.data_ptr(), scale.data_ptr(), q.data_ptr(), T, C, vec, stream())
     check_launch(err, "quantize_with_scale")
-    LAUNCHES["quantize_with_scale"] += 1
+    count_launch(LAUNCHES, "quantize_with_scale")
     return q
 
 
@@ -135,5 +134,5 @@ def dequant_matmul(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
             M, K, N, kchunk, splits, stream(),
         )
     check_launch(err, "dequant_matmul")
-    LAUNCHES["dequant_matmul"] += 1
+    count_launch(LAUNCHES, "dequant_matmul")
     return out

@@ -18,7 +18,7 @@ from typing import Dict, Tuple
 
 import torch
 
-from .._build import NVCC_FLAGS, CudaLibrary, check_launch, stream  # noqa: F401  (NVCC_FLAGS re-exported)
+from .._build import CudaLibrary, NVCC_FLAGS, check_launch, count_launch, reset_counts, stream  # noqa: F401  (NVCC_FLAGS re-exported)
 
 _SRC = pathlib.Path(__file__).parent / "csrc" / "lorenzo.cu"
 
@@ -38,8 +38,7 @@ _THREADS = 256
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset_counts(LAUNCHES)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -91,7 +90,7 @@ def _encode(name: str, x: torch.Tensor, eb: float, radius: int):
             1.0 / (2.0 * float(eb)), int(radius), stream(),
         )
     check_launch(err, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return codes, draw
 
 
@@ -107,7 +106,7 @@ def _decode(name: str, d: torch.Tensor, eb: float) -> torch.Tensor:
             2.0 * float(eb), stream(),
         )
     check_launch(err, name)
-    LAUNCHES[name] += 1
+    count_launch(LAUNCHES, name)
     return out
 
 

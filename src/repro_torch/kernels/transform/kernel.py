@@ -19,7 +19,7 @@ from typing import Dict
 import numpy as np
 import torch
 
-from .._build import CudaLibrary, check_launch, stream
+from .._build import CudaLibrary, check_launch, count_launch, reset_counts, stream
 from . import ref as _ref
 
 _SRC = pathlib.Path(__file__).parent / "csrc" / "transform.cu"
@@ -39,8 +39,7 @@ _INV = np.ascontiguousarray(_ref.MAT.T, np.float32)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    reset_counts(LAUNCHES)
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -84,7 +83,7 @@ def _rotate(name: str, x: torch.Tensor, mat: np.ndarray, mode: str) -> torch.Ten
             int(mode == "2d"), stream(),
         )
     check_launch(err, what)
-    LAUNCHES[what] += 1
+    count_launch(LAUNCHES, what)
     return out
 
 
@@ -126,5 +125,5 @@ def axis_f64(x: torch.Tensor, m: np.ndarray, ax: int) -> torch.Tensor:
             _ref.ORDERS.index(order), stream(),
         )
     check_launch(err, "axis_f64")
-    LAUNCHES["axis_f64"] += 1
+    count_launch(LAUNCHES, "axis_f64")
     return out

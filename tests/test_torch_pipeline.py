@@ -1,4 +1,5 @@
-"""The port's ``sz3_lorenzo`` slice held against the JAX package, on the CPU.
+"""The port's ``sz3_lorenzo`` slice and the container layer held against the
+JAX package, on the CPU.
 
 * same input, same bytes: the port's blob equals the reference's on the host
   route (``route="off"`` vs ``device="off"``) and on the kernel route
@@ -6,7 +7,9 @@
   with interpret-mode Pallas);
 * containers work both ways: each package decodes the other's blobs, bit
   for bit on the host route, and the committed v1 conformance and fault
-  fixtures behave as ``tests/data/faults/manifest.json`` pins them;
+  fixtures behave as ``tests/data/faults/manifest.json`` pins them, also
+  where ``google_crc32c`` is missing (CRC32C trailers then verify through the
+  port's numpy CRC32C);
 * the modules under the pipeline (msgpack, Huffman, lossless backends,
   quantizer, metrics) match their reference counterparts;
 * the error contract, the import boundary and the device default hold.
@@ -15,6 +18,7 @@ import json
 import pathlib
 import subprocess
 import sys
+import types
 import zlib
 
 import msgpack
@@ -48,8 +52,12 @@ DATA = pathlib.Path(__file__).parent / "data"
 FAULTS = DATA / "faults"
 CORPUS = sorted(DATA.rglob("*.sz3"))
 LORENZO_FIXTURES = {"v1_lorenzo_abs.sz3", "v1_lorenzo.sz3"}
-#: corpus files of the kinds the port decodes (v1 Lorenzo, v3, v6)
-PORTED_FIXTURES = LORENZO_FIXTURES | {
+#: v1 composite and v2 chunked fixtures, decoded since the chunked engine
+#: was ported (``test_ported_fixture_decodes_like_the_reference``)
+CHUNKED_FIXTURES = ("v1_lr_rel.sz3", "v2_chunked_rel.sz3", "v2_quality_psnr.sz3", "faults/v2_chunked.sz3")
+#: corpus files of the kinds the port decodes (v1 Lorenzo and composite, v2,
+#: v3, v6)
+PORTED_FIXTURES = LORENZO_FIXTURES | {pathlib.PurePath(f).name for f in CHUNKED_FIXTURES} | {
     "v3_transform_abs.sz3", "v3_transform.sz3",
     "v6_fast_mixed_abs.sz3", "v6_fast_const_rel.sz3", "v6_fast.sz3",
 }
@@ -212,7 +220,22 @@ def test_v1_conformance_blob_decodes():
     _assert_same_bits(tc.decompress(blob, device=CPU).numpy(), want)
 
 
-def test_v1_fault_fixture_pristine_decodes_strict():
+@pytest.fixture(params=["google_crc32c", "numpy"])
+def crc32c(request, monkeypatch):
+    """Verify CRC32C trailers through ``google_crc32c`` and, with the module
+    hidden as on a machine without it, through the port's numpy CRC32C."""
+    if request.param == "numpy":
+        monkeypatch.setattr(t_int, "_crc32c_mod", None)
+        monkeypatch.setattr(t_int, "_HAVE_CRC32C", False)
+    return request.param
+
+
+def test_fault_fixtures_carry_crc32c_trailers():
+    for name in ("v1_lorenzo.sz3", "v1_lorenzo_corrupt.sz3", "v2_chunked.sz3"):
+        assert t_int.read_trailer((FAULTS / name).read_bytes()).algo == "crc32c"
+
+
+def test_v1_fault_fixture_pristine_decodes_strict(crc32c):
     blob = (FAULTS / "v1_lorenzo.sz3").read_bytes()
     _assert_same_bits(
         tc.decompress(blob, verify="strict", device=CPU).numpy(),
@@ -220,13 +243,13 @@ def test_v1_fault_fixture_pristine_decodes_strict():
     )
 
 
-def test_v1_fault_fixture_corrupt_strict_raises():
+def test_v1_fault_fixture_corrupt_strict_raises(crc32c):
     corrupt = (FAULTS / "v1_lorenzo_corrupt.sz3").read_bytes()
     with pytest.raises(tc.IntegrityError):
         tc.decompress(corrupt, verify="strict", device=CPU)
 
 
-def test_v1_fault_fixture_corrupt_salvage_loses_everything():
+def test_v1_fault_fixture_corrupt_salvage_loses_everything(crc32c):
     man = json.loads((FAULTS / "manifest.json").read_text())["v1_lorenzo"]
     assert man["generation"] == "v1" and "damaged_chunks" not in man
     corrupt = (FAULTS / "v1_lorenzo_corrupt.sz3").read_bytes()
@@ -236,6 +259,20 @@ def test_v1_fault_fixture_corrupt_salvage_loses_everything():
     assert sorted(d.index for d in report.damage) == [0] and report.recovered == []
     want = np.load(FAULTS / "v1_lorenzo.npy")
     assert data.shape == want.shape and not bool(data.any())
+
+
+@pytest.mark.parametrize("name", CHUNKED_FIXTURES)
+def test_ported_fixture_decodes_like_the_reference(name, monkeypatch):
+    """Decodes to the reference's bits and to the fixture's pinned array.
+    Where ``google_crc32c`` is missing the JAX package cannot verify the
+    fixtures' CRC32C trailers (ROADMAP queue 3): it borrows the port's."""
+    if r_int._crc32c_mod is None:
+        monkeypatch.setattr(r_int, "_crc32c_mod", types.SimpleNamespace(
+            extend=lambda value, data: t_int.crc32c_numpy(data, value)))
+    blob = (DATA / name).read_bytes()
+    got = tc.decompress(blob, device=CPU).numpy()
+    _assert_same_bits(got, ref_decompress(blob))
+    _assert_same_bits(got, np.load((DATA / name).with_suffix(".npy")))
 
 
 def test_mutation_grid_contract_through_the_port():
@@ -336,7 +373,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core.transform, repro_torch.core.fastmode\n"
         "import repro_torch.kernels.transform.ops, repro_torch.kernels.fastmode.ops\n"
         "import repro_torch.core.jitmode, repro_torch.compression, repro_torch.optim, repro_torch.tree\n"
-        "import repro_torch.kernels.kvquant.ops\n"
+        "import repro_torch.kernels.kvquant.ops, repro_torch.core.chunking\n"
+        "import repro_torch.kernels.bitplane.ops\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
@@ -495,14 +533,15 @@ def test_estimators_match_reference():
     x = FIELDS["2d"]
     want = r_pred.lorenzo_residuals(x, 1e-3)
     got = t_pred.lorenzo_residuals(torch.from_numpy(x), 1e-3)
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got, want)
     conf = tc.CompressionConfig()
+    # scored on the host in numpy, so equal to the last bit
     assert t_pred.LorenzoPredictor(order=1).estimate_error(
         torch.from_numpy(x), 1e-3, conf
-    ) == pytest.approx(RLorenzo(order=1).estimate_error(x, 1e-3, RConf()), rel=1e-12)
+    ) == RLorenzo(order=1).estimate_error(x, 1e-3, RConf())
     assert t_pred.ZeroPredictor().estimate_error(
         torch.from_numpy(x), 1e-3, conf
-    ) == pytest.approx(RZero().estimate_error(x, 1e-3, RConf()), rel=1e-12)
+    ) == RZero().estimate_error(x, 1e-3, RConf())
 
 
 def test_crc_rule_matches_reference():
@@ -511,3 +550,14 @@ def test_crc_rule_matches_reference():
     for algo in ("crc32",) + (("crc32c",) if r_int.CHECKSUM_ALGO == "crc32c" else ()):
         assert t_int.checksum(data, algo=algo) == r_int.checksum(data, algo=algo)
     assert t_int.checksum(data, algo="crc32") == zlib.crc32(data)
+
+
+@pytest.mark.parametrize("start", [0, 0x9E3779B9])
+@pytest.mark.parametrize("n", [0, 1, 7, 8, 9, 4095, 65537, (1 << 20) + 3])
+def test_numpy_crc32c_equals_google_crc32c(n, start, monkeypatch):
+    google_crc32c = pytest.importorskip("google_crc32c")
+    data = np.random.default_rng(n).integers(0, 256, n, dtype=np.uint8).tobytes()
+    want = google_crc32c.extend(start, data)
+    assert t_int.crc32c_numpy(data, start) == want
+    monkeypatch.setattr(t_int, "_crc32c_mod", None)
+    assert t_int.checksum(data, start, algo="crc32c") == want

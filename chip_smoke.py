@@ -11,14 +11,24 @@ Phases, one JSON line each:
 3. kernels: each kernel against its plain version on the card, bit for bit
    (NaN equal to NaN), at the main paths' shapes and ragged ones, with its
    time, the plain version's time, a PyTorch library call's time and its
-   bound: the four Lorenzo kernels, the float32 transform (``fwd``/``inv``,
+   bound: the four Lorenzo kernels (``decode_1d`` also at the chunked
+   engine's chunk (1, 2^20), on rows that start unaligned (5, 8197) and on
+   sums that wrap int32), the float32 transform (``fwd``/``inv``,
    1d and 2d modes), the float64 transform axis product (against numpy's
    product on the host), the fast tier's ``block_stats`` (bs 128, 256) and
    the three KV-quantization kernels (``absmax`` and
    ``quantize_with_scale`` bit for bit, NaN and all-zero columns included;
    ``dequant_matmul`` within ``(K+2) * 2**-24 * (|a| @ |deq|)`` of a
-   float64 product, as its plain version is) at one layer's V cache of
-   Qwen1.5-0.5B at a 32K-token prompt, (32768, 1024), and ragged shapes;
+   float64 product, as its plain version is, also on rows near 2^-100 and
+   2^100, on rows with NaN and infinities, whose non-finite outputs
+   must sit where the plain version's do, and at 2048x32768x1024, where
+   all of K runs in one split; its sums on rows built to expose the
+   tensor cores' truncating accumulator must equal
+   ``ref.tensor_core_dequant_matmul``, the model its worst case is counted
+   on; its bound counts three bf16
+   products per multiply-add at the tensor cores' rate) at one layer's V
+   cache of Qwen1.5-0.5B at a 32K-token prompt, (32768, 1024), and ragged
+   shapes;
    and the bitplane transpose (``encode``/``decode``) on the 6,480,000
    integers the v3 coder hands its host bitplane codec for the 1800x3600
    field, on 2^24+3 uniform uint32 and on n = 0, 5, 16385, with its planes
@@ -87,6 +97,8 @@ _BANDWIDTH = (("H200", 4.8e12), ("H100 PCIe", 2.0e12), ("H100 NVL", 3.9e12), ("H
 _ALU_RATE = 67e12
 #: float64 rate outside the tensor cores, H100 SXM data sheet
 _F64_RATE = 34e12
+#: dense bf16 rate of the tensor cores, H100 SXM data sheet
+_BF16_TC_RATE = 989e12
 _LORENZO_SRC = "src/repro_torch/kernels/lorenzo/csrc/lorenzo.cu"
 _TRANSFORM_SRC = "src/repro_torch/kernels/transform/csrc/transform.cu"
 _FASTMODE_SRC = "src/repro_torch/kernels/fastmode/csrc/fastmode.cu"
@@ -349,7 +361,9 @@ def lorenzo_kernels(timer, g, bw: float) -> dict:
     from repro_torch.kernels.lorenzo import ref as R
 
     cases = {}
-    shapes = {"2d": [SHAPE2D, (1801, 3599)], "1d": [(1, N1D), (300, 1000)]}
+    # 1d: the series, rows, the chunked engine's chunk (1, 2^20) and rows
+    # whose starts are not 16-byte aligned (the scan's 4-byte loads)
+    shapes = {"2d": [SHAPE2D, (1801, 3599)], "1d": [(1, N1D), (300, 1000), (1, 1 << 20), (5, 8197)]}
     eb = 1e-3
     for mode, mode_shapes in shapes.items():
         for shape in mode_shapes:
@@ -361,6 +375,14 @@ def lorenzo_kernels(timer, g, bw: float) -> dict:
                 if not case["bit_identical"]:
                     raise AssertionError(f"{name} at {shape} differs from its plain version")
                 cases.setdefault(name, case)  # first shape is the main path's
+    # running sums that wrap int32 many times over
+    d = torch.full((3, 70001), 2**30, dtype=torch.int32, device="cuda")
+    d[1] = -(2**30) - 7
+    d[2, ::3] = 2**31 - 1
+    case = _kernel_case(timer, "decode_1d", d.shape, d, 0.5, bw)
+    emit("kernel decode_1d int32-wrapping sums 3x70001", **case)
+    if not case["bit_identical"]:
+        raise AssertionError("decode_1d on wrapping sums differs from its plain version")
     return cases
 
 
@@ -516,6 +538,89 @@ def f64_matmul_check(out: torch.Tensor, a: torch.Tensor, q: torch.Tensor, s: tor
     return float(ratio.max())
 
 
+def dequant_matmul_edges(K, R, a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor, label: str) -> None:
+    """The tensor-core matmul on rows with NaN and infinities (non-finite
+    outputs where the plain version's are, the finite rows within the
+    float64 bound) and on rows near 2^-100 and 2^100 (within the bound)."""
+    M, Kd = a.shape
+    bad = a.clone()
+    bad[0, Kd // 2] = float("nan")
+    bad[1, 0] = float("inf")
+    bad[2, Kd - 1] = float("-inf")
+    bad[3, 0], bad[3, Kd - 1] = float("inf"), float("-inf")
+    bad[4, Kd // 3] = torch.tensor([0x7F800001], dtype=torch.int32).view(torch.float32)[0]  # NaN, low payload
+    out, plain = K.dequant_matmul(bad, q, scale), R.dequant_matmul(bad, q, scale)
+    torch.cuda.synchronize()
+    same_pattern = all(torch.equal(f(out), f(plain)) for f in (
+        torch.isfinite, torch.isnan, lambda t: torch.isinf(t) & (t > 0)))
+    finite_ratio = f64_matmul_check(out[5:], bad[5:], q, scale)
+    emit(f"kernel dequant_matmul non-finite rows {label} {M}x{Kd}x{q.shape[1]}",
+         nonfinite_pattern_equal=same_pattern, finite_rows_err_over_f64_bound=finite_ratio)
+    if not (same_pattern and finite_ratio <= 1):
+        raise AssertionError(f"dequant_matmul at {M}x{Kd}: non-finite rows differ from the plain "
+                             f"version's ({same_pattern}) or the finite rows miss the bound ({finite_ratio})")
+    rows = torch.arange(M, device=a.device)[:, None]
+    ext = a * Kd * torch.where(rows % 2 == 0, 2.0**-100, 2.0**100)  # around 2^-100 and 2^100
+    out = K.dequant_matmul(ext, q, scale)
+    torch.cuda.synchronize()
+    ratio = f64_matmul_check(out, ext, q, scale)
+    finite = bool(torch.isfinite(out).all())
+    emit(f"kernel dequant_matmul 2^-100/2^100 rows {label} {M}x{Kd}x{q.shape[1]}",
+         err_over_f64_bound=ratio, finite=finite)
+    if not (finite and ratio <= 1):
+        raise AssertionError(f"dequant_matmul at {M}x{Kd}: tiny and large rows give {ratio} of the bound")
+
+
+#: rows against q = 1 (K = 32, N = 16) and what the tensor cores sum minus
+#: 2^24: each step aligns its addends to the largest, keeps 2 bits below its
+#: ulp and cuts toward zero (round to nearest would give 12, 2, 12, 0, 4)
+ACC_ROWS = (
+    ([2.0**24] + [0.0] * 15 + [0.75] * 16, 8.0),
+    ([2.0**24] + [0.0] * 15 + [1.5] + [0.0] * 15, 0.0),
+    ([2.0**24] + [0.75] * 15 + [0.0] * 16, 6.0),
+    ([2.0**24, -0.25] + [0.0] * 30, 0.0),
+    ([2.0**24] + [0.0] * 15 + [0.25] * 16, 0.0),
+)
+
+
+def dequant_matmul_accumulation(K, R, q_kv: torch.Tensor, s_kv: torch.Tensor, seed: int) -> None:
+    """The tensor cores' accumulator on the probe rows and on softmax rows,
+    bit for bit against the model the source note counts its worst case
+    on; then 2048 rows of
+    softmax weights at K = 32768, which ``split_k`` runs in one split (one
+    pair of accumulators, promoted every 128 of K), against positive codes
+    and the V cache's, within the float64 bound."""
+    a = torch.tensor([r for r, _ in ACC_ROWS], device="cuda")
+    q, s = torch.ones((32, 16), dtype=torch.int8, device="cuda"), torch.ones(16, device="cuda")
+    got = K.dequant_matmul(a, q, s)
+    model = R.tensor_core_dequant_matmul(a, q, s, *K.split_k(*a.shape, 16))
+    sums = (got[:, 0].double() - 2.0**24).tolist()
+    emit("kernel dequant_matmul accumulator rows", sums_minus_2_24=sums, model_equal=torch.equal(got, model))
+    if not (torch.equal(got, model) and sums == [v for _, v in ACC_ROWS]):
+        raise AssertionError(f"dequant_matmul: the accumulator summed {sums}, not as the model does")
+    a = attention_rows(KV_QUERIES, 4096, seed + 3)  # 16 splits, each promoted once
+    q, s = q_kv[:4096].contiguous(), s_kv
+    got = K.dequant_matmul(a, q, s)
+    model = R.tensor_core_dequant_matmul(a, q, s, *K.split_k(*a.shape, q.shape[1]))
+    emit(f"kernel dequant_matmul against the accumulator model {KV_QUERIES}x4096x{q.shape[1]}",
+         split_k=list(K.split_k(*a.shape, q.shape[1])), differing=int((got != model).sum()))
+    if not torch.equal(got, model):
+        raise AssertionError("dequant_matmul: softmax rows sum otherwise than the accumulator model")
+    M, (Kd, N) = 2048, q_kv.shape
+    g = torch.Generator(device="cuda").manual_seed(seed + 31)
+    a = attention_rows(M, Kd, seed + 2)
+    q_pos = torch.randint(1, 128, (Kd, N), generator=g, device="cuda", dtype=torch.int8)
+    for codes, qq, ss in (("positive", q_pos, s_kv), ("v cache", q_kv, s_kv)):
+        out = K.dequant_matmul(a, qq, ss)
+        torch.cuda.synchronize()
+        ratio = f64_matmul_check(out, a, qq, ss)
+        emit(f"kernel dequant_matmul one split {codes} codes {M}x{Kd}x{N}",
+             split_k=list(K.split_k(M, Kd, N)), err_over_f64_bound=ratio)
+        if not (K.split_k(M, Kd, N)[1] == 1 and ratio <= 1):
+            raise AssertionError(f"dequant_matmul in one split at {M}x{Kd}x{N}: {ratio} of the bound")
+        del out
+
+
 def kvquant_kernels(timer, bw: float, seed: int) -> dict:
     """absmax and quantize_with_scale bit for bit, dequant_matmul within the
     float64 bound, at the KV path's shapes and ragged ones."""
@@ -574,13 +679,18 @@ def kvquant_kernels(timer, bw: float, seed: int) -> dict:
             "kernel_ms": timer(lambda: K.dequant_matmul(a, q, scale)),
             "plain_ms": timer(lambda: R.dequant_matmul(a, q, scale)),
             "library_ms": timer(lambda: torch.matmul(a, q.float() * scale)),
-            **bound(4 * M * Kd + Kd * N + 4 * N + 4 * M * N, 2 * M * N * Kd, bw),
+            # three bf16 products per multiply-add, on the tensor cores
+            **bound(4 * M * Kd + Kd * N + 4 * N + 4 * M * N, 3 * 2 * M * N * Kd, bw, _BF16_TC_RATE),
+            "bound_rate": "bf16 tensor cores, 989 TFLOP/s",
+            "f32_alu_bound_ms": 2 * M * N * Kd / _ALU_RATE * 1e3,
         }
         emit(f"kernel dequant_matmul {label} {M}x{Kd}x{N}", **mcase)
         if not (kernel_ratio <= 1 and plain_ratio <= 1):
             raise AssertionError(f"dequant_matmul at {M}x{Kd}x{N}: error over the float64 bound "
                                  f"{kernel_ratio} (kernel), {plain_ratio} (plain)")
+        dequant_matmul_edges(K, R, a, q, scale, label)
         if label == "main":
+            dequant_matmul_accumulation(K, R, q, scale, seed)
             cases.update({"absmax": case, "quantize_with_scale": qcase, "dequant_matmul": mcase})
     # NaN, inf and all-zero columns: bit for bit with the plain versions
     x = v_cache((4096, 256), seed + 9)

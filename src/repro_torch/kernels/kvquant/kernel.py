@@ -2,7 +2,10 @@
 
 The source is built at first launch by :mod:`.._build` (``nvcc`` for
 ``sm_90a``, a plain C interface loaded with ``ctypes``, into ``build/``
-beside this file).  Nothing is built or loaded at import.
+beside this file).  Nothing is built or loaded at import.  The matmul runs
+on the tensor cores (``wgmma``, bf16) with ``a`` split into three exact
+bf16 parts; :func:`.ref.split_bf16x3` states that split and
+:func:`.ref.tensor_core_dequant_matmul` the card's accumulation.
 
 Each wrapper takes CUDA tensors only, checks device, dtype, shape and
 contiguity, allocates its outputs (and the matmul's split-K workspace)
@@ -26,10 +29,11 @@ _SRC = pathlib.Path(__file__).parent / "csrc" / "kvquant.cu"
 #: kernel launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"absmax": 0, "quantize_with_scale": 0, "dequant_matmul": 0}
 
-#: the matmul's output tile and K step (``MM_BM``/``MM_BN``/``MM_BK``)
-_TILE, _BK = 64, 16
-#: split K until about this many blocks are in flight (two per SM of an H100)
-_TARGET_BLOCKS = 264
+#: the matmul's output tile and K step (``TC_BM``/``TC_BN``/``TC_BK``)
+_TILE, _BK = 128, 64
+#: split K until about this many blocks are in flight: one wave of one
+#: block per SM of an H100 (a block holds 209 KB of shared memory)
+_TARGET_BLOCKS = 132
 #: the absmax kernel's rows per block (``AM_BAND``); the grid's y dimension
 #: holds at most 65535 bands
 _AM_BAND = 512
@@ -45,7 +49,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kvquant_absmax.restype = i32
     lib.kvquant_quantize.argtypes = [p, p, p, i64, i64, i32, p]
     lib.kvquant_quantize.restype = i32
-    lib.kvquant_dequant_matmul.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i32, p]
+    lib.kvquant_dequant_matmul.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i32, i32, i32, p]
     lib.kvquant_dequant_matmul.restype = i32
 
 
@@ -104,16 +108,22 @@ def _cdiv(a: int, b: int) -> int:
 
 def split_k(M: int, K: int, N: int) -> Tuple[int, int]:
     """(kchunk, splits): split K while the output tiles alone leave the card
-    idle, each split at least 256 deep and a whole number of K steps."""
+    idle, without a second wave, each split at least 256 deep and a whole
+    number of K steps."""
     tiles = _cdiv(M, _TILE) * _cdiv(N, _TILE)
-    splits = max(1, min(_cdiv(_TARGET_BLOCKS, tiles), K // 256))
+    splits = max(1, min(_TARGET_BLOCKS // tiles, K // 256))
     kchunk = _cdiv(_cdiv(K, splits), _BK) * _BK
     return kchunk, _cdiv(K, kchunk)
 
 
 def dequant_matmul(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """a (M, K) float32 @ (q (K, N) int8 as float32) * scale (N,) -> (M, N)
-    float32, accumulated in IEEE float32 (no TF32, no tensor cores)."""
+    float32 on the tensor cores: a split exactly into three bf16 parts,
+    products exact, summed by the tensor cores' truncating float32
+    accumulator and promoted into a float32 sum every 128 of K (no TF32
+    rounding of a).  The
+    cp.async variant takes K % 4 == 0, N % 16 == 0 and 16-byte aligned
+    a and q; other shapes take the element-wise loads of the same kernel."""
     a = _check("dequant_matmul", a, torch.float32, 2)
     q = _check("dequant_matmul", q, torch.int8, 2)
     scale = _check("dequant_matmul", scale, torch.float32, 1)
@@ -125,13 +135,15 @@ def dequant_matmul(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
     if _cdiv(M, _TILE) > 65535:
         raise ValueError(f"dequant_matmul: {M} rows exceed the kernel's grid ({65535 * _TILE})")
     kchunk, splits = split_k(M, K, N)
+    vec = int(K % 4 == 0 and N % 16 == 0 and a.data_ptr() % 16 == 0 and q.data_ptr() % 16 == 0)
+    evec = int(N % 4 == 0 and scale.data_ptr() % 16 == 0)
     ws = torch.empty((splits, M, N), dtype=torch.float32, device=a.device)
     out = torch.empty((M, N), dtype=torch.float32, device=a.device)
     lib = load()
     with torch.cuda.device(a.device):
         err = lib.kvquant_dequant_matmul(
             a.data_ptr(), q.data_ptr(), scale.data_ptr(), ws.data_ptr(), out.data_ptr(),
-            M, K, N, kchunk, splits, stream(),
+            M, K, N, kchunk, splits, vec, evec, stream(),
         )
     check_launch(err, "dequant_matmul")
     count_launch(LAUNCHES, "dequant_matmul")

@@ -32,7 +32,7 @@ LAUNCHES: Dict[str, int] = {
 
 #: the grids launch at most this many blocks along x
 _MAX_BLOCKS = (1 << 31) - 1
-_TILE = 4096  # elements per row-scan tile (kTile in the source)
+_TILE = 4096  # elements per row-scan tile (kTile, and kLbTile for decode_1d)
 _SEG_ROWS = 64  # rows per column-scan segment (kSegRows in the source)
 _THREADS = 256
 
@@ -47,10 +47,10 @@ def _declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, name)
         fn.argtypes = [p, p, p, i64, i64, f32, i32, p]
         fn.restype = ctypes.c_int
-    for name in ("lorenzo_decode_1d", "lorenzo_decode_2d"):
-        fn = getattr(lib, name)
-        fn.argtypes = [p, p, p, i64, i64, f32, p]
-        fn.restype = ctypes.c_int
+    lib.lorenzo_decode_1d.argtypes = [p, p, p, i64, i64, f32, i32, p]
+    lib.lorenzo_decode_1d.restype = ctypes.c_int
+    lib.lorenzo_decode_2d.argtypes = [p, p, p, i64, i64, f32, p]
+    lib.lorenzo_decode_2d.restype = ctypes.c_int
     lib.lorenzo_decode_scratch_words.argtypes = [i64, i64, i32]
     lib.lorenzo_decode_scratch_words.restype = i64
 
@@ -100,11 +100,12 @@ def _decode(name: str, d: torch.Tensor, eb: float) -> torch.Tensor:
     out = torch.empty((rows, cols), dtype=torch.float32, device=d.device)
     words = lib.lorenzo_decode_scratch_words(rows, cols, int(name == "decode_2d"))
     scratch = torch.empty(max(1, words), dtype=torch.int32, device=d.device)
+    args = [d.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, cols, 2.0 * float(eb)]
+    if name == "decode_1d":
+        # int4 loads and float4 stores where every row's tiles start 16-byte aligned
+        args.append(int((rows == 1 or cols % 4 == 0) and d.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0))
     with torch.cuda.device(d.device):
-        err = getattr(lib, f"lorenzo_{name}")(
-            d.data_ptr(), out.data_ptr(), scratch.data_ptr(), rows, cols,
-            2.0 * float(eb), stream(),
-        )
+        err = getattr(lib, f"lorenzo_{name}")(*args, stream())
     check_launch(err, name)
     count_launch(LAUNCHES, name)
     return out

@@ -15,14 +15,26 @@ plain versions on a card.
   the JAX test's ``1e-6 * (|a| @ |deq|) + 1e-4``, which holds at its
   K <= 512 only.
 
+* the tensor-core kernel's arithmetic: ``ref.split_bf16x3`` splits any
+  float32 into three bf16 parts that sum to it exactly (above 2**-133 per
+  bit; NaN and inf ride in the first part), and the kernel's accumulation
+  order, emulated on the CPU with the card's truncating accumulator
+  (``ref.tensor_core_dequant_matmul``), stays within both bounds above, and
+  within the source note's worst-case counts over K = 32768 in one split,
+  where promotion every 128 of K is what keeps the error small.
+
 The ``cuda``-marked tests run on a card
 (``python -m pytest -q -m cuda tests/test_torch_kvquant.py``): absmax and
 quantize bit-identical to their plain versions (NaN and all-zero columns
-included), dequant_matmul within the float64 bound.
+included), dequant_matmul within the float64 bound, also on rows near
+2**-100 and 2**100, on misaligned views, with K = 32768 in one split, and
+with NaN and infinite rows, whose non-finite outputs sit where the plain
+version's do; and the card's sums equal the truncating model's bit for bit.
 """
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 try:
     import jax.numpy as jnp
@@ -152,6 +164,131 @@ def test_quantize_divides():
 
 
 # ---------------------------------------------------------------------------
+# the tensor-core kernel's arithmetic, on the CPU
+# ---------------------------------------------------------------------------
+
+_F32_SPECIALS = [
+    0x7F7FFFFF, 0xFF7FFFFF,  # +-FLT_MAX
+    0x09000000, 0x09000001, 0x097FFFFF,  # 2**-109 and its neighbours above
+    0x00000001, 0x00400000, 0x807FFFFF, 0x00012345,  # subnormals
+    0x00800000, 0x00800001,  # FLT_MIN and above
+    0x00000000, 0x80000000,  # +-0
+    0x7F800000, 0xFF800000,  # +-inf
+    0x7F800001, 0xFF80FFFF, 0x7FC00000, 0x7FFFFFFF, 0x7F810000,  # NaN payloads, low bits only and not
+    0x3F800000, 0x3FFFFFFF, 0xBEAAAAAB,
+]
+
+
+def _check_split(bits: np.ndarray) -> None:
+    a = bits.astype(np.uint32).view(np.float32)
+    parts = kref.split_bf16x3(torch.from_numpy(a.copy()))
+    for p in parts:
+        assert np.all(p.numpy().view(np.uint32) & 0xFFFF == 0)  # each part a bf16
+    fin = np.isfinite(a)
+    with np.errstate(invalid="ignore"):  # NaN and inf inputs
+        p0, p1, p2 = (p.numpy().astype(np.float64) for p in parts)
+        a64 = a.astype(np.float64)
+        on_grid = fin & (a64 * 2.0**133 == np.round(a64 * 2.0**133))  # lowest set bit >= 2**-133
+        total = p0 + p1 + p2
+    np.testing.assert_array_equal(total[on_grid], a64[on_grid])
+    assert np.all(np.abs(total[fin & ~on_grid] - a64[fin & ~on_grid]) < 2.0**-133)
+    # parts in decreasing order of size, the small ones under 2**-7 |a|
+    assert np.all(np.abs(p1[fin] + p2[fin]) <= 2.0**-7 * np.abs(a64[fin]))
+    # non-finite: p0 carries it, NaN stays NaN, the small parts are zero
+    nf = ~fin
+    assert np.all(p1[nf] == 0) and np.all(p2[nf] == 0)
+    np.testing.assert_array_equal(np.isnan(p0[nf]), np.isnan(a[nf]))
+    inf = np.isinf(a)
+    np.testing.assert_array_equal(p0[inf], a64[inf])
+
+
+def test_split_bf16x3_on_special_values():
+    _check_split(np.array(_F32_SPECIALS, dtype=np.uint64))
+
+
+@settings(max_examples=200, deadline=None)
+@given(st.lists(st.integers(0, 2**32 - 1), min_size=1, max_size=64))
+def test_split_bf16x3_property(words):
+    _check_split(np.array(words, dtype=np.uint64))
+
+
+def emulate_tensor_core_matmul(a: np.ndarray, q: np.ndarray, s: np.ndarray, kchunk_splits=None,
+                               promote: int = 128) -> np.ndarray:
+    """The CUDA kernel's arithmetic on the CPU, step by step, with the
+    card's truncating accumulator (``kref.tensor_core_dequant_matmul``; the
+    ``cuda`` test ``test_cuda_accumulator_matches_the_truncating_model``
+    holds the card to it bit for bit)."""
+    M, Kd = a.shape
+    kchunk, splits = kchunk_splits or K.split_k(M, Kd, q.shape[1])
+    out = kref.tensor_core_dequant_matmul(torch.from_numpy(a), torch.from_numpy(q),
+                                          torch.from_numpy(s), kchunk, splits, promote)
+    return out.numpy()
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_tensor_core_order_within_the_float64_bound(shape):
+    """The kernel's split-and-accumulate order, emulated with the card's
+    truncating accumulator, keeps the float32 contract and the JAX test's
+    tolerance against the JAX oracle."""
+    x, rng = _x(shape)
+    q_r, s_r = r_ref_quantize(x)
+    q, s = np.array(q_r), np.array(s_r)
+    a = rng.normal(size=(48, shape[0])).astype(np.float32)
+    exact, tol = f64_bound(a, q, s)
+    got = emulate_tensor_core_matmul(a, q, s)
+    assert got.dtype == np.float32 and got.shape == (48, shape[1])
+    assert np.all(np.abs(got - exact) <= tol)
+    deq = q.astype(np.float32) * s[None, :]
+    jax_tol = 1e-6 * (np.abs(a) @ np.abs(deq)) + 1e-4
+    assert np.all(np.abs(got - np.asarray(r_ref_dequant_matmul(a, q_r, s_r))) <= jax_tol)
+
+
+# rows that expose the accumulator's rounding against q = 1 (K = 32, N = 16):
+# (row, what the card sums minus 2**24); round to nearest would give 12, 2,
+# 12 (11.25 rounded to even), 0 and 4
+_ACC_ROWS = [
+    ([2.0**24] + [0.0] * 15 + [0.75] * 16, 8.0),  # next step: each 0.75 cut to 0.5
+    ([2.0**24] + [0.0] * 15 + [1.5] + [0.0] * 15, 0.0),  # 2**24 + 1.5 cut toward zero
+    ([2.0**24] + [0.75] * 15 + [0.0] * 16, 6.0),  # same step: 7.5, then cut to even
+    ([2.0**24, -0.25] + [0.0] * 30, 0.0),  # a negative addend cut toward zero
+    ([2.0**24] + [0.0] * 15 + [0.25] * 16, 0.0),  # below 2 bits under the ulp: dropped
+]
+
+
+def test_truncating_model_on_the_probe_rows():
+    a = np.array([r for r, _ in _ACC_ROWS], dtype=np.float32)
+    got = emulate_tensor_core_matmul(a, np.ones((32, 16), np.int8), np.ones(16, np.float32))
+    np.testing.assert_array_equal(got[:, 0].astype(np.float64) - 2.0**24, [v for _, v in _ACC_ROWS])
+
+
+def _long_run_ratio(a, q, s, promote):
+    exact, tol = f64_bound(a, q, s)
+    got = emulate_tensor_core_matmul(a, q, s, (a.shape[1], 1), promote)
+    return float(np.max(np.abs(got - exact) / tol))
+
+
+@pytest.mark.parametrize("peak", [2.0, 12.0])
+def test_promotion_holds_a_long_run_in_one_split(peak):
+    """K = 32768 in one split (what ``split_k`` gives once 67 or more output
+    tiles fill the card): on softmax rows (peak 12: nearly one key) against
+    positive codes, the truncating accumulator alone stays under the source
+    note's (K-1)/2 + 2 K/16 + 3 count, and promotion every 128 of K keeps
+    it under the note's 80 + K/128 + 0.0098 K + 3."""
+    rng = np.random.default_rng(int(peak))
+    Kd = 32768
+    z = peak * rng.standard_normal((2, Kd))
+    a = np.exp(z - z.max(axis=1, keepdims=True))
+    a = (a / a.sum(axis=1, keepdims=True)).astype(np.float32)
+    q = rng.integers(1, 128, (Kd, 4), dtype=np.int8)
+    s = np.exp(rng.uniform(-5, 5, 4)).astype(np.float32)
+    plain = _long_run_ratio(a, q, s, 0)
+    promoted = _long_run_ratio(a, q, s, 128)
+    assert plain <= ((Kd - 1) / 2 + 2 * Kd / 16 + 3) / (Kd + 2)
+    assert promoted <= (80 + Kd / 128 + 0.0098 * Kd + 3) / (Kd + 2)
+    assert promoted < plain
+
+
+# ---------------------------------------------------------------------------
 # wrappers
 # ---------------------------------------------------------------------------
 
@@ -183,9 +320,11 @@ def test_library_is_named_after_its_source():
 def test_split_k_covers_k_in_whole_steps(mkn):
     M, Kd, N = mkn
     kchunk, splits = K.split_k(M, Kd, N)
-    assert kchunk % 16 == 0 and splits >= 1
+    assert kchunk % K._BK == 0 and splits >= 1
     assert (splits - 1) * kchunk < Kd <= splits * kchunk
     assert splits == 1 or kchunk >= 256
+    tiles = -(-M // K._TILE) * -(-N // K._TILE)
+    assert splits == 1 or splits * tiles <= K._TARGET_BLOCKS  # one wave
 
 
 # ---------------------------------------------------------------------------
@@ -261,3 +400,114 @@ def test_cuda_dequant_matmul_within_the_float64_bound(cuda_device, mkn):
     for out in (got, plain):
         assert out.shape == (M, N) and bool(torch.isfinite(out).all())
         assert np.all(np.abs(out.cpu().numpy() - exact) <= tol)
+
+
+def _card_matmul_operands(mkn, seed):
+    M, Kd, N = mkn
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((M, Kd)).astype(np.float32)
+    q = rng.integers(-127, 128, (Kd, N), dtype=np.int8)
+    s = np.exp(rng.uniform(-5, 5, N)).astype(np.float32)
+    return a, q, s
+
+
+_EDGE_SHAPES = [(48, 300, 96), (48, 33, 200), (65, 4097, 130), (128, 32768, 1024)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", _EDGE_SHAPES)
+def test_cuda_dequant_matmul_nonfinite_rows_match_plain(cuda_device, mkn):
+    """Rows holding NaN, +inf, -inf or both infinities: the kernel's
+    non-finite outputs sit where the plain version's do (NaN where NaN),
+    and every all-finite row stays within the float64 bound."""
+    a, q, s = _card_matmul_operands(mkn, 11)
+    Kd = mkn[1]
+    a[0, Kd // 2] = np.nan
+    a[1, 0] = np.inf
+    a[2, Kd - 1] = -np.inf
+    a[3, 0], a[3, Kd - 1] = np.inf, -np.inf
+    a[4, Kd // 3] = np.array([0x7F800001], np.uint32).view(np.float32)[0]  # NaN, payload in the low bits
+    at, qt, st_ = (torch.from_numpy(v).to(cuda_device) for v in (a, q, s))
+    got = K.dequant_matmul(at, qt, st_)
+    torch.cuda.synchronize()
+    plain = kref.dequant_matmul(at, qt, st_)
+    assert torch.equal(torch.isfinite(got), torch.isfinite(plain))
+    assert torch.equal(torch.isnan(got), torch.isnan(plain))
+    assert torch.equal(torch.isinf(got) & (got > 0), torch.isinf(plain) & (plain > 0))
+    exact, tol = f64_bound(a[5:], q, s)
+    assert np.all(np.abs(got[5:].cpu().numpy() - exact) <= tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", _EDGE_SHAPES + [(1, 1, 1)])
+def test_cuda_dequant_matmul_tiny_and_large_rows(cuda_device, mkn):
+    """Rows near 2**-100 and 2**100: the three-part split stays exact."""
+    a, q, s = _card_matmul_operands(mkn, 12)
+    a[0::2] *= np.float32(2.0**-100)
+    a[1::2] *= np.float32(2.0**100)
+    exact, tol = f64_bound(a, q, s)
+    at, qt, st_ = (torch.from_numpy(v).to(cuda_device) for v in (a, q, s))
+    got = K.dequant_matmul(at, qt, st_)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all())
+    assert np.all(np.abs(got.cpu().numpy() - exact) <= tol)
+
+
+def _ratio_on_card(out, a, q, s) -> float:
+    """max |out - a @ deq| over the float64 bound, in float64 on the card."""
+    deq = q.double() * s.double()[None, :]
+    a64 = a.double()
+    tol = (a.shape[1] + 2) * 2.0**-24 * (a64.abs() @ deq.abs())
+    return float(((out.double() - a64 @ deq).abs() / tol).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codes", ["positive", "signed"])
+def test_cuda_dequant_matmul_one_split_at_long_k(cuda_device, codes):
+    """2048 x 32768 x 1024 has 128 output tiles, so ``split_k`` gives one
+    split: all of K runs through one pair of accumulators, promoted every
+    128 of K.  Softmax rows against positive or signed codes."""
+    M, Kd, N = 2048, 32768, 1024
+    assert K.split_k(M, Kd, N) == (Kd, 1)
+    g = torch.Generator(device=cuda_device).manual_seed(21)
+    a = torch.softmax(2 * torch.randn((M, Kd), generator=g, device=cuda_device), dim=-1)
+    lo = 1 if codes == "positive" else -127
+    q = torch.randint(lo, 128, (Kd, N), generator=g, device=cuda_device, dtype=torch.int8)
+    s = torch.exp(torch.rand(N, generator=g, device=cuda_device) * 10 - 5)
+    got = K.dequant_matmul(a, q, s)
+    assert bool(torch.isfinite(got).all())
+    assert _ratio_on_card(got, a, q, s) <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mkn", [(5, 32, 16), (48, 33, 200), (65, 4097, 130), (128, 4096, 1024)])
+def test_cuda_accumulator_matches_the_truncating_model(cuda_device, mkn):
+    """The card's sums equal ``ref.tensor_core_dequant_matmul`` bit for bit:
+    on the rows built to expose the accumulator's rounding, and on random
+    rows, where split-K, promotion and the two accumulators all count."""
+    M, Kd, N = mkn
+    if mkn == (5, 32, 16):
+        a = np.array([r for r, _ in _ACC_ROWS], dtype=np.float32)
+        q, s = np.ones((Kd, N), np.int8), np.ones(N, np.float32)
+    else:
+        a, q, s = _card_matmul_operands(mkn, 14)
+    at, qt, st_ = (torch.from_numpy(v).to(cuda_device) for v in (a, q, s))
+    got = K.dequant_matmul(at, qt, st_)
+    want = kref.tensor_core_dequant_matmul(at, qt, st_, *K.split_k(M, Kd, N))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_dequant_matmul_on_misaligned_views(cuda_device):
+    """Contiguous but not 16-byte aligned a and q take the element-wise
+    loads of the same kernel, and agree within the bound."""
+    a, q, s = _card_matmul_operands((64, 4096, 256), 13)
+    abuf = torch.zeros(a.size + 1, device=cuda_device)
+    abuf[1:] = torch.from_numpy(a.ravel()).to(cuda_device)
+    qbuf = torch.zeros(q.size + 1, dtype=torch.int8, device=cuda_device)
+    qbuf[1:] = torch.from_numpy(q.ravel()).to(cuda_device)
+    at, qt = abuf[1:].view(a.shape), qbuf[1:].view(q.shape)
+    assert at.data_ptr() % 16 and qt.data_ptr() % 16
+    got = K.dequant_matmul(at, qt, torch.from_numpy(s).to(cuda_device))
+    exact, tol = f64_bound(a, q, s)
+    assert np.all(np.abs(got.cpu().numpy() - exact) <= tol)

@@ -162,3 +162,37 @@ def test_cuda_pipeline_writes_the_plain_versions_bytes(cuda_device, shape):
     for device in (cuda_device, "cpu"):
         out = tc.decompress(card, device=device).cpu().numpy()
         assert np.max(np.abs(out.astype(np.float64) - x)) <= abs_eb
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 1 << 20), (5, 8197), (3, 4099), (1, 3 * 4096 + 1),
+                                   (2, 8192 * 40 + 4), (1, (1 << 24) + 3)])
+def test_cuda_decode_1d_look_back_equals_plain(cuda_device, shape):
+    """The single-pass scan: the chunk shape, rows that start unaligned
+    (scalar loads), tails of every length and many tiles per row."""
+    rng = np.random.default_rng(shape[1])
+    d = torch.from_numpy(rng.integers(-5000, 5000, shape, dtype=np.int32)).to(cuda_device)
+    K.reset_launches()
+    out = K.decode_1d(d, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tref.decode_1d(d, 1e-3))
+    assert K.LAUNCHES["decode_1d"] == 1
+
+
+@pytest.mark.cuda
+def test_cuda_decode_1d_wraps_int32(cuda_device):
+    """Running sums that wrap int32 many times over, bit for bit."""
+    d = torch.full((3, 70001), 2**30, dtype=torch.int32, device=cuda_device)
+    d[1] = -(2**30) - 7
+    d[2, ::3] = 2**31 - 1
+    out = K.decode_1d(d, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tref.decode_1d(d, 0.5))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_1d_on_a_misaligned_view(cuda_device):
+    base = torch.randint(-100, 100, (1, 40001), dtype=torch.int32, device=cuda_device)
+    d = base.reshape(-1)[1:].reshape(1, 40000)  # contiguous, rows 4 bytes off
+    assert d.data_ptr() % 16
+    assert torch.equal(K.decode_1d(d, 1e-2), tref.decode_1d(d, 1e-2))

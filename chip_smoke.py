@@ -13,9 +13,14 @@ Phases, one JSON line each:
    time, the plain version's time, a PyTorch library call's time and its
    bound: the four Lorenzo kernels (``decode_1d`` also at the chunked
    engine's chunk (1, 2^20), on rows that start unaligned (5, 8197) and on
-   sums that wrap int32), the float32 transform (``fwd``/``inv``,
+   sums that wrap int32; ``decode_2d`` also at the chunk shapes (291, 3600)
+   and (54, 3600), on (1, 5000), (5000, 1), (2, 4099), (65, 129) and on
+   wrapping sums (3, 70001) and (300, 1000); chunk shapes timed over
+   ``CHUNK_REPS`` calls), the float32 transform (``fwd``/``inv``,
    1d and 2d modes), the float64 transform axis product (against numpy's
-   product on the host), the fast tier's ``block_stats`` (bs 128, 256) and
+   product on the host), the fast tier's ``block_stats`` (bs 128, 256;
+   also at the throughput tier's chunk 4096x256, on 1 and 8003 blocks and
+   on NaN and +-inf inside blocks and as whole blocks) and
    the three KV-quantization kernels (``absmax`` and
    ``quantize_with_scale`` bit for bit, NaN and all-zero columns included;
    ``dequant_matmul`` within ``(K+2) * 2**-24 * (|a| @ |deq|)`` of a
@@ -66,7 +71,8 @@ chunk routed to a kernel), keep the error bound, write the same bytes as
 the plain versions on the CPU (``device="cpu", route="force"``), and decode
 on the CPU within the bound.
 
-The last three lines are the ``{"kernels": [...]}`` summary, the card's name
+The last three lines are the ``{"kernels": [...]}`` summary (with
+``chunk_*`` fields where a kernel was also timed at a chunk shape), the card's name
 and power limit as ``nvidia-smi`` prints them, and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before them.
 Without a CUDA device, or without the repository's ``src/`` beside it, the
@@ -357,32 +363,80 @@ def _kernel_case(timer, name, shape, x_or_d, eb, bw):
     }
 
 
+#: the chunked engine's chunk shapes: 4 MiB chunks cut the 1800x3600 field
+#: into six (291, 3600) and one (54, 3600), the series into (1, 2^20)
+CHUNK_2D = [(291, 3600), (54, 3600)]
+CHUNK_1D = (1, 1 << 20)
+#: repetitions of a chunk-shape timing: at ~15 us a call the spread of 15
+#: is as large as the differences sought
+CHUNK_REPS = 101
+
+
+def _chunk_fields(case: dict) -> dict:
+    """A chunk-shape case's numbers, as fields beside the main case's."""
+    return {
+        "chunk_shape": case["shape"],
+        "chunk_ms": case["kernel_ms"],
+        "chunk_plain_ms": case["plain_ms"],
+        "chunk_library_ms": case["library_ms"],
+        "chunk_bound_ms": case["bound_ms"],
+    }
+
+
+def _decode_equal(name: str, d: torch.Tensor, eb: float) -> None:
+    """One decode kernel against its plain version, bit for bit, untimed."""
+    from repro_torch.kernels.lorenzo import kernel as K
+    from repro_torch.kernels.lorenzo import ref as R
+
+    got = getattr(K, name)(d, eb)
+    torch.cuda.synchronize()
+    if not torch.equal(got, getattr(R, name)(d, eb)):
+        raise AssertionError(f"{name} at {tuple(d.shape)} differs from its plain version")
+
+
+def wrapping_diffs(shape) -> torch.Tensor:
+    """Raw diffs whose running sums wrap int32 many times over."""
+    d = torch.full(shape, 2**30, dtype=torch.int32, device="cuda")
+    d[1::2] = -(2**30) - 7
+    d[2::3, ::3] = 2**31 - 1
+    return d
+
+
 def lorenzo_kernels(timer, g, bw: float) -> dict:
     from repro_torch.kernels.lorenzo import ref as R
 
+    chunk_timer = Timer(reps=CHUNK_REPS, warmup=5)
     cases = {}
     # 1d: the series, rows, the chunked engine's chunk (1, 2^20) and rows
     # whose starts are not 16-byte aligned (the scan's 4-byte loads)
-    shapes = {"2d": [SHAPE2D, (1801, 3599)], "1d": [(1, N1D), (300, 1000), (1, 1 << 20), (5, 8197)]}
+    shapes = {"2d": [SHAPE2D, (1801, 3599), *CHUNK_2D], "1d": [(1, N1D), (300, 1000), CHUNK_1D, (5, 8197)]}
     eb = 1e-3
     for mode, mode_shapes in shapes.items():
         for shape in mode_shapes:
             x = torch.cumsum(torch.randn(shape, generator=g, device="cuda"), dim=1)
             _, d = getattr(R, f"encode_{mode}")(x, eb, 32768)
             for name, arg in ((f"encode_{mode}", x), (f"decode_{mode}", d)):
-                case = _kernel_case(timer, name, shape, arg, eb, bw)
+                chunk = name.startswith("decode") and (shape in CHUNK_2D or shape == CHUNK_1D)
+                case = _kernel_case(chunk_timer if chunk else timer, name, shape, arg, eb, bw)
                 emit(f"kernel {name} {shape[0]}x{shape[1]}", **case)
                 if not case["bit_identical"]:
                     raise AssertionError(f"{name} at {shape} differs from its plain version")
                 cases.setdefault(name, case)  # first shape is the main path's
+                if chunk and "chunk_ms" not in cases[name]:
+                    cases[name].update(_chunk_fields(case))
+    # decode_2d on a single row or column, two rows, ragged tiles
+    for shape in ((1, 5000), (5000, 1), (2, 4099), (65, 129)):
+        _decode_equal("decode_2d", torch.randint(-5000, 5000, shape, generator=g, device="cuda",
+                                                 dtype=torch.int32), eb)
     # running sums that wrap int32 many times over
-    d = torch.full((3, 70001), 2**30, dtype=torch.int32, device="cuda")
-    d[1] = -(2**30) - 7
-    d[2, ::3] = 2**31 - 1
-    case = _kernel_case(timer, "decode_1d", d.shape, d, 0.5, bw)
+    case = _kernel_case(timer, "decode_1d", (3, 70001), wrapping_diffs((3, 70001)), 0.5, bw)
     emit("kernel decode_1d int32-wrapping sums 3x70001", **case)
     if not case["bit_identical"]:
         raise AssertionError("decode_1d on wrapping sums differs from its plain version")
+    for shape in ((3, 70001), (300, 1000)):
+        _decode_equal("decode_2d", wrapping_diffs(shape), 0.5)
+    emit("kernel decode_2d checks", shapes=[[1, 5000], [5000, 1], [2, 4099], [65, 129]],
+         wrapping=[[3, 70001], [300, 1000]], bit_identical=True)
     return cases
 
 
@@ -504,12 +558,36 @@ def block_stats_kernels(timer, bw: float, x2d: torch.Tensor, x1d: torch.Tensor) 
             _check_case(f"block_stats {label} {nb}x{bs}", case)
             if label == "2-D" and bs == 256:
                 cases["block_stats"] = case
-    # NaN and inf inside blocks: the kernel and its plain version agree
-    xb = torch.randn((4096, 256), device="cuda")
-    xb[7, 3], xb[100, 5], xb[200, :] = float("nan"), float("inf"), 3.0
+    # the throughput tier's 2^20-element chunks, timed over more repetitions
+    chunk_timer = Timer(reps=CHUNK_REPS, warmup=5)
+    xb = FM._pad_blocks_1d(x1d[: 1 << 20], 256)[0]
     got, want = K.block_stats(xb), R.block_stats(xb)
-    if not all(same_bits(a, b) for a, b in zip(got, want)):
-        raise AssertionError("block_stats with nan/inf differs from its plain version")
+    chunk = {
+        "shape": list(xb.shape),
+        "bit_identical": all(same_bits(a, b) for a, b in zip(got, want)),
+        "kernel_ms": chunk_timer(lambda: K.block_stats(xb)),
+        "plain_ms": chunk_timer(lambda: R.block_stats(xb)),
+        "library_ms": None,
+        **bound(4 * xb.numel() + 8 * xb.shape[0], 4 * xb.numel(), bw),
+    }
+    emit(f"kernel block_stats chunk {xb.shape[0]}x256", **chunk)
+    if not chunk["bit_identical"]:
+        raise AssertionError("block_stats at the chunk shape differs from its plain version")
+    cases["block_stats"].update(_chunk_fields(chunk))
+    # one block, 8k + 3 blocks, and NaN, +inf, -inf inside blocks and as
+    # whole blocks: the kernel and its plain version agree
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    for nb, bs in ((1, 256), (1, 128), (8003, 256), (8003, 128), (4096, 256)):
+        xb = torch.randn((nb, bs), generator=gen, device="cuda")
+        xb[nb // 2, 3] = float("nan")
+        if nb > 3:
+            xb[7, 3], xb[100 % nb, 5], xb[200 % nb, :] = float("nan"), float("inf"), 3.0
+            xb[nb - 1, 9], xb[nb - 2, :], xb[nb - 3, :] = float("-inf"), float("nan"), float("-inf")
+        got, want = K.block_stats(xb), R.block_stats(xb)
+        if not all(same_bits(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"block_stats {nb}x{bs} with nan/inf differs from its plain version")
+    emit("kernel block_stats checks", shapes=[[1, 256], [1, 128], [8003, 256], [8003, 128], [4096, 256]],
+         non_finite=True, bit_identical=True)
     return cases
 
 
@@ -815,6 +893,10 @@ def bitplane_kernels(timer, bw: float, coder_ints: torch.Tensor, seed: int) -> d
 
 def phase_kernels(seed: int, bw: float, x2d: torch.Tensor, x1d: torch.Tensor, coder_ints: torch.Tensor) -> dict:
     timer = Timer()
+    # what the timer reads for the least work the card can be given: every
+    # kernel time below includes this floor (event records and the launch)
+    one = torch.empty(1, device="cuda")
+    emit("timer floor", op="one-element fill_", ms=Timer(reps=CHUNK_REPS, warmup=5)(lambda: one.fill_(1.0)))
     g = torch.Generator(device="cuda").manual_seed(seed)
     cases = lorenzo_kernels(timer, g, bw)
     cases.update(transform_kernels(timer, bw, x2d, torch.cat([x1d, x1d[-1:]])))  # 2^24+4
@@ -1497,6 +1579,7 @@ def main() -> int:
                 "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"],
+                **{k: v for k, v in c.items() if k.startswith("chunk_")},
             }
             for name, c in cases.items()
         ]

@@ -380,6 +380,30 @@ def _decoder(header: Dict[str, Any]):
     return _decompress_v1
 
 
+def _max_codes(spec: Dict[str, Any], header: Dict[str, Any], pshape: Tuple[int, ...], n_elems: int) -> int:
+    """The most codes a v1 body may declare: ``2 n + 4096``, or what the
+    composite (``sz3_lr``) predictor writes for ``pshape`` where that is
+    more.  It pads every axis to a multiple of the block size ``b`` and
+    writes ``b**ndim`` codes per block plus ``ndim + 1`` regression
+    coefficients, so a field with an axis of 1 or 2 writes more codes than
+    it has elements.  Where that cap is the larger, the padded float64
+    blocks the decoder builds must also pass ``guard_alloc``."""
+    cap = 2 * n_elems + 4096
+    if spec.get("predictor") != "composite" or not pshape:
+        return cap
+    b = guard_count(header["block_size"], integrity.MAX_OUTPUT_BYTES, "block_size")
+    if b == 0:
+        raise ContainerError("corrupt container: block_size is 0")
+    blocks = 1
+    for s in pshape:
+        blocks *= -(-s // b)
+    need = blocks * (b ** len(pshape) + len(pshape) + 1)
+    if need <= cap:
+        return cap
+    guard_alloc(blocks * b ** len(pshape) * 8, "padded blocks")  # the float64 blocks decoded
+    return need
+
+
 def _decompress_v1(
     blob: bytes, header: Dict[str, Any], body_off: int, device: torch.device
 ) -> torch.Tensor:
@@ -406,7 +430,7 @@ def _decompress_v1(
     enc_bytes = body[:enc_len]
     q_bytes = body[enc_len:]
     n_elems = int(np.prod(pshape, dtype=np.int64)) if pshape else 1
-    n_codes = guard_count(header["n_codes"], 2 * n_elems + 4096, "n_codes")
+    n_codes = guard_count(header["n_codes"], _max_codes(spec, header, pshape, n_elems), "n_codes")
     comp.quantizer.begin(header["abs_eb"], pdtype)
     comp.quantizer.load(q_bytes)
     with tel.span("huffman", bytes=len(enc_bytes)):

@@ -41,11 +41,27 @@
 //     whole grid is 256 tiles, so the one launch (after a memset of the
 //     status words) replaces three dependent launches.  The reduce-then-scan
 //     it replaced read the input twice (12 B per element).
-//   * decode_2d: a reduce-then-scan row scan over 4096-element tiles (tile
-//     sums, a per-row scan of the sums, a rescan) writing int32, then a
-//     column scan split into 64-row segments (segment sums, a per-column
-//     scan of the sums, a rescan that fuses the dequant).  Adjacent threads
-//     own adjacent columns, so every access is coalesced.
+//   * decode_2d: a tiled 2-D inclusive scan in three launches, none of
+//     which waits on another block.  Tiles are 32 x 128 (at the chunked
+//     engine's (291, 3600) that is 290 tiles, two per SM).  (1) Each tile
+//     reads d once, asking the L2 to keep it, and writes its 32 row sums,
+//     128 column sums and its total.  (2) One warp per line scans, in
+//     place: each row's sums into rowleft (the row's sum over the tiles to
+//     its left), each column's into colabove (over the tiles above), and
+//     the tile totals along the shorter axis of the tile grid.  (3) Each
+//     tile, in reverse order, reads d again (from L2 where it fits), scans
+//     its rows across the warp and its columns down the block in
+//     registers and shared memory, and adds the corner (everything above
+//     and left of it: at most min(tile rows, tile columns) - 1 scanned
+//     totals, summed by one warp) + the inclusive cumsum of rowleft down
+//     its rows + that of colabove along its columns, then streams out.
+//     Where that costs launch 3 at most half a tile more reads (short,
+//     wide grids such as the chunk shapes), launch 3 sums its carries from
+//     launch 1's sums itself and launch 2 is skipped: two launches.
+//     Bound: bytes, 8 B per element; the design moves about 12 (4 read,
+//     4 read again, 4 written) plus 4% for the sums, with no memset, no
+//     status words and no spinning.  A single row or column is one 1-D
+//     scan: it takes decode_1d's kernel on (1, rows * cols).
 //
 // Bit identity with the JAX kernels rests on IEEE single arithmetic:
 //   * 1/(2eb) and 2eb arrive as floats rounded from Python float64 on the
@@ -67,9 +83,7 @@
 namespace {
 
 constexpr int kThreads = 256;               // threads per block, every kernel
-constexpr int kItems = 16;                  // elements per thread in a tile
-constexpr int kTile = kThreads * kItems;    // elements per row-scan tile
-constexpr int kSegRows = 64;                // rows per column-scan segment
+constexpr int kWarps = kThreads / 32;
 constexpr int64_t kMaxGrid = 1 << 16;       // cap for grid-stride launches
 
 __host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
@@ -161,84 +175,9 @@ __device__ uint32_t block_exclusive_scan(uint32_t v, uint32_t* total) {
   return prefix + inc - v;
 }
 
-// Pass 1 of the row scan: the wrapping sum of each (row, tile).
-__global__ void tile_sum_kernel(const int32_t* __restrict__ d,
-                                uint32_t* __restrict__ sums, int64_t cols,
-                                int64_t tiles_per_row) {
-  const int64_t b = blockIdx.x;
-  const int64_t row = b / tiles_per_row;
-  const int64_t start = (b - row * tiles_per_row) * kTile;
-  const int32_t* src = d + row * cols + start;
-  const int64_t n_here = imin(kTile, cols - start);
-  uint32_t acc = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t j = k * kThreads + threadIdx.x;
-    if (j < n_here) acc += static_cast<uint32_t>(src[j]);
-  }
-  uint32_t total;
-  block_exclusive_scan(acc, &total);
-  if (threadIdx.x == 0) sums[b] = total;
-}
-
-// Pass 2 of the row scan: one block per row turns its tile sums into
-// exclusive tile offsets, in place, with a running carry.
-__global__ void tile_offsets_kernel(uint32_t* __restrict__ sums,
-                                    int64_t tiles_per_row) {
-  uint32_t* s = sums + static_cast<int64_t>(blockIdx.x) * tiles_per_row;
-  uint32_t carry = 0;
-  for (int64_t base = 0; base < tiles_per_row; base += kThreads) {
-    const int64_t i = base + threadIdx.x;
-    const uint32_t v = i < tiles_per_row ? s[i] : 0u;
-    uint32_t total;
-    const uint32_t excl = block_exclusive_scan(v, &total);
-    if (i < tiles_per_row) s[i] = carry + excl;
-    carry += total;
-  }
-}
-
 // Shared-memory slot of tile element j: one pad word every 32 keeps both
 // the coalesced phase and the thread-contiguous phase free of bank conflicts.
 __device__ __forceinline__ int skew(int j) { return j + (j >> 5); }
-
-// Pass 3 of the row scan: each block rescans one tile from its offset
-// (nullptr: one tile per row, offset 0) and writes the int32 sums.
-__global__ void scan_tile_kernel(const int32_t* __restrict__ d,
-                                 int32_t* __restrict__ out,
-                                 const uint32_t* __restrict__ offsets,
-                                 int64_t cols, int64_t tiles_per_row) {
-  __shared__ uint32_t s[kTile + kTile / 32];
-  const int64_t b = blockIdx.x;
-  const int64_t row = b / tiles_per_row;
-  const int64_t start = (b - row * tiles_per_row) * kTile;
-  const int64_t base_index = row * cols + start;
-  const int n_here = static_cast<int>(imin(kTile, cols - start));
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = k * kThreads + threadIdx.x;
-    s[skew(j)] = j < n_here ? static_cast<uint32_t>(d[base_index + j]) : 0u;
-  }
-  __syncthreads();
-  const int j0 = threadIdx.x * kItems;
-  uint32_t run[kItems];
-  uint32_t acc = 0;
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    acc += s[skew(j0 + k)];
-    run[k] = acc;
-  }
-  uint32_t total;
-  const uint32_t prefix =
-      block_exclusive_scan(acc, &total) + (offsets != nullptr ? offsets[b] : 0u);
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) s[skew(j0 + k)] = prefix + run[k];
-  __syncthreads();
-#pragma unroll
-  for (int k = 0; k < kItems; ++k) {
-    const int j = k * kThreads + threadIdx.x;
-    if (j < n_here) out[base_index + j] = static_cast<int32_t>(s[skew(j)]);
-  }
-}
 
 // decode_1d: one launch, a chained scan with decoupled look-back (Merrill &
 // Garland 2016).  A block takes the next tile from a global counter, so it
@@ -409,45 +348,271 @@ decode_1d_lookback_kernel(const int32_t* __restrict__ d, float* __restrict__ out
   }
 }
 
-// Column scan, pass 1: the wrapping sum of each (segment, column).
-__global__ void seg_sum_kernel(const int32_t* __restrict__ q,
-                               uint32_t* __restrict__ sums, int64_t rows,
-                               int64_t cols, int64_t col_blocks) {
-  const int64_t seg = blockIdx.x / col_blocks;
-  const int64_t c = (blockIdx.x - seg * col_blocks) * kThreads + threadIdx.x;
-  if (c >= cols) return;
-  const int64_t r1 = imin(rows, (seg + 1) * kSegRows);
-  uint32_t acc = 0;
-  for (int64_t r = seg * kSegRows; r < r1; ++r) acc += static_cast<uint32_t>(q[r * cols + c]);
-  sums[seg * cols + c] = acc;
+// decode_2d.  A tile is kT2Rows x kT2Cols: warp w holds rows 4w..4w+3 of
+// it and lane l columns 4l..4l+3, so each row is one warp's 512 contiguous
+// bytes.
+constexpr int kT2Rows = 32;
+constexpr int kT2Cols = 128;
+constexpr int kT2RowsPerWarp = kT2Rows / kWarps;
+static_assert(kT2Cols == 4 * 32 && kT2RowsPerWarp * kWarps == kT2Rows, "tile layout");
+
+// Where launch 1 reads d: the L2 keeps these lines over others, so that
+// launch 3 reads them again from L2 where d fits.
+__device__ __forceinline__ int4 load_keep(const int32_t* p) {
+  uint64_t policy;
+  int4 w;
+  asm volatile("createpolicy.fractional.L2::evict_last.b64 %0, 1.0;" : "=l"(policy));
+  asm volatile("ld.global.L2::cache_hint.v4.s32 {%0, %1, %2, %3}, [%4], %5;"
+               : "=r"(w.x), "=r"(w.y), "=r"(w.z), "=r"(w.w)
+               : "l"(p), "l"(policy));
+  return w;
 }
 
-// Column scan, pass 2: per column, exclusive offsets of the segments.
-__global__ void seg_offsets_kernel(uint32_t* __restrict__ sums, int64_t n_seg,
-                                   int64_t cols) {
-  const int64_t c = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (c >= cols) return;
-  uint32_t carry = 0;
-  for (int64_t seg = 0; seg < n_seg; ++seg) {
-    const uint32_t v = sums[seg * cols + c];
-    sums[seg * cols + c] = carry;
-    carry += v;
+// This thread's 4 x 4 values of tile (r0, c0); zeros outside the matrix.
+// kVec: cols % 4 == 0 and d 16-byte aligned, so a row's 4 values are one
+// int4.  kLast: the last read of d (streaming), else kept in L2.
+template <bool kVec, bool kLast>
+__device__ __forceinline__ void tile2_load(const int32_t* __restrict__ d, int64_t rows, int64_t cols,
+                                           int64_t r0, int64_t c0,
+                                           uint32_t (&v)[kT2RowsPerWarp][4]) {
+  const int64_t c = c0 + 4 * (threadIdx.x & 31);
+#pragma unroll
+  for (int k = 0; k < kT2RowsPerWarp; ++k) {
+    const int64_t r = r0 + (threadIdx.x >> 5) * kT2RowsPerWarp + k;
+    const int32_t* src = d + r * cols + c;
+    if (kVec) {
+      int4 w = make_int4(0, 0, 0, 0);
+      if (r < rows && c < cols) w = kLast ? __ldcs(reinterpret_cast<const int4*>(src)) : load_keep(src);
+      v[k][0] = static_cast<uint32_t>(w.x);
+      v[k][1] = static_cast<uint32_t>(w.y);
+      v[k][2] = static_cast<uint32_t>(w.z);
+      v[k][3] = static_cast<uint32_t>(w.w);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) v[k][e] = (r < rows && c + e < cols) ? static_cast<uint32_t>(src[e]) : 0u;
+    }
   }
 }
 
-// Column scan, pass 3: rescan each segment from its offset, fused dequant.
-__global__ void col_scan_kernel(const int32_t* __restrict__ q,
-                                const uint32_t* __restrict__ offsets,
-                                float* __restrict__ out, int64_t rows,
-                                int64_t cols, int64_t col_blocks, float two_eb) {
-  const int64_t seg = blockIdx.x / col_blocks;
-  const int64_t c = (blockIdx.x - seg * col_blocks) * kThreads + threadIdx.x;
-  if (c >= cols) return;
-  const int64_t r1 = imin(rows, (seg + 1) * kSegRows);
-  uint32_t acc = offsets[seg * cols + c];
-  for (int64_t r = seg * kSegRows; r < r1; ++r) {
-    acc += static_cast<uint32_t>(q[r * cols + c]);
-    out[r * cols + c] = dequant(acc, two_eb);
+__device__ __forceinline__ uint32_t warp_sum(uint32_t v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// Launch 1: each tile's row sums (row_sums[r * tiles_c + tj]), column sums
+// (col_sums[c * tiles_r + ti]) and total (totals[ti * tiles_c + tj]).
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads)
+tile2_sums_kernel(const int32_t* __restrict__ d, uint32_t* __restrict__ row_sums,
+                  uint32_t* __restrict__ col_sums, uint32_t* __restrict__ totals, int64_t rows,
+                  int64_t cols, int64_t tiles_r, int64_t tiles_c) {
+  __shared__ uint4 s_col[kWarps][32];
+  __shared__ uint32_t s_tot[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t ti = blockIdx.x / tiles_c, tj = blockIdx.x - ti * tiles_c;
+  const int64_t r0 = ti * kT2Rows, c0 = tj * kT2Cols;
+  uint32_t v[kT2RowsPerWarp][4];
+  tile2_load<kVec, false>(d, rows, cols, r0, c0, v);
+  uint32_t tot = 0, col[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int k = 0; k < kT2RowsPerWarp; ++k) {
+    const uint32_t rs = warp_sum(v[k][0] + v[k][1] + v[k][2] + v[k][3]);
+    const int64_t r = r0 + warp * kT2RowsPerWarp + k;
+    if (lane == 0 && r < rows) row_sums[r * tiles_c + tj] = rs;
+    tot += rs;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) col[e] += v[k][e];
+  }
+  s_col[warp][lane] = make_uint4(col[0], col[1], col[2], col[3]);
+  if (lane == 0) s_tot[warp] = tot;
+  __syncthreads();
+  if (threadIdx.x < kT2Cols) {
+    const int64_t c = c0 + threadIdx.x;
+    const uint32_t* sc = reinterpret_cast<const uint32_t*>(s_col);
+    uint32_t cs = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) cs += sc[w * kT2Cols + threadIdx.x];
+    if (c < cols) col_sums[c * tiles_r + ti] = cs;
+  }
+  if (threadIdx.x == 0) {
+    uint32_t t = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) t += s_tot[w];
+    totals[blockIdx.x] = t;
+  }
+}
+
+// Exclusive scan, in place, of p[0], p[stride], ..., p[(n - 1) * stride] by
+// one warp, 32 words a step, the next step's words loaded before this
+// step's scan.
+__device__ void warp_exclusive_scan_line(uint32_t* p, int64_t n, int64_t stride) {
+  const int lane = threadIdx.x & 31;
+  uint32_t carry = 0;
+  uint32_t v = lane < n ? p[lane * stride] : 0u;
+  for (int64_t base = 0; base < n; base += 32) {
+    const int64_t i = base + lane, next = i + 32;
+    const uint32_t v_next = next < n ? p[next * stride] : 0u;
+    const uint32_t inc = warp_inclusive_scan(v);
+    if (i < n) p[i * stride] = carry + inc - v;
+    carry += __shfl_sync(0xffffffffu, inc, 31);
+    v = v_next;
+  }
+}
+
+// Where the corners come from.  Corner (I, J), the sum of every tile above
+// and left of tile (I, J), is a 2-D exclusive scan of the tile totals.
+// Launch 2 scans the totals along the shorter grid axis' lines (along each
+// tile row when tiles_r <= tiles_c), and launch 3 sums the at most
+// min(tiles_r, tiles_c) - 1 scanned totals above (or left of) its tile.
+__host__ __device__ __forceinline__ bool corner_by_rows(int64_t tiles_r, int64_t tiles_c) {
+  return tiles_r <= tiles_c;
+}
+
+// Launch 2, in place, one warp per line: each row's row sums become
+// rowleft (the row's sum over the tiles to its left), each column's column
+// sums colabove (the column over the tiles above), and the tile totals are
+// scanned along the lines corner_by_rows picks.  Row lines exist when
+// tiles_c > 1, column lines when tiles_r > 1, total lines when both: a
+// first tile's carry is 0 and launch 3 does not read it.
+__global__ void __launch_bounds__(kThreads)
+tile2_carries_kernel(uint32_t* __restrict__ row_sums, uint32_t* __restrict__ col_sums,
+                     uint32_t* __restrict__ totals, int64_t row_lines, int64_t col_lines,
+                     int64_t total_lines, int64_t tiles_r, int64_t tiles_c) {
+  int64_t line = static_cast<int64_t>(blockIdx.x) * kWarps + (threadIdx.x >> 5);
+  if (line < total_lines) {
+    if (corner_by_rows(tiles_r, tiles_c)) {
+      warp_exclusive_scan_line(totals + line * tiles_c, tiles_c, 1);
+    } else {
+      warp_exclusive_scan_line(totals + line, tiles_r, tiles_c);
+    }
+    return;
+  }
+  line -= total_lines;
+  if (line < row_lines) {
+    warp_exclusive_scan_line(row_sums + line * tiles_c, tiles_c, 1);
+  } else if (line - row_lines < col_lines) {
+    warp_exclusive_scan_line(col_sums + (line - row_lines) * tiles_r, tiles_r, 1);
+  }
+}
+
+// Whether launch 3 sums its carries from launch 1's sums itself, so that
+// launch 2 is not needed: where that reads at most half a tile's 4096
+// words more per tile on average (rowleft: 32 rows x tj sums, colabove:
+// 128 columns x ti sums, corner: ti x tj totals), as on short, wide grids
+// like the chunked engine's (291, 3600).  Elsewhere launch 2 scans them.
+__host__ __device__ __forceinline__ bool direct_carries(int64_t tiles_r, int64_t tiles_c) {
+  return 16 * tiles_c + 64 * tiles_r + tiles_r * tiles_c / 4 <= kT2Rows * kT2Cols / 2;
+}
+
+// p[0] + p[stride] + ... + p[(n - 1) * stride], by one thread.
+__device__ __forceinline__ uint32_t sum_line(const uint32_t* __restrict__ p, int64_t n, int64_t stride) {
+  uint32_t acc = 0;
+#pragma unroll 8
+  for (int64_t i = 0; i < n; ++i) acc += p[i * stride];
+  return acc;
+}
+
+// Launch 3: each tile's 2-D inclusive scan from d, plus its carries,
+// dequantized and stored.  Before the block's one barrier, warp 0 finds its
+// rows' rowleft, warps 1-4 its columns' colabove and warp 5 its corner:
+// read from launch 2's scans, or (kDirect) summed from launch 1's sums.
+// Tiles run in reverse order of launch 1, so the lines launch 1 read last
+// are read again first, before the L2 drops them; the output streams past
+// the L2.
+template <bool kVec, bool kDirect>
+__global__ void __launch_bounds__(kThreads)
+tile2_scan_kernel(const int32_t* __restrict__ d, float* __restrict__ out,
+                  const uint32_t* __restrict__ row_sums, const uint32_t* __restrict__ col_sums,
+                  const uint32_t* __restrict__ totals, int64_t rows, int64_t cols, int64_t tiles_r,
+                  int64_t tiles_c, float two_eb) {
+  __shared__ uint4 s_col[kWarps][32];  // column sums of each warp's 4 rows
+  __shared__ uint32_t s_row_off[kT2Rows];
+  __shared__ __align__(16) uint32_t s_col_above[kT2Cols];  // read as uint4
+  __shared__ uint32_t s_corner;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t tile = gridDim.x - 1 - static_cast<int64_t>(blockIdx.x);
+  const int64_t ti = tile / tiles_c, tj = tile - ti * tiles_c;
+  const int64_t r0 = ti * kT2Rows, c0 = tj * kT2Cols;
+  uint32_t v[kT2RowsPerWarp][4];
+  tile2_load<kVec, true>(d, rows, cols, r0, c0, v);
+  if (warp == 0) {
+    // row r0 + lane: the sum of rows r0..r0+lane left of the tile
+    const int64_t r = r0 + lane;
+    uint32_t left = 0;
+    if (tj > 0 && r < rows) left = kDirect ? sum_line(row_sums + r * tiles_c, tj, 1) : row_sums[r * tiles_c + tj];
+    s_row_off[lane] = warp_inclusive_scan(left);
+  } else if (warp <= kT2Cols / 32) {
+    // column c: its sum above the tile
+    const int64_t c = c0 + 32 * (warp - 1) + lane;
+    uint32_t above = 0;
+    if (ti > 0 && c < cols) above = kDirect ? sum_line(col_sums + c * tiles_r, ti, 1) : col_sums[c * tiles_r + ti];
+    s_col_above[32 * (warp - 1) + lane] = above;
+  } else if (warp == kT2Cols / 32 + 1) {
+    // the sum of every tile above and left of this one
+    uint32_t corner = 0;
+    if (ti > 0 && tj > 0) {
+      if (kDirect) {
+        for (int64_t k = lane; k < ti * tj; k += 32) corner += totals[(k / tj) * tiles_c + k % tj];
+      } else {
+        const bool by_rows = corner_by_rows(tiles_r, tiles_c);
+        const int64_t n = by_rows ? ti : tj, stride = by_rows ? tiles_c : 1;
+        const uint32_t* line = totals + (by_rows ? tj : ti * tiles_c);
+        for (int64_t k = lane; k < n; k += 32) corner += line[k * stride];
+      }
+      corner = warp_sum(corner);
+    }
+    if (lane == 0) s_corner = corner;
+  }
+  // each row across the warp, then down this thread's rows
+#pragma unroll
+  for (int k = 0; k < kT2RowsPerWarp; ++k) {
+    v[k][1] += v[k][0];
+    v[k][2] += v[k][1];
+    v[k][3] += v[k][2];
+    const uint32_t pre = warp_inclusive_scan(v[k][3]) - v[k][3];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) v[k][e] += pre + (k > 0 ? v[k - 1][e] : 0u);
+  }
+  s_col[warp][lane] = make_uint4(v[kT2RowsPerWarp - 1][0], v[kT2RowsPerWarp - 1][1],
+                                 v[kT2RowsPerWarp - 1][2], v[kT2RowsPerWarp - 1][3]);
+  __syncthreads();
+  // columns c0+4l..c0+4l+3: the sum above the tile of columns c0..c (every
+  // warp scans the 128 values itself), plus the rows of earlier warps
+  uint32_t off[4];
+  const uint4 above = reinterpret_cast<const uint4*>(s_col_above)[lane];
+  off[0] = above.x;
+  off[1] = off[0] + above.y;
+  off[2] = off[1] + above.z;
+  off[3] = off[2] + above.w;
+  const uint32_t pre = warp_inclusive_scan(off[3]) - off[3] + s_corner;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) off[e] += pre;
+  for (int w = 0; w < warp; ++w) {
+    const uint4 t = s_col[w][lane];
+    off[0] += t.x;
+    off[1] += t.y;
+    off[2] += t.z;
+    off[3] += t.w;
+  }
+  const int64_t c = c0 + 4 * lane;
+#pragma unroll
+  for (int k = 0; k < kT2RowsPerWarp; ++k) {
+    const int rl = warp * kT2RowsPerWarp + k;
+    const int64_t r = r0 + rl;
+    if (r >= rows) break;
+    const uint32_t ro = s_row_off[rl];
+    const float4 f = make_float4(dequant(v[k][0] + off[0] + ro, two_eb), dequant(v[k][1] + off[1] + ro, two_eb),
+                                 dequant(v[k][2] + off[2] + ro, two_eb), dequant(v[k][3] + off[3] + ro, two_eb));
+    float* dst = out + r * cols + c;
+    if (kVec) {
+      if (c < cols) __stcs(reinterpret_cast<float4*>(dst), f);
+    } else {
+      if (c < cols) __stcs(dst, f.x);
+      if (c + 1 < cols) __stcs(dst + 1, f.y);
+      if (c + 2 < cols) __stcs(dst + 2, f.z);
+      if (c + 3 < cols) __stcs(dst + 3, f.w);
+    }
   }
 }
 
@@ -460,20 +625,30 @@ unsigned grid_stride_blocks(int64_t n) {
   return static_cast<unsigned>(imin(ceil_div(n, kThreads), kMaxGrid));
 }
 
-// Row scan of a (rows, cols) int32 matrix into int32 `out`, using
-// rows * tiles_per_row words of `scratch` when a row spans more than one
-// tile.
-void row_scan(const int32_t* d, int32_t* out, uint32_t* scratch, int64_t rows,
-              int64_t cols, cudaStream_t stream) {
-  const int64_t tiles = ceil_div(cols, kTile);
-  const unsigned blocks = static_cast<unsigned>(rows * tiles);
-  const uint32_t* offsets = nullptr;
-  if (tiles > 1) {
-    tile_sum_kernel<<<blocks, kThreads, 0, stream>>>(d, scratch, cols, tiles);
-    tile_offsets_kernel<<<static_cast<unsigned>(rows), kThreads, 0, stream>>>(scratch, tiles);
-    offsets = scratch;
+// decode_2d's launches for rows, cols > 1: sums, then carries unless
+// launch 3 sums them itself, then the rescan.
+template <bool kVec>
+void tile2_launch(const int32_t* d, float* out, uint32_t* row_sums, uint32_t* col_sums,
+                  uint32_t* totals, int64_t rows, int64_t cols, float two_eb, cudaStream_t s) {
+  const int64_t tiles_r = ceil_div(rows, kT2Rows), tiles_c = ceil_div(cols, kT2Cols);
+  const unsigned tiles = static_cast<unsigned>(tiles_r * tiles_c);
+  tile2_sums_kernel<kVec><<<tiles, kThreads, 0, s>>>(d, row_sums, col_sums, totals, rows, cols,
+                                                     tiles_r, tiles_c);
+  if (direct_carries(tiles_r, tiles_c)) {
+    tile2_scan_kernel<kVec, true><<<tiles, kThreads, 0, s>>>(d, out, row_sums, col_sums, totals,
+                                                             rows, cols, tiles_r, tiles_c, two_eb);
+    return;
   }
-  scan_tile_kernel<<<blocks, kThreads, 0, stream>>>(d, out, offsets, cols, tiles);
+  const int64_t row_lines = tiles_c > 1 ? rows : 0, col_lines = tiles_r > 1 ? cols : 0;
+  const int64_t total_lines =
+      (tiles_r > 1 && tiles_c > 1) ? (corner_by_rows(tiles_r, tiles_c) ? tiles_r : tiles_c) : 0;
+  const unsigned carry_blocks = static_cast<unsigned>(ceil_div(total_lines + row_lines + col_lines, kWarps));
+  if (carry_blocks > 0) {
+    tile2_carries_kernel<<<carry_blocks, kThreads, 0, s>>>(row_sums, col_sums, totals, row_lines,
+                                                           col_lines, total_lines, tiles_r, tiles_c);
+  }
+  tile2_scan_kernel<kVec, false><<<tiles, kThreads, 0, s>>>(d, out, row_sums, col_sums, totals, rows,
+                                                            cols, tiles_r, tiles_c, two_eb);
 }
 
 }  // namespace
@@ -483,11 +658,16 @@ extern "C" {
 // Words of uint32 scratch the decode entry points need for a (rows, cols)
 // input; the caller allocates them.  decode_1d: the tile counter (2 words,
 // keeping the status words 8-byte aligned) and the 64-bit status words,
-// one per tile, interleaved (status_slot).  The launch grids need
-// rows * ceil(cols / 4096) and ceil(rows / 64) * ceil(cols / 256) below 2^31.
+// one per tile, interleaved (status_slot).  decode_2d: its tiles' row sums,
+// column sums and totals, or decode_1d's words for (1, rows * cols) when
+// rows or cols is 1.  The launch grids need rows * ceil(cols / 4096) (1d),
+// and ceil(rows / 32) * ceil(cols / 128) and (rows + cols + min(tile rows,
+// tile columns)) / 8 (2d), below 2^31.
 int64_t lorenzo_decode_scratch_words(int64_t rows, int64_t cols, int two_d) {
+  if (two_d && (rows == 1 || cols == 1)) return lorenzo_decode_scratch_words(1, rows * cols, 0);
   if (!two_d) return 2 + 2 * 32 * status_stride(rows * ceil_div(cols, kLbTile));
-  return rows * ceil_div(cols, kTile) + rows * cols + ceil_div(rows, kSegRows) * cols;
+  const int64_t tiles_r = ceil_div(rows, kT2Rows), tiles_c = ceil_div(cols, kT2Cols);
+  return rows * tiles_c + cols * tiles_r + tiles_r * tiles_c;
 }
 
 int lorenzo_encode_1d(const float* x, int32_t* codes, int32_t* draw, int64_t rows,
@@ -539,20 +719,22 @@ int lorenzo_decode_1d(const int32_t* d, float* out, uint32_t* scratch, int64_t r
 
 int lorenzo_decode_2d(const int32_t* d, float* out, uint32_t* scratch, int64_t rows,
                       int64_t cols, float two_eb, void* stream) {
+  const bool vec = reinterpret_cast<uintptr_t>(d) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  if (rows * cols > 0 && (rows == 1 || cols == 1)) {
+    // a single row or column: the scan along the other axis is the identity
+    return lorenzo_decode_1d(d, out, scratch, 1, rows * cols, two_eb, vec, stream);
+  }
   if (rows * cols > 0) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
-    uint32_t* tile_sums = scratch;
-    int32_t* row_sums = reinterpret_cast<int32_t*>(scratch + rows * ceil_div(cols, kTile));
-    uint32_t* seg_sums = reinterpret_cast<uint32_t*>(row_sums + rows * cols);
-    row_scan(d, row_sums, tile_sums, rows, cols, s);
-    const int64_t n_seg = ceil_div(rows, kSegRows);
-    const int64_t col_blocks = ceil_div(cols, kThreads);
-    const unsigned blocks = static_cast<unsigned>(n_seg * col_blocks);
-    seg_sum_kernel<<<blocks, kThreads, 0, s>>>(row_sums, seg_sums, rows, cols, col_blocks);
-    seg_offsets_kernel<<<static_cast<unsigned>(col_blocks), kThreads, 0, s>>>(seg_sums, n_seg,
-                                                                          cols);
-    col_scan_kernel<<<blocks, kThreads, 0, s>>>(row_sums, seg_sums, out, rows, cols,
-                                                col_blocks, two_eb);
+    const int64_t tiles_r = ceil_div(rows, kT2Rows), tiles_c = ceil_div(cols, kT2Cols);
+    uint32_t* row_sums = scratch;
+    uint32_t* col_sums = row_sums + rows * tiles_c;
+    uint32_t* totals = col_sums + cols * tiles_r;
+    if (vec && cols % 4 == 0) {
+      tile2_launch<true>(d, out, row_sums, col_sums, totals, rows, cols, two_eb, s);
+    } else {
+      tile2_launch<false>(d, out, row_sums, col_sums, totals, rows, cols, two_eb, s);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }

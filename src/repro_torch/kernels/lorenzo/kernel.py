@@ -32,9 +32,9 @@ LAUNCHES: Dict[str, int] = {
 
 #: the grids launch at most this many blocks along x
 _MAX_BLOCKS = (1 << 31) - 1
-_TILE = 4096  # elements per row-scan tile (kTile, and kLbTile for decode_1d)
-_SEG_ROWS = 64  # rows per column-scan segment (kSegRows in the source)
-_THREADS = 256
+_TILE = 4096  # elements per decode_1d tile (kLbTile in the source)
+_TILE_2D = (32, 128)  # decode_2d's tile (kT2Rows, kT2Cols)
+_WARPS = 8  # warps per block (kThreads / 32)
 
 
 def reset_launches() -> None:
@@ -71,8 +71,10 @@ def _check(t: torch.Tensor, dtype: torch.dtype, what: str) -> Tuple[int, int]:
     if not t.is_contiguous():
         raise ValueError(f"{what}: the tensor must be contiguous")
     rows, cols = t.shape
-    n_seg_blocks = -(-rows // _SEG_ROWS) * -(-cols // _THREADS)
-    if rows * -(-cols // _TILE) > _MAX_BLOCKS or n_seg_blocks > _MAX_BLOCKS:
+    tiles_r, tiles_c = -(-rows // _TILE_2D[0]), -(-cols // _TILE_2D[1])
+    lines_2d = rows + cols + min(tiles_r, tiles_c)  # decode_2d's carries launch, a warp each
+    grids = (rows * -(-cols // _TILE), -(-(rows * cols) // _TILE), tiles_r * tiles_c, -(-lines_2d // _WARPS))
+    if max(grids) > _MAX_BLOCKS:
         raise ValueError(f"{what}: shape {tuple(t.shape)} exceeds the launch grid")
     return rows, cols
 

@@ -196,6 +196,64 @@ def test_v1_lr_fixture_decodes_like_the_reference():
     _same_bits(tc.decompress(blob, device=CPU).numpy(), rc.decompress(blob))
 
 
+THIN_SHAPES = [(1, 5000), (5000, 1), (1, 1, 5000), (2, 5000)]
+
+
+def _thin_field(shape):
+    rng = np.random.default_rng(sum(shape))
+    return np.cumsum(rng.normal(size=shape), axis=-1).astype(np.float32)
+
+
+def _lr_codes_cap(pshape, b=6):
+    """What CompositePredictor writes at most: every axis padded to a
+    multiple of b, b**ndim codes and ndim + 1 coefficients per block."""
+    blocks = int(np.prod([-(-s // b) for s in pshape]))
+    return blocks * (b ** len(pshape) + len(pshape) + 1)
+
+
+@pytest.mark.parametrize("shape", THIN_SHAPES)
+def test_thin_lr_blobs_equal_reference_and_decode_in_the_port(shape):
+    """A field with an axis of 1 or 2 makes ``sz3_lr`` write more codes
+    than 2 n + 4096; the reference's decoder refuses its own blob there
+    (ROADMAP queue 3), the port's decodes it within the bound."""
+    x = _thin_field(shape)
+    rconf, tconf = _confs("abs", 1e-2)
+    ref = rc.sz3_lr().compress(x, rconf).blob
+    assert tc.sz3_lr(device=CPU).compress(x, tconf).blob == ref
+    header = tc.parse_header(ref)[0]
+    assert 2 * x.size + 4096 < header["n_codes"] <= _lr_codes_cap(shape)
+    out = tc.decompress(ref, device=CPU).numpy()
+    assert out.shape == x.shape and out.dtype == np.float32
+    assert np.max(np.abs(out.astype(np.float64) - x)) <= header["abs_eb"]
+
+
+@pytest.mark.parametrize("shape", [(1, 5000), (1, 1, 5000)])
+def test_thin_lr_guard_refuses_one_code_past_the_cap(shape):
+    from repro_torch.core import pipeline as t_pipe
+
+    blob = tc.sz3_lr(device=CPU).compress(_thin_field(shape), _confs("abs", 1e-2)[1]).blob
+    header, off = tc.parse_header(blob)
+    body = t_pipe.container_body(blob, off)
+    header = {k: v for k, v in header.items() if k != "itg"}
+    header["n_codes"] = _lr_codes_cap(header["pshape"]) + 1
+    with pytest.raises(tc.ContainerError, match="n_codes"):
+        tc.decompress(t_pipe.pack_container(header, body), device=CPU)
+
+
+def test_default_chunked_lr_column_round_trips_in_the_port():
+    """Default ``sz3_chunked()`` picks ``sz3_lr`` for a smooth (100000, 1)
+    column; the port decodes the blob it writes, byte for byte the
+    reference's."""
+    x = np.sin(np.arange(100000) / 700.0).astype(np.float32).reshape(-1, 1)
+    rconf, tconf = _confs("abs", 1e-3)
+    res = tc.sz3_chunked(device=CPU).compress(x, tconf, with_stats=True)
+    assert "sz3_lr" in [c["pipeline"] for c in res.meta["chunks"]]
+    assert res.blob == rc.sz3_chunked().compress(x, rconf).blob
+    out = tc.decompress(res.blob, device=CPU).numpy()
+    assert out.shape == x.shape
+    assert np.max(np.abs(out.astype(np.float64) - x)) <= 1e-3
+
+
 def test_estimators_equal_reference_exactly():
     x = FIELDS["2d"]
     conf, rconf = tc.CompressionConfig(), rc.CompressionConfig()

@@ -333,13 +333,23 @@ def _same_or_both_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("bs", [128, 256])
-@pytest.mark.parametrize("nb", [1, 7, 8, 9, 1000, 25313, 65537])
+@pytest.mark.parametrize("nb", [1, 7, 8, 9, 1000, 4096, 8003, 25313, 65537])
 def test_cuda_kernel_equals_plain_version(cuda_device, bs, nb):
+    """Block counts below, at and past what the card holds at once (each
+    warp then walks several blocks), with NaN and +-inf inside blocks and
+    as whole blocks."""
     rng = np.random.default_rng(nb)
     x = (rng.standard_normal((nb, bs)) * np.exp(rng.uniform(-10, 10, (nb, 1)))).astype(np.float32)
     x[nb // 2, 3] = np.nan
     x[nb // 3, 5] = np.inf
     x[nb // 4, :] = 7.0
+    special = {nb // 2, nb // 3, nb // 4}
+    if nb - 1 not in special:
+        x[nb - 1, 6] = -np.inf
+        special.add(nb - 1)
+    whole = [r for r in range(min(nb, 8)) if r not in special][:3]
+    if len(whole) == 3:  # rows the cases above leave alone
+        x[whole[0], :], x[whole[1], :], x[whole[2], :] = np.nan, np.inf, -np.inf
     xt = torch.from_numpy(x).to(cuda_device)
     m_k, d_k = K.block_stats(xt)
     torch.cuda.synchronize()

@@ -179,12 +179,51 @@ def test_cuda_decode_1d_look_back_equals_plain(cuda_device, shape):
     assert K.LAUNCHES["decode_1d"] == 1
 
 
+def _wrapping_diffs(shape, device):
+    """Raw diffs whose running sums wrap int32 many times over."""
+    d = torch.full(shape, 2**30, dtype=torch.int32, device=device)
+    d[1::2] = -(2**30) - 7
+    d[2::3, ::3] = 2**31 - 1
+    return d
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(291, 3600), (54, 3600), (1, 5000), (5000, 1), (2, 4099), (65, 129),
+                                   (1801, 3599), (33, 128), (32, 129), (4096, 3), (4096, 300), (300, 4096),
+                                   (1000, 8192)])
+def test_cuda_decode_2d_equals_plain(cuda_device, shape):
+    """The tiled scan at the chunked engine's chunk shapes, on one row or
+    column (the 1-D scan), two rows, and tiles cut at every edge."""
+    rng = np.random.default_rng(shape[0] * 7 + shape[1])
+    d = torch.from_numpy(rng.integers(-5000, 5000, shape, dtype=np.int32)).to(cuda_device)
+    K.reset_launches()
+    out = K.decode_2d(d, 1e-3)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tref.decode_2d(d, 1e-3))
+    assert K.LAUNCHES["decode_2d"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(3, 70001), (300, 1000)])
+def test_cuda_decode_2d_wraps_int32(cuda_device, shape):
+    d = _wrapping_diffs(shape, cuda_device)
+    out = K.decode_2d(d, 0.5)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tref.decode_2d(d, 0.5))
+
+
+@pytest.mark.cuda
+def test_cuda_decode_2d_on_a_misaligned_view(cuda_device):
+    base = torch.randint(-100, 100, (1, 300 * 400 + 1), dtype=torch.int32, device=cuda_device)
+    d = base.reshape(-1)[1:].reshape(300, 400)  # contiguous, 4 bytes off: scalar loads
+    assert d.data_ptr() % 16
+    assert torch.equal(K.decode_2d(d, 1e-2), tref.decode_2d(d, 1e-2))
+
+
 @pytest.mark.cuda
 def test_cuda_decode_1d_wraps_int32(cuda_device):
     """Running sums that wrap int32 many times over, bit for bit."""
-    d = torch.full((3, 70001), 2**30, dtype=torch.int32, device=cuda_device)
-    d[1] = -(2**30) - 7
-    d[2, ::3] = 2**31 - 1
+    d = _wrapping_diffs((3, 70001), cuda_device)
     out = K.decode_1d(d, 0.5)
     torch.cuda.synchronize()
     assert torch.equal(out, tref.decode_1d(d, 0.5))

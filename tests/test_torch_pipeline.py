@@ -192,6 +192,20 @@ def test_zero_predictor_same_bytes():
     _assert_same_bits(tc.decompress(port, device=CPU).numpy(), ref_decompress(ref))
 
 
+def test_zero_d_rel_field_same_bytes_and_decodes():
+    """A 0-d field under REL: the port writes the reference's bytes and
+    decodes them to the value.  The reference itself raises on this blob
+    (it assigns its fail values into a 0-d numpy scalar; ROADMAP queue 3)."""
+    x = np.float32(3.5).reshape(())
+    rconf = RConf(mode=RMode.REL, eb=1e-3)
+    tconf = tc.CompressionConfig(mode=tc.ErrorBoundMode.REL, eb=1e-3)
+    ref = RSZ3().compress(x, rconf).blob
+    port = tc.sz3_lorenzo(device=CPU).compress(x, tconf).blob
+    assert port == ref
+    out = tc.decompress(port, device=CPU).numpy()
+    assert out.shape == () and out.dtype == np.float32 and float(out) == 3.5
+
+
 def test_compress_accepts_tensors_and_casts_like_numpy():
     rconf, tconf = _confs("abs")
     x16 = FIELDS["2d"].astype(np.float16)

@@ -37,7 +37,10 @@ Phases, one JSON line each:
    and the bitplane transpose (``encode``/``decode``) on the 6,480,000
    integers the v3 coder hands its host bitplane codec for the 1800x3600
    field, on 2^24+3 uniform uint32 and on n = 0, 5, 16385, with its planes
-   held against the host codec's;
+   held against the host codec's, and, untimed, on R = 130, 1003, 4099 and
+   2^20+3 groups, on views 1 and 2 elements past an aligned base and on
+   all-ones and one-bit-per-plane values; the encodes ``encode_1d`` and
+   ``encode_2d`` are timed at the chunk shapes as the decodes are;
 4. main paths, each on a smooth 1800x3600 float32 field (the shape of an
    SDRBench CESM-ATM 2-D field) and on a 2^24+3-element series (HACC-like
    particle data, cut from HACC's 280,953,867 elements so the host coding
@@ -416,7 +419,7 @@ def lorenzo_kernels(timer, g, bw: float) -> dict:
             x = torch.cumsum(torch.randn(shape, generator=g, device="cuda"), dim=1)
             _, d = getattr(R, f"encode_{mode}")(x, eb, 32768)
             for name, arg in ((f"encode_{mode}", x), (f"decode_{mode}", d)):
-                chunk = name.startswith("decode") and (shape in CHUNK_2D or shape == CHUNK_1D)
+                chunk = shape in CHUNK_2D or shape == CHUNK_1D
                 case = _kernel_case(chunk_timer if chunk else timer, name, shape, arg, eb, bw)
                 emit(f"kernel {name} {shape[0]}x{shape[1]}", **case)
                 if not case["bit_identical"]:
@@ -838,10 +841,65 @@ def _host_planes_match(words: torch.Tensor, vals: torch.Tensor) -> int:
     return nplanes
 
 
+def _bitplane_edges(g) -> dict:
+    """encode/decode against their plain versions, bit for bit, untimed, on
+    the redesign's edges: R off the 128 groups of a thread block and off a
+    multiple of 4; R = 2^20+3, more tiles than the card holds warps at once
+    (132 SMs x at most 32 blocks of 4 warps); views 1 and 2 elements past an
+    aligned base (encode's values take the kernel's 4-byte path, decode
+    reads planes at the same offset); all-ones and one-bit-per-plane values,
+    whose planes are known."""
+    from repro_torch.kernels.bitplane import kernel as K
+    from repro_torch.kernels.bitplane import ref as R
+
+    def rand(n):
+        return torch.randint(-(1 << 31), 1 << 31, (n,), generator=g, device="cuda", dtype=torch.int32)
+
+    def equal(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    def check(label, v, planes=None):
+        w = K.encode(v)
+        torch.cuda.synchronize()
+        if not equal(w, R.encode(v)) or (planes is not None and not equal(w, planes)):
+            raise AssertionError(f"bitplane_encode on {label} differs from its plain version")
+        back = K.decode(w)
+        torch.cuda.synchronize()
+        if not (equal(back, v) and equal(back, R.decode(w))):
+            raise AssertionError(f"bitplane_decode on {label} differs from its plain version")
+        return w
+
+    ragged = [130, 1003, 4099, (1 << 20) + 3]
+    for rows in ragged:
+        check(f"R={rows}", rand(32 * rows).view(torch.uint32).view(rows, 32))
+    rows = 1003
+    for off in (1, 2):
+        v = rand(32 * rows + off)[off:].view(torch.uint32).view(rows, 32)
+        w_view = torch.zeros(32 * rows + off, dtype=torch.int32, device="cuda")[off:].view(torch.uint32).view(32, rows)
+        if v.data_ptr() % 16 == 0 or w_view.data_ptr() % 16 == 0:
+            raise AssertionError("bitplane offset views are 16-byte aligned: the 4-byte path is not reached")
+        w_view.view(torch.int32).copy_(check(f"values at offset {off}", v).view(torch.int32))
+        back = K.decode(w_view)
+        torch.cuda.synchronize()
+        if not equal(back, v):
+            raise AssertionError(f"bitplane_decode of planes at offset {off} differs from its plain version")
+    rows = 4099
+    ones = torch.full((rows, 32), -1, dtype=torch.int32, device="cuda").view(torch.uint32)
+    check("all-ones", ones, ones.reshape(32, rows))
+    # v[r, k] = 1 << ((k - r) % 32): plane word w[p, r] = 1 << ((p + r) % 32)
+    r = torch.arange(rows, device="cuda")
+    k = torch.arange(32, device="cuda")
+    check("one bit per plane", R.as_u32(1 << ((k[None, :] - r[:, None]) % 32)),
+          R.as_u32(1 << ((k[:, None] + r[None, :]) % 32)))
+    return {"ragged_R": ragged, "offsets": [1, 2], "patterns": ["all-ones", "one-bit-per-plane"],
+            "bit_identical": True}
+
+
 def bitplane_kernels(timer, bw: float, coder_ints: torch.Tensor, seed: int) -> dict:
     """encode/decode against their plain versions, bit for bit: (a) the v3
     coder's integers, (b) 2^24+3 uniform uint32 (all 32 planes live),
-    (c) n = 0, 5, 16385 (padding and an empty input)."""
+    (c) n = 0, 5, 16385 (padding and an empty input), timed; then the
+    redesign's edges, untimed (:func:`_bitplane_edges`)."""
     from repro_torch.kernels.bitplane import kernel as K
     from repro_torch.kernels.bitplane import ops as O
     from repro_torch.kernels.bitplane import ref as R
@@ -888,6 +946,7 @@ def bitplane_kernels(timer, bw: float, coder_ints: torch.Tensor, seed: int) -> d
         if label in ("v3 coder integers", "uniform"):
             planes = _host_planes_match(w, vals)
             emit(f"bitplane planes {label}", n=vals.numel(), planes_equal_to_host_codec=planes)
+    emit("kernel bitplane checks", **_bitplane_edges(g))
     return cases
 
 

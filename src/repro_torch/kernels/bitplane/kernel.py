@@ -9,6 +9,9 @@ contiguity, allocates its output with ``torch.empty``, launches on
 ``torch.cuda.current_stream()``, raises if the launch reports an error, and
 adds one to its entry in :data:`LAUNCHES`.  Any R is taken (the kernel
 guards its tail); ``ops.py`` pads to the JAX package's 512-group tiles.
+An ``encode`` input that is not 16-byte aligned (a view at a storage
+offset) takes the kernel's 4-byte accesses; the planes may lie at any
+offset.
 """
 from __future__ import annotations
 

@@ -9,7 +9,9 @@
 * the wrappers refuse what the kernel does not take.
 
 The ``cuda``-marked tests hold the CUDA kernel against its plain version on
-ragged R, and run on a card
+ragged R, on R past one pass of its card-sized grid, on views at a storage
+offset (its 4-byte value-side path) and on all-ones and one-bit-per-plane
+values, and run on a card
 (``python -m pytest -q -m cuda tests/test_torch_bitplane.py``).
 """
 import numpy as np
@@ -34,6 +36,22 @@ NS = [0, 1, 5, 31, 32, 33, 100, 1000, 16384, 16385, 40009]
 def _vals(n):
     rng = np.random.default_rng(n)
     return rng.integers(0, 1 << 32, size=n, dtype=np.uint64).astype(np.uint32)
+
+
+def _pattern(kind, rows):
+    """(rows, 32) uint32 values: all bits set, or v[r, k] = 1 << ((k - r) % 32),
+    whose plane words w[p, r] = 1 << ((p + r) % 32) hold one bit each."""
+    if kind == "all-ones":
+        return np.full((rows, 32), 0xFFFFFFFF, np.uint32)
+    r, k = np.arange(rows)[:, None], np.arange(32)[None, :]
+    return (np.uint32(1) << ((k - r) % 32).astype(np.uint32)).astype(np.uint32)
+
+
+def _pattern_planes(kind, rows):
+    if kind == "all-ones":
+        return np.full((32, rows), 0xFFFFFFFF, np.uint32)
+    p, r = np.arange(32)[:, None], np.arange(rows)[None, :]
+    return (np.uint32(1) << ((p + r) % 32).astype(np.uint32)).astype(np.uint32)
 
 
 def _need_jax():
@@ -86,6 +104,19 @@ def test_planes_equal_the_host_codec(n):
     assert not words[nplanes:].any()
 
 
+@pytest.mark.parametrize("kind", ["all-ones", "one-bit-per-plane"])
+def test_plain_version_on_patterns_equals_jax_entry_point(kind):
+    _need_jax()
+    rows = 1003
+    vals = _pattern(kind, rows).reshape(-1)
+    want = np.asarray(rbp.bitplane_encode(jnp.asarray(vals)))
+    got = tbp.bitplane_encode(torch.from_numpy(vals)).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:, :rows], _pattern_planes(kind, rows))
+    assert not got[:, rows:].any()
+    np.testing.assert_array_equal(tbp.bitplane_decode(torch.from_numpy(got), vals.size).numpy(), vals)
+
+
 def test_signed_tail_round_trips_beside_the_host_sign_bitmap():
     vals = np.asarray([5, -1, (1 << 31), -(1 << 20), 0, -7, 123456789, -3, 9, 2, -2], np.int64)
     back, _ = t_quant.bitplane_decode(t_quant.bitplane_encode(vals))
@@ -124,17 +155,57 @@ def cuda_device():
     return torch.device("cuda")
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rows", [1, 31, 32, 33, 512, 1000, 70001])
-def test_cuda_kernel_equals_plain_version_on_ragged_r(cuda_device, rows):
-    v = torch.from_numpy(_vals(rows * 32).reshape(rows, 32)).to(cuda_device)
+def _equal_u32(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _round_trip_equals_plain(v):
     w = K.encode(v)
     torch.cuda.synchronize()
-    assert torch.equal(w.view(torch.int32), R.encode(v).view(torch.int32))
+    assert _equal_u32(w, R.encode(v))
     back = K.decode(w)
     torch.cuda.synchronize()
-    assert torch.equal(back.view(torch.int32), v.view(torch.int32))
-    assert torch.equal(back.view(torch.int32), R.decode(w).view(torch.int32))
+    assert _equal_u32(back, v) and _equal_u32(back, R.decode(w))
+    return w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 31, 32, 33, 130, 512, 1000, 1003, 4099, 70001, (1 << 20) + 3])
+def test_cuda_kernel_equals_plain_version_on_ragged_r(cuda_device, rows):
+    """R off the 32 groups of a warp's tile, off the 128 of a thread block
+    and off a multiple of 4; at 2^20 + 3 groups more tiles than the card
+    holds warps at once (132 SMs x at most 32 blocks of 4 warps), so each
+    warp walks several."""
+    v = torch.from_numpy(_vals(rows * 32).reshape(rows, 32)).to(cuda_device)
+    _round_trip_equals_plain(v)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["all-ones", "one-bit-per-plane"])
+def test_cuda_kernel_on_patterns(cuda_device, kind):
+    rows = 4099
+    v = torch.from_numpy(_pattern(kind, rows)).to(cuda_device)
+    w = _round_trip_equals_plain(v)
+    assert np.array_equal(w.cpu().numpy(), _pattern_planes(kind, rows))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2])
+def test_cuda_kernel_on_views_at_a_storage_offset(cuda_device, offset):
+    """Views 4 and 8 bytes past an aligned base: encode's values take the
+    kernel's 4-byte accesses, and decode reads planes at the same offset."""
+    rows = 1003
+    flat = torch.from_numpy(_vals(rows * 32 + offset)).to(cuda_device)
+    v = flat[offset:].view(rows, 32)
+    assert v.data_ptr() % 16
+    w = _round_trip_equals_plain(v)
+    w_flat = torch.zeros(32 * rows + offset, dtype=torch.int32, device=cuda_device)
+    w_flat[offset:] = w.view(torch.int32).reshape(-1)
+    w_view = w_flat[offset:].view(torch.uint32).view(32, rows)
+    assert w_view.data_ptr() % 16
+    back = K.decode(w_view)
+    torch.cuda.synchronize()
+    assert _equal_u32(back, v)
 
 
 @pytest.mark.cuda

@@ -40,7 +40,13 @@ Phases, one JSON line each:
    held against the host codec's, and, untimed, on R = 130, 1003, 4099 and
    2^20+3 groups, on views 1 and 2 elements past an aligned base and on
    all-ones and one-bit-per-plane values; the encodes ``encode_1d`` and
-   ``encode_2d`` are timed at the chunk shapes as the decodes are;
+   ``encode_2d`` are timed at the chunk shapes as the decodes are, and held
+   bit for bit, untimed, on widths 1 and 3, rows one past a warp's span
+   ((3, 257), (2, 4097), (2, 4099), (33, 129), (65, 129)), rows that end
+   inside a strip ((17, 132)), single rows and columns, views 4, 8 and 12
+   bytes past an aligned base (the kernels' 4-byte variant) and tie values
+   (x * f32(1/(2eb)) exactly k + 1/2, magnitudes just under 2^22 * 2eb,
+   diffs of INT32_MIN);
 4. main paths, each on a smooth 1800x3600 float32 field (the shape of an
    SDRBench CESM-ATM 2-D field) and on a 2^24+3-element series (HACC-like
    particle data, cut from HACC's 280,953,867 elements so the host coding
@@ -397,6 +403,58 @@ def _decode_equal(name: str, d: torch.Tensor, eb: float) -> None:
         raise AssertionError(f"{name} at {tuple(d.shape)} differs from its plain version")
 
 
+def _encode_equal(name: str, x: torch.Tensor, eb: float, radius: int = 32768) -> None:
+    """One encode kernel against its plain version, bit for bit, untimed."""
+    from repro_torch.kernels.lorenzo import kernel as K
+    from repro_torch.kernels.lorenzo import ref as R
+
+    got = getattr(K, name)(x, eb, radius)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, getattr(R, name)(x, eb, radius))):
+        raise AssertionError(f"{name} at {tuple(x.shape)} (eb {eb}, radius {radius}) differs from its plain version")
+
+
+#: the encodes' edge shapes: widths under 4 (4-byte accesses), rows one past
+#: a warp's span (256 elements in 1d, 128 columns in 2d), rows that end
+#: inside a strip, one row or column in 2d mode
+ENCODE_EDGES = [(5000, 1), (5000, 3), (40, 1), (40, 3), (3, 257), (2, 4097), (2, 4099), (17, 132), (33, 129),
+                (65, 129), (1, 4099), (1, 5000)]
+
+
+def tie_field(shape, eb: float, g) -> torch.Tensor:
+    """Values whose x * f32(1/(2eb)) is exactly k + 1/2 (rint rounds them to
+    even), magnitudes just under 2^22 * 2eb (the pipeline's safe limit),
+    and +-2^30 neighbours whose diffs are INT32_MIN; eb is a power of two."""
+    inv = 1.0 / (2.0 * eb)
+    q = torch.randint(-1000, 1000, shape, generator=g, device="cuda", dtype=torch.float64) + 0.5
+    q[0, :8] = torch.tensor([2**22 - 0.5, -(2**22 - 0.5), 2**22 - 1.5, 2.0**30, -(2.0**30), 2.0**30, 2.5, -3.5],
+                            dtype=torch.float64)
+    return (q / inv).to(torch.float32)
+
+
+def encode_edges(g) -> None:
+    """Both encodes, untimed, on the edge shapes, on contiguous views 4, 8
+    and 12 bytes past an aligned base (the 4-byte variant) and on tie values."""
+    checked = {"shapes": [], "misaligned": [], "ties": []}
+    for name in ("encode_1d", "encode_2d"):
+        for shape in ENCODE_EDGES:
+            _encode_equal(name, torch.cumsum(torch.randn(shape, generator=g, device="cuda"), dim=1), 1e-3)
+            checked["shapes"].append([name, *shape])
+        for shape, off in (((300, 400), 1), ((1, 40000), 1), ((33, 129), 2), ((291, 3600), 3)):
+            n = shape[0] * shape[1]
+            base = torch.cumsum(torch.randn(n + off, generator=g, device="cuda"), dim=0)
+            x = base[off:].reshape(shape)
+            if x.data_ptr() % 16 == 0:
+                raise AssertionError("the misaligned view is aligned")
+            _encode_equal(name, x, 1e-3)
+            checked["misaligned"].append([name, *shape, 4 * off])
+        for eb in (0.5, 2.0**-11):
+            for radius in (32768, 2**31 - 1):
+                _encode_equal(name, tie_field((9, 261), eb, g), eb, radius)
+            checked["ties"].append([name, eb])
+    emit("kernel encode checks", bit_identical=True, **checked)
+
+
 def wrapping_diffs(shape) -> torch.Tensor:
     """Raw diffs whose running sums wrap int32 many times over."""
     d = torch.full(shape, 2**30, dtype=torch.int32, device="cuda")
@@ -440,6 +498,7 @@ def lorenzo_kernels(timer, g, bw: float) -> dict:
         _decode_equal("decode_2d", wrapping_diffs(shape), 0.5)
     emit("kernel decode_2d checks", shapes=[[1, 5000], [5000, 1], [2, 4099], [65, 129]],
          wrapping=[[3, 70001], [300, 1000]], bit_identical=True)
+    encode_edges(g)
     return cases
 
 

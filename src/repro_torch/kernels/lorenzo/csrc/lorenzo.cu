@@ -13,10 +13,25 @@
 // per 4-byte element.  The TPU kernels carry the last row or column through
 // VMEM scratch along a grid that runs in order.  Hopper blocks run in no
 // order, so the design here needs no carry between blocks:
-//   * encode: one thread per element.  Each thread re-reads its left, up and
-//     up-left neighbours (L1/L2 hits) and recomputes their prequantized
-//     values, so one pass reads x once from DRAM and writes codes and raw
-//     diffs once: 12 B per element.
+//   * encode_1d and encode_2d (_encode1d_kernel, _encode2d_kernel).  Bound:
+//     bytes, 12 B per element (x read once, codes and raw diffs written
+//     once).  What the design does about it: one warp per span of a row
+//     (1d: 256 elements, 8 a lane; 2d: 128 columns, 4 a lane, down a strip
+//     of H <= 8 rows), found by one division per warp, none per element.
+//     A lane issues all its loads before any arithmetic (a 2d warp has its
+//     whole strip, up to 8 rows of 512 B, in flight), and each element is
+//     prequantized once.  The left neighbour comes by shuffle from the
+//     lane before (lane 0: lane 31's previous chunk, or its own load of
+//     the element left of the span); 2d carries the previous row's q down
+//     the strip in registers, the TPU kernel's VMEM row carry, and lane 0
+//     the left column's q as well.  Every warp load or store covers 512
+//     contiguous bytes (float4 in, int4 out) where all rows start 16-byte
+//     aligned, else 128 bytes of 4-byte accesses in the same kernel.  Extra
+//     reads: a 2d strip's first row reads the row above (1/H of x, mostly
+//     from L2) and lane 0 one element a row (2d) or a span (1d).  H comes
+//     from the host: the longest strip that still gives each SM 8 warps,
+//     so short chunks spread over the card.  No cache hints: the caller
+//     reads x again right after and decodes the raw diffs.
 //   * decode_1d: an inclusive scan of each row in one launch, a chained
 //     scan with decoupled look-back (Merrill & Garland, "Single-pass
 //     Parallel Prefix Scan with Decoupled Look-back", 2016) over tiles of
@@ -82,9 +97,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;               // threads per block, every kernel
+constexpr int kThreads = 256;               // threads per block, every decode kernel
 constexpr int kWarps = kThreads / 32;
-constexpr int64_t kMaxGrid = 1 << 16;       // cap for grid-stride launches
 
 __host__ __device__ __forceinline__ int64_t imin(int64_t a, int64_t b) {
   return a < b ? a : b;
@@ -105,42 +119,176 @@ __device__ __forceinline__ int32_t code_of(uint32_t d, int32_t radius) {
   return ad < radius ? static_cast<int32_t>(d + static_cast<uint32_t>(radius)) : 0;
 }
 
-__global__ void encode_1d_kernel(const float* __restrict__ x,
-                                 int32_t* __restrict__ codes,
-                                 int32_t* __restrict__ draw, int64_t rows,
-                                 int64_t cols, float inv_two_eb, int32_t radius) {
-  const int64_t n = rows * cols;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const int64_t c = i % cols;
-    const uint32_t q = prequant(x[i], inv_two_eb);
-    const uint32_t left = c > 0 ? prequant(x[i - 1], inv_two_eb) : 0u;
-    const uint32_t d = q - left;
-    draw[i] = static_cast<int32_t>(d);
-    codes[i] = code_of(d, radius);
+// Encodes.  A warp works on a span of one row: K chunks of W elements per
+// lane, chunk k of lane l at span elements (32 k + l) W .. (32 k + l) W + W - 1,
+// so each of the warp's loads and stores covers 32 W contiguous elements:
+// 512 bytes with W = 4 (float4 in, int4 out), 128 with W = 1.  W = 4 needs
+// every span to start 16-byte aligned; W = 1 takes any address.
+constexpr int kEncWarps = 4;        // warps per block, both encodes
+constexpr int kEnc2dCols = 32 * 4;  // encode_2d: columns per warp
+constexpr int kEnc2dMaxStrip = 8;   // encode_2d: most rows a warp walks
+
+// encode_1d's elements per warp: 8 a lane (two float4) with 16-byte
+// accesses, 4 with 4-byte ones, where more, shorter warps ran faster on
+// short rows.
+__host__ __device__ constexpr int enc1d_span(bool vec) { return vec ? 256 : 128; }
+
+// This lane's chunk at span offset j, zeros at and past n.
+template <int W>
+__device__ __forceinline__ void enc_load(const float* __restrict__ p, int j, int n, float (&v)[W]) {
+  if constexpr (W == 4) {
+    if (j + 4 <= n) {
+      const float4 f = *reinterpret_cast<const float4*>(p + j);
+      v[0] = f.x;
+      v[1] = f.y;
+      v[2] = f.z;
+      v[3] = f.w;
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < W; ++e) v[e] = j + e < n ? p[j + e] : 0.0f;
+}
+
+template <int W>
+__device__ __forceinline__ void enc_store(int32_t* __restrict__ p, int j, int n, const uint32_t (&v)[W]) {
+  if constexpr (W == 4) {
+    if (j + 4 <= n) {
+      *reinterpret_cast<int4*>(p + j) = make_int4(static_cast<int32_t>(v[0]), static_cast<int32_t>(v[1]),
+                                                  static_cast<int32_t>(v[2]), static_cast<int32_t>(v[3]));
+      return;
+    }
+  }
+#pragma unroll
+  for (int e = 0; e < W; ++e) {
+    if (j + e < n) p[j + e] = static_cast<int32_t>(v[e]);
   }
 }
 
-__global__ void encode_2d_kernel(const float* __restrict__ x,
-                                 int32_t* __restrict__ codes,
-                                 int32_t* __restrict__ draw, int64_t rows,
-                                 int64_t cols, float inv_two_eb, int32_t radius) {
-  const int64_t n = rows * cols;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const int64_t r = i / cols;
-    const int64_t c = i - r * cols;
-    const uint32_t q = prequant(x[i], inv_two_eb);
-    const uint32_t left = c > 0 ? prequant(x[i - 1], inv_two_eb) : 0u;
-    const uint32_t up = r > 0 ? prequant(x[i - cols], inv_two_eb) : 0u;
-    const uint32_t upleft =
-        (r > 0 && c > 0) ? prequant(x[i - cols - 1], inv_two_eb) : 0u;
-    // (q - up) - (left - upleft): the column difference of the row difference
-    const uint32_t d = (q - up) - (left - upleft);
-    draw[i] = static_cast<int32_t>(d);
-    codes[i] = code_of(d, radius);
+// d = v minus the value left of it along the span, in the chunk layout.
+// `before` is the value left of the span's first element (read on lane 0).
+// The left neighbour of a chunk's first element is lane l - 1's last of the
+// same chunk, or for lane 0 lane 31's last of the chunk before.
+template <int K, int W>
+__device__ __forceinline__ void span_left_diff(const uint32_t (&v)[K][W], uint32_t before,
+                                               uint32_t (&d)[K][W]) {
+  const bool lane0 = (threadIdx.x & 31) == 0;
+  uint32_t wrap = before;  // lane 0's left neighbour
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const uint32_t from_lane = __shfl_up_sync(0xffffffffu, v[k][W - 1], 1);
+    d[k][0] = v[k][0] - (lane0 ? wrap : from_lane);
+#pragma unroll
+    for (int e = 1; e < W; ++e) d[k][e] = v[k][e] - v[k][e - 1];
+    if (k + 1 < K) wrap = __shfl_sync(0xffffffffu, v[k][W - 1], 31);
+  }
+}
+
+// Raw diffs and their codes, the span's first n elements.
+template <int K, int W>
+__device__ __forceinline__ void span_store(int32_t* __restrict__ codes, int32_t* __restrict__ draw, int n,
+                                           const uint32_t (&d)[K][W], int32_t radius) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    uint32_t c[W];
+#pragma unroll
+    for (int e = 0; e < W; ++e) c[e] = static_cast<uint32_t>(code_of(d[k][e], radius));
+    enc_store<W>(draw, (32 * k + lane) * W, n, d[k]);
+    enc_store<W>(codes, (32 * k + lane) * W, n, c);
+  }
+}
+
+// encode_1d: one warp per span of enc1d_span elements of one row, found by
+// one division per warp.  Each element is loaded and prequantized once; lane
+// 0 also reads the one element left of the span.
+template <bool kVec>
+__global__ void __launch_bounds__(32 * kEncWarps)
+encode_1d_kernel(const float* __restrict__ x, int32_t* __restrict__ codes, int32_t* __restrict__ draw,
+                 int64_t cols, int64_t spans_per_row, int64_t spans, float inv_two_eb, int32_t radius) {
+  constexpr int kSpan = enc1d_span(kVec), W = kVec ? 4 : 1, K = kSpan / 32 / W;
+  const int lane = threadIdx.x & 31;
+  const int64_t span = static_cast<int64_t>(blockIdx.x) * kEncWarps + (threadIdx.x >> 5);
+  if (span >= spans) return;  // the whole warp
+  const int64_t row = span / spans_per_row;
+  const int64_t c0 = (span - row * spans_per_row) * kSpan;
+  const int64_t base = row * cols + c0;
+  const int n = static_cast<int>(imin(kSpan, cols - c0));
+  float xv[K][W];
+#pragma unroll
+  for (int k = 0; k < K; ++k) enc_load<W>(x + base, (32 * k + lane) * W, n, xv[k]);
+  const float xb = (lane == 0 && c0 > 0) ? x[base - 1] : 0.0f;
+  uint32_t q[K][W], d[K][W];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int e = 0; e < W; ++e) q[k][e] = prequant(xv[k][e], inv_two_eb);
+  }
+  span_left_diff(q, prequant(xb, inv_two_eb), d);
+  span_store(codes + base, draw + base, n, d, radius);
+}
+
+// encode_2d, d = (q - up) - (left - upleft) = rd(c) - rd(c - 1) with
+// rd = q - up: one warp per strip of H rows by kEnc2dCols columns, found by
+// one division per warp.  The warp loads its strip, the row above it and
+// (lane 0) the column left of it at once, then walks down the strip keeping
+// the previous row's q in registers (the TPU kernel's VMEM row carry).
+// Along a row, rd(c - 1) comes by span_left_diff; lane 0 carries the left
+// column's q down the strip as well.
+template <bool kVec, int H>
+__global__ void __launch_bounds__(32 * kEncWarps)
+encode_2d_kernel(const float* __restrict__ x, int32_t* __restrict__ codes, int32_t* __restrict__ draw,
+                 int64_t rows, int64_t cols, int64_t segs, int64_t units, float inv_two_eb, int32_t radius) {
+  constexpr int W = kVec ? 4 : 1, K = 4 / W;
+  const int lane = threadIdx.x & 31;
+  const int64_t unit = static_cast<int64_t>(blockIdx.x) * kEncWarps + (threadIdx.x >> 5);
+  if (unit >= units) return;  // the whole warp
+  const int64_t strip = unit / segs;
+  const int64_t r0 = strip * H, c0 = (unit - strip * segs) * kEnc2dCols;
+  const int64_t base = r0 * cols + c0;
+  const int n = static_cast<int>(imin(kEnc2dCols, cols - c0));
+  const int h = static_cast<int>(imin(H, rows - r0));
+  float xv[H][K][W], xa[K][W], xl[H + 1];
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) enc_load<W>(x + base + i * cols, (32 * k + lane) * W, i < h ? n : 0, xv[i][k]);
+  }
+#pragma unroll
+  for (int k = 0; k < K; ++k) enc_load<W>(x + (r0 > 0 ? base - cols : base), (32 * k + lane) * W, r0 > 0 ? n : 0, xa[k]);
+  // xl[i]: column c0 - 1 of row r0 - 1 + i
+#pragma unroll
+  for (int i = 0; i <= H; ++i) {
+    xl[i] = (lane == 0 && c0 > 0 && r0 + i > 0 && i <= h) ? x[base + (i - 1) * cols - 1] : 0.0f;
+  }
+  uint32_t up[K][W];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int e = 0; e < W; ++e) up[k][e] = prequant(xa[k][e], inv_two_eb);
+  }
+  uint32_t up_left = prequant(xl[0], inv_two_eb);
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    if (i >= h) break;  // the whole warp
+    uint32_t q[K][W], rd[K][W], d[K][W];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) {
+        q[k][e] = prequant(xv[i][k][e], inv_two_eb);
+        rd[k][e] = q[k][e] - up[k][e];
+      }
+    }
+    const uint32_t q_left = prequant(xl[i + 1], inv_two_eb);
+    span_left_diff(rd, q_left - up_left, d);
+    span_store(codes + base + i * cols, draw + base + i * cols, n, d, radius);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int e = 0; e < W; ++e) up[k][e] = q[k][e];
+    }
+    up_left = q_left;
   }
 }
 
@@ -621,8 +769,40 @@ int64_t ceil_div(int64_t a, int64_t b) { return (a + b - 1) / b; }
 // Words per interleaved run of decode_1d's status array (status_slot).
 int64_t status_stride(int64_t n_tiles) { return ceil_div(ceil_div(n_tiles, 32), 16) * 16; }
 
-unsigned grid_stride_blocks(int64_t n) {
-  return static_cast<unsigned>(imin(ceil_div(n, kThreads), kMaxGrid));
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// Rows per encode_2d strip: the longest strip, at most kEnc2dMaxStrip, that
+// still gives each SM 8 warps.  Longer strips re-read fewer rows above
+// (1/H of x); a short chunk takes short strips, so that it spreads over
+// the card rather than running as a few long ones.
+int enc2d_strip_rows(int64_t rows, int64_t segs) {
+  int dev = 0, sms = 132;  // a failed query is returned by cudaGetLastError
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  int h = kEnc2dMaxStrip;
+  while (h > 1 && ceil_div(rows, h) * segs < 8 * static_cast<int64_t>(sms)) h /= 2;
+  return h;
+}
+
+template <bool kVec>
+void enc2d_launch(int h, const float* x, int32_t* codes, int32_t* draw, int64_t rows, int64_t cols,
+                  int64_t segs, float inv_two_eb, int32_t radius, cudaStream_t s) {
+  const int64_t units = ceil_div(rows, h) * segs;
+  const unsigned blocks = static_cast<unsigned>(ceil_div(units, kEncWarps));
+  constexpr int threads = 32 * kEncWarps;
+  switch (h) {
+    case 8:
+      encode_2d_kernel<kVec, 8><<<blocks, threads, 0, s>>>(x, codes, draw, rows, cols, segs, units, inv_two_eb, radius);
+      break;
+    case 4:
+      encode_2d_kernel<kVec, 4><<<blocks, threads, 0, s>>>(x, codes, draw, rows, cols, segs, units, inv_two_eb, radius);
+      break;
+    case 2:
+      encode_2d_kernel<kVec, 2><<<blocks, threads, 0, s>>>(x, codes, draw, rows, cols, segs, units, inv_two_eb, radius);
+      break;
+    default:
+      encode_2d_kernel<kVec, 1><<<blocks, threads, 0, s>>>(x, codes, draw, rows, cols, segs, units, inv_two_eb, radius);
+  }
 }
 
 // decode_2d's launches for rows, cols > 1: sums, then carries unless
@@ -670,24 +850,48 @@ int64_t lorenzo_decode_scratch_words(int64_t rows, int64_t cols, int two_d) {
   return rows * tiles_c + cols * tiles_r + tiles_r * tiles_c;
 }
 
+// The encodes take float4 loads and int4 stores where every span starts
+// 16-byte aligned (x, codes and draw aligned, and rows == 1 or cols % 4 ==
+// 0), else 4-byte ones in the same kernel.  The grids need rows *
+// ceil(cols / 256 or 128) / 4 (1d) and ceil(rows / H) * ceil(cols / 128) / 4
+// (2d) blocks, below 2^31.
 int lorenzo_encode_1d(const float* x, int32_t* codes, int32_t* draw, int64_t rows,
                       int64_t cols, float inv_two_eb, int radius, void* stream) {
-  const int64_t n = rows * cols;
-  if (n > 0) {
-    encode_1d_kernel<<<grid_stride_blocks(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(x, codes, draw, rows, cols,
-                                                             inv_two_eb, radius);
+  if (rows * cols > 0) {
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    const bool vec = (rows == 1 || cols % 4 == 0) && aligned16(x) && aligned16(codes) && aligned16(draw);
+    const int64_t spans_per_row = ceil_div(cols, enc1d_span(vec)), spans = rows * spans_per_row;
+    const int64_t blocks = ceil_div(spans, kEncWarps);
+    if (blocks >= (int64_t{1} << 31)) return static_cast<int>(cudaErrorInvalidConfiguration);
+    if (vec) {
+      encode_1d_kernel<true><<<static_cast<unsigned>(blocks), 32 * kEncWarps, 0, s>>>(
+          x, codes, draw, cols, spans_per_row, spans, inv_two_eb, radius);
+    } else {
+      encode_1d_kernel<false><<<static_cast<unsigned>(blocks), 32 * kEncWarps, 0, s>>>(
+          x, codes, draw, cols, spans_per_row, spans, inv_two_eb, radius);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
 
 int lorenzo_encode_2d(const float* x, int32_t* codes, int32_t* draw, int64_t rows,
                       int64_t cols, float inv_two_eb, int radius, void* stream) {
-  const int64_t n = rows * cols;
-  if (n > 0) {
-    encode_2d_kernel<<<grid_stride_blocks(n), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(x, codes, draw, rows, cols,
-                                                             inv_two_eb, radius);
+  if (rows * cols > 0 && (rows == 1 || cols == 1)) {
+    // one row or column: the difference along the other axis is with zeros
+    return lorenzo_encode_1d(x, codes, draw, 1, rows * cols, inv_two_eb, radius, stream);
+  }
+  if (rows * cols > 0) {
+    const int64_t segs = ceil_div(cols, kEnc2dCols);
+    const int h = enc2d_strip_rows(rows, segs);
+    if (ceil_div(ceil_div(rows, h) * segs, kEncWarps) >= (int64_t{1} << 31)) {
+      return static_cast<int>(cudaErrorInvalidConfiguration);
+    }
+    cudaStream_t s = static_cast<cudaStream_t>(stream);
+    if (cols % 4 == 0 && aligned16(x) && aligned16(codes) && aligned16(draw)) {
+      enc2d_launch<true>(h, x, codes, draw, rows, cols, segs, inv_two_eb, radius, s);
+    } else {
+      enc2d_launch<false>(h, x, codes, draw, rows, cols, segs, inv_two_eb, radius, s);
+    }
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -719,7 +923,7 @@ int lorenzo_decode_1d(const int32_t* d, float* out, uint32_t* scratch, int64_t r
 
 int lorenzo_decode_2d(const int32_t* d, float* out, uint32_t* scratch, int64_t rows,
                       int64_t cols, float two_eb, void* stream) {
-  const bool vec = reinterpret_cast<uintptr_t>(d) % 16 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const bool vec = aligned16(d) && aligned16(out);
   if (rows * cols > 0 && (rows == 1 || cols == 1)) {
     // a single row or column: the scan along the other axis is the identity
     return lorenzo_decode_1d(d, out, scratch, 1, rows * cols, two_eb, vec, stream);

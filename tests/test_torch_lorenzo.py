@@ -19,6 +19,10 @@ from repro_torch.kernels.lorenzo import ops as tops
 from repro_torch.kernels.lorenzo import ref as tref
 
 SHAPES = [(100, 300), (256, 512), (7, 50), (1, 1000), (513, 129), (8, 128)]
+#: the encodes' edge shapes: widths under 4 (4-byte accesses), a row one
+#: past a warp's span (256 elements in 1d, 128 columns in 2d), rows that end
+#: inside a strip, and a single row in 2d mode
+EDGE_SHAPES = [(40, 1), (40, 3), (3, 257), (2, 4097), (17, 132), (33, 129), (1, 4099)]
 RADIUS = 32768
 
 
@@ -37,7 +41,7 @@ def _jax_oracle(x, eb, mode):
     return np.asarray(codes), np.asarray(d), np.asarray(dec(d, eb))
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 @pytest.mark.parametrize("mode", ["1d", "2d"])
 @pytest.mark.parametrize("eb", [1e-1, 1e-3])
 def test_plain_versions_equal_jax_oracle(shape, mode, eb):
@@ -49,7 +53,7 @@ def test_plain_versions_equal_jax_oracle(shape, mode, eb):
     np.testing.assert_array_equal(tops.ref_decode(d_t, eb, mode=mode).numpy(), xh_j)
 
 
-@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES)
 @pytest.mark.parametrize("mode", ["1d", "2d"])
 @pytest.mark.parametrize("eb", [1e-1, 1e-3])
 def test_cpu_wrappers_equal_pallas_interpret(shape, mode, eb):
@@ -68,6 +72,36 @@ def test_cpu_wrappers_equal_pallas_interpret(shape, mode, eb):
     np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_k))
     np.testing.assert_array_equal(d_t.numpy(), np.asarray(d_k))
     np.testing.assert_array_equal(xh_t.numpy(), np.asarray(xh_k))
+
+
+def _tie_field(shape, eb, seed=3):
+    """Values whose x * f32(1/(2eb)) is exactly k + 1/2 (rint rounds them to
+    even), a run of magnitudes just under PIPELINE_SAFE * 2eb, and +-2^30 / inv
+    neighbours whose difference is INT32_MIN (|INT32_MIN| == INT32_MIN)."""
+    inv = 1.0 / (2.0 * eb)  # a power of two for the ebs used: every product is exact
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-1000, 1000, shape) + 0.5
+    s = tops.PIPELINE_SAFE
+    q[0, :12] = [s - 0.5, -(s - 0.5), s - 1.5, 2.0**30, -(2.0**30), 2.0**30, -(2.0**30), 0, 2.5, -2.5, 3.5, -3.5]
+    x = (q / inv).astype(np.float32)
+    x[-1, -12:] = np.nextafter(np.float32(s / inv), np.float32(0)) * np.sign(rng.normal(size=12))
+    return x
+
+
+@pytest.mark.parametrize("mode", ["1d", "2d"])
+@pytest.mark.parametrize("eb", [0.5, 2.0**-11])
+def test_plain_encodes_round_ties_and_large_magnitudes_as_jax(mode, eb):
+    """Ties go to even, magnitudes just under PIPELINE_SAFE * 2eb stay
+    exact, and INT32_MIN diffs code as the JAX oracle codes them."""
+    x = _tie_field((9, 261), eb)
+    q = np.abs(x.astype(np.float64) * (1.0 / (2.0 * eb)))
+    assert np.any(q % 1 == 0.5) and np.any((q > tops.PIPELINE_SAFE - 1) & (q < tops.PIPELINE_SAFE))
+    c_j, d_j, _ = _jax_oracle(x, eb, mode)
+    c_t, d_t = tops.ref_encode(x, eb, RADIUS, mode=mode)
+    np.testing.assert_array_equal(c_t.numpy(), c_j)
+    np.testing.assert_array_equal(d_t.numpy(), d_j)
+    if mode == "1d":
+        assert np.iinfo(np.int32).min in d_j  # 2^30 - (-2^30) wraps
 
 
 @pytest.mark.parametrize("n", [4096, 5000])
@@ -132,13 +166,19 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", SHAPES + [(1800, 3600), (1801, 3599), (1, (1 << 20) + 3)])
+@pytest.mark.parametrize("shape", SHAPES + EDGE_SHAPES + [(1800, 3600), (1801, 3599), (1, (1 << 20) + 3),
+                                                        (291, 3600), (54, 3600), (1, 1 << 20), (5000, 1),
+                                                        (5000, 3), (2, 4099), (65, 129)])
 @pytest.mark.parametrize("mode", ["1d", "2d"])
 def test_cuda_kernels_equal_plain_versions(cuda_device, shape, mode):
+    """Also the encodes at the chunked engine's chunk shapes, on widths
+    under 4, rows one past a warp's span and rows that end inside a strip."""
     x = torch.from_numpy(_field(shape, mode)).to(cuda_device)
     enc, dec = getattr(K, f"encode_{mode}"), getattr(K, f"decode_{mode}")
+    K.reset_launches()
     codes, d = enc(x, 1e-3, RADIUS)
     torch.cuda.synchronize()
+    assert K.LAUNCHES[f"encode_{mode}"] == 1
     c_r, d_r = getattr(tref, f"encode_{mode}")(x, 1e-3, RADIUS)
     assert torch.equal(codes, c_r) and torch.equal(d, d_r)
     out = dec(d, 1e-3)
@@ -218,6 +258,33 @@ def test_cuda_decode_2d_on_a_misaligned_view(cuda_device):
     d = base.reshape(-1)[1:].reshape(300, 400)  # contiguous, 4 bytes off: scalar loads
     assert d.data_ptr() % 16
     assert torch.equal(K.decode_2d(d, 1e-2), tref.decode_2d(d, 1e-2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["1d", "2d"])
+@pytest.mark.parametrize("eb", [0.5, 2.0**-11])
+def test_cuda_encodes_round_ties_as_plain(cuda_device, mode, eb):
+    x = torch.from_numpy(_tie_field((9, 261), eb)).to(cuda_device)
+    for radius in (RADIUS, 2**31 - 1):
+        got = getattr(K, f"encode_{mode}")(x, eb, radius)
+        torch.cuda.synchronize()
+        want = getattr(tref, f"encode_{mode}")(x, eb, radius)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["1d", "2d"])
+@pytest.mark.parametrize("shape", [(300, 400), (1, 40000), (33, 129)])
+def test_cuda_encodes_on_a_misaligned_view(cuda_device, mode, shape):
+    """A contiguous view 4 bytes past an aligned base: the 4-byte variant."""
+    n = shape[0] * shape[1]
+    base = torch.from_numpy(_field((1, n + 1), mode)).to(cuda_device)
+    x = base.reshape(-1)[1:].reshape(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    got = getattr(K, f"encode_{mode}")(x, 1e-3, RADIUS)
+    torch.cuda.synchronize()
+    want = getattr(tref, f"encode_{mode}")(x, 1e-3, RADIUS)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.cuda

@@ -4,7 +4,10 @@ The paper's five-module abstraction (preprocessor -> predictor -> quantizer ->
 encoder -> lossless) composed per §3.3.  Ported so far: the v1 pipelines
 ``sz3_lorenzo``, ``sz3_lr`` and ``sz3_interp`` and the modules they are
 built from, the v2 chunked engine ``sz3_chunked``, the v3 transform coder
-``sz3_transform`` and the v6 fast tier ``sz3_fast``.
+``sz3_transform``, the v6 fast tier ``sz3_fast``, pointwise-relative bounds
+(``LogTransform``, the v4 engine ``sz3_pwr``) and the customized pipelines of
+§4 (GAMESS: ``sz3_pastri``, ``sz_pastri``, ``sz_pastri_zstd``), §5 (APS:
+``sz3_aps``) and §6.2 (``sz3_truncation``).
 """
 from . import telemetry  # noqa: I001  (stdlib-only; imported first)
 from . import encoders, lossless, metrics, predictors, preprocess, quantizers
@@ -18,19 +21,27 @@ from .integrity import (
 )
 from .pipeline import (  # noqa: I001  (chunking must import after pipeline)
     PIPELINES,
+    AdaptiveAPSCompressor,
     CompressionResult,
     SZ3Compressor,
+    TruncationCompressor,
     decompress,
     parse_header,
     resolve_device,
+    sz3_aps,
     sz3_interp,
     sz3_lorenzo,
     sz3_lr,
+    sz3_pastri,
+    sz3_truncation,
+    sz_pastri,
+    sz_pastri_zstd,
 )
 from . import chunking
 from .chunking import (
     ChunkedCompressor,
     ChunkedIndex,
+    PWRelChunkedCompressor,
     compress_stream,
     decompress_chunk,
     decompress_stream,
@@ -39,6 +50,7 @@ from .chunking import (
     read_frames,
     select_pipeline,
     sz3_chunked,
+    sz3_pwr,
     write_frames,
 )
 from . import fastmode, transform  # noqa: E402  (register their pipelines)
@@ -55,6 +67,8 @@ __all__ = [
     "ChunkDamage",
     "integrity",
     "SZ3Compressor",
+    "TruncationCompressor",
+    "AdaptiveAPSCompressor",
     "CompressionResult",
     "decompress",
     "parse_header",
@@ -63,8 +77,15 @@ __all__ = [
     "sz3_lr",
     "sz3_interp",
     "sz3_lorenzo",
+    "sz3_truncation",
+    "sz_pastri",
+    "sz_pastri_zstd",
+    "sz3_pastri",
+    "sz3_aps",
     "ChunkedCompressor",
+    "PWRelChunkedCompressor",
     "sz3_chunked",
+    "sz3_pwr",
     "compress_stream",
     "decompress_stream",
     "decompress_chunk",

@@ -28,7 +28,10 @@ device.  Decode fills an output preallocated on the device, chunk by chunk.
 
 Error-bound semantics: REL bounds are resolved to an ABS bound against the
 GLOBAL array statistics before chunking; an iterator of slabs resolves per
-slab.  PW_REL needs ``LogTransform``, which is not ported yet: it raises.
+slab.  PW_REL needs no global statistics: each chunk's winning Algorithm-1
+pipeline is composed with ``preprocess.LogTransform`` (selection scores the
+log-domain view of the sample), and the one-shot container is the v4 "pwr"
+kind (``PWRelChunkedCompressor``, ``sz3_pwr``).
 
 Parallelism: chunks are independent after the global bound is resolved, so
 select+compress and decompress fan out over a ``ThreadPoolExecutor``
@@ -62,6 +65,7 @@ import torch
 from . import _msgpack
 from . import integrity
 from . import pipeline as pl_mod
+from . import preprocess as pre_mod
 from . import telemetry as tel
 from .config import CompressionConfig, ErrorBoundMode
 from .integrity import (
@@ -91,13 +95,7 @@ SAMPLE_BUDGET = 4096
 SAMPLE_PROBES = 3
 
 #: candidates whose factory takes ``route=`` (they have kernel routes)
-_ROUTED = frozenset(("sz3_lorenzo", "sz3_transform", "sz3_fast"))
-
-_PW_REL_GAP = (
-    "sz3_chunked under PW_REL needs the LogTransform preprocessor and the "
-    "v4 'pwr' container (PWRelChunkedCompressor, sz3_pwr), which repro_torch "
-    "does not port yet; use ABS or REL bounds"
-)
+_ROUTED = frozenset(("sz3_lorenzo", "sz3_transform", "sz3_fast", "sz3_aps"))
 
 _T = TypeVar("_T")
 _R = TypeVar("_R")
@@ -409,6 +407,19 @@ class ChunkedCompressor:
         self.device = device
 
     # -- shared per-chunk path ----------------------------------------------
+    def _pwr_candidates(self) -> Tuple[str, ...]:
+        """Candidates usable under PW_REL: Algorithm-1 pipelines only (they
+        have a preprocessor slot to compose LogTransform into; whole-pipeline
+        coders like the transform family and truncation are dropped from the
+        contest).  Computed once per engine."""
+        cached = getattr(self, "_pwr_cands", None)
+        if cached is None:
+            cached = tuple(
+                n for n in self.candidates if hasattr(_make_pipeline(n, device="cpu"), "preprocessor")
+            ) or ("sz3_lorenzo",)
+            self._pwr_cands = cached
+        return cached
+
     def _chunk_pipeline(self, name: str, device: torch.device):
         kw: Dict[str, Any] = {"device": device}
         if name in _ROUTED:
@@ -423,20 +434,36 @@ class ChunkedCompressor:
         the function is pure in (chunk, eff) and parallel output is
         byte-identical to serial.  The 4th element is the selection-decision
         info, computed only while a trace records (never, until tracing is
-        ported)."""
+        ported).
+
+        PW_REL chunks compose ``preprocess.LogTransform`` into the winning
+        Algorithm-1 pipeline: selection scores the log-domain view of the
+        chunk's sample against the log-domain ABS bound, and the emitted v1
+        blob carries the chunk's sign / zero / non-finite side channels in
+        its ``pre_meta``."""
         n0 = int(chunk.shape[0] if chunk.ndim else chunk.numel())
+        pwr = eff.mode == ErrorBoundMode.PW_REL
+        cands = self._pwr_candidates() if pwr else self.candidates
         with tel.span("select"):
-            name, scores = select_pipeline(
-                chunk, abs_eb, eff, self.candidates, speed_tier=self.speed_tier
-            )
+            if pwr:
+                # log_domain_view is elementwise: this is the sample of the
+                # chunk's log view, which select_pipeline keeps whole (a
+                # sample fits the budget)
+                view = pre_mod.log_domain_view(_sample_block(chunk))
+                sel_conf = eff.replace(mode=ErrorBoundMode.ABS, eb=abs_eb)
+                name, scores = select_pipeline(view, abs_eb, sel_conf, cands, speed_tier=self.speed_tier)
+            else:
+                name, scores = select_pipeline(chunk, abs_eb, eff, cands, speed_tier=self.speed_tier)
         comp = self._chunk_pipeline(name, chunk.device)
+        if pwr:
+            comp.preprocessor = pre_mod.LogTransform()
         if not tel.enabled():
             return comp.compress(chunk, eff).blob, name, n0, None
         with tel.suppress_decisions():
             res = comp.compress(chunk, eff, with_stats=True)
         meta = res.meta or {}
         sel = tel.sel_header_entry(
-            self.candidates, scores, name,
+            cands, scores, name,
             nfail=int(meta.get("nfail", 0)),
             device="device" if meta.get("device") else "host",
         )
@@ -448,14 +475,18 @@ class ChunkedCompressor:
     ) -> Iterator[Tuple[bytes, str, int, Optional[Dict[str, Any]]]]:
         """Yield (v1 blob, pipeline name, axis-0 extent, selection info) per
         chunk, in chunk order."""
-        if conf.mode == ErrorBoundMode.PW_REL:
-            raise ValueError(_PW_REL_GAP)
         data = pl_mod._as_tensor(data, pl_mod.resolve_device(self.device))
-        rng, absmax = pl_mod._finite_stats(data)
-        abs_eb = conf.resolve_abs_eb(rng, absmax)
-        if abs_eb <= 0:
-            abs_eb = float(np.finfo(np.float64).tiny)
-        eff = conf.replace(mode=ErrorBoundMode.ABS, eb=abs_eb)
+        if conf.mode == ErrorBoundMode.PW_REL:
+            # the log-domain ABS bound depends only on eb, so chunked PW_REL
+            # output honours the bound alike for arrays and slab iterators
+            abs_eb = pre_mod.pw_rel_log_eb(conf.eb)
+            eff = conf
+        else:
+            rng, absmax = pl_mod._finite_stats(data)
+            abs_eb = conf.resolve_abs_eb(rng, absmax)
+            if abs_eb <= 0:
+                abs_eb = float(np.finfo(np.float64).tiny)
+            eff = conf.replace(mode=ErrorBoundMode.ABS, eb=abs_eb)
         flat_leading = data.reshape(-1) if data.ndim == 0 else data
         chunks = (
             flat_leading[sl]
@@ -917,6 +948,69 @@ def sz3_chunked(
     return ChunkedCompressor(candidates=candidates, chunk_bytes=chunk_bytes, workers=workers, **kw)
 
 
+# ---------------------------------------------------------------------------
+# first-class pointwise-relative pipeline (v4 container)
+# ---------------------------------------------------------------------------
+
+class PWRelChunkedCompressor(ChunkedCompressor):
+    """Pointwise-relative chunked engine: ``|x_i - x_hat_i| <= eb * |x_i|``
+    holds for every finite nonzero element, zeros reconstruct exactly, and
+    non-finite values round-trip bit-exact.
+
+    Each chunk is compressed by the winning Algorithm-1 pipeline composed
+    with ``preprocess.LogTransform`` (per-chunk sign / zero / non-finite side
+    channels travel in the chunk blob's ``pre_meta``), and the container
+    carries the v4 "pwr" tag."""
+
+    kind = "pwr"
+    container_version = _VERSION4
+
+    def __init__(
+        self,
+        candidates: Sequence[str] = DEFAULT_CANDIDATES,
+        chunk_bytes: int = 1 << 22,
+        conf: Optional[CompressionConfig] = None,
+        workers: int = 1,
+        **kw,
+    ):
+        super().__init__(
+            candidates=candidates,
+            chunk_bytes=chunk_bytes,
+            conf=conf or CompressionConfig(mode=ErrorBoundMode.PW_REL, eb=1e-3),
+            workers=workers,
+            **kw,
+        )
+
+    def compress(self, data, conf: Optional[CompressionConfig] = None, with_stats: bool = False) -> CompressionResult:
+        conf = conf or self.conf
+        if conf.mode != ErrorBoundMode.PW_REL:
+            raise ValueError(
+                "sz3_pwr compresses pointwise-relative bounds only; got mode "
+                f"{conf.mode.value!r} (use sz3_chunked for ABS/REL)"
+            )
+        return super().compress(data, conf, with_stats)
+
+
+def sz3_pwr(
+    eb: float = 1e-3,
+    candidates: Sequence[str] = DEFAULT_CANDIDATES,
+    chunk_bytes: int = 1 << 22,
+    workers: int = 1,
+    **kw,
+) -> PWRelChunkedCompressor:
+    """First-class pointwise-relative pipeline (v4 "pwr" container); ``kw``
+    goes to :class:`ChunkedCompressor` (``conf``, ``route``, ``device``,
+    ...)."""
+    return PWRelChunkedCompressor(
+        candidates=candidates,
+        chunk_bytes=chunk_bytes,
+        workers=workers,
+        conf=kw.pop("conf", None) or CompressionConfig(mode=ErrorBoundMode.PW_REL, eb=eb),
+        **kw,
+    )
+
+
 # register with the named-pipeline table (PIPELINES lives in pipeline.py;
 # chunking imports pipeline, so registration happens here to avoid a cycle)
 pl_mod.PIPELINES["sz3_chunked"] = sz3_chunked
+pl_mod.PIPELINES["sz3_pwr"] = sz3_pwr

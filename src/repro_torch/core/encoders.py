@@ -2,6 +2,12 @@
 
 Instances:
   * HuffmanEncoder      — canonical Huffman [36] over the quantization codes.
+  * FixedHuffmanEncoder — SZ-Pastri's predefined-tree variant [19]: a static
+                          two-sided-geometric code model centred on the zero
+                          bin eliminates tree construction + storage cost.
+  * BitpackEncoder      — fixed-width bit packing (fast path / small alphabets).
+  * RawEncoder          — passthrough (module bypass).
+  * LegacyHuffmanEncoder — Huffman that writes the older v1 stream layout.
 
 Entropy coding is byte-level work and stays on the host in numpy; its
 streams are byte-identical to the JAX package's.
@@ -353,6 +359,44 @@ class Encoder(abc.ABC):
     def decode(self, buf: bytes, n: int) -> np.ndarray: ...
 
 
+class RawEncoder(Encoder):
+    name = "raw"
+
+    def encode(self, codes):
+        arr = np.ascontiguousarray(codes)
+        head = np.asarray([arr.itemsize], np.int64).tobytes()
+        return head + arr.tobytes()
+
+    def decode(self, buf, n):
+        itemsize = int(np.frombuffer(buf, np.int64, count=1)[0])
+        dt = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.int64}[itemsize]
+        return np.frombuffer(buf, dt, count=n, offset=8).copy()
+
+
+class BitpackEncoder(Encoder):
+    """Fixed-width packing; width = bits needed for the max code present."""
+
+    name = "bitpack"
+
+    def encode(self, codes):
+        arr = np.ascontiguousarray(codes).astype(np.uint32).reshape(-1)
+        width = max(1, int(arr.max()).bit_length()) if arr.size else 1
+        shifts = np.arange(width - 1, -1, -1, dtype=np.uint32)
+        bits = ((arr[:, None] >> shifts[None, :]) & 1).astype(np.uint8)
+        payload = np.packbits(bits.reshape(-1)).tobytes()
+        head = np.asarray([arr.size, width], np.int64).tobytes()
+        return head + payload
+
+    def decode(self, buf, n):
+        head = np.frombuffer(buf, np.int64, count=2)
+        count, width = int(head[0]), int(head[1])
+        nbits = count * width
+        raw = np.frombuffer(buf, np.uint8, count=(nbits + 7) // 8, offset=16)
+        bits = np.unpackbits(raw, count=nbits).reshape(count, width)
+        shifts = np.arange(width - 1, -1, -1, dtype=np.uint32)
+        return (bits.astype(np.uint32) << shifts[None, :]).sum(axis=1)
+
+
 def _alphabet_of(arr: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """(distinct values, frequencies, rank indices) of an int array.
 
@@ -414,9 +458,95 @@ class HuffmanEncoder(Encoder):
         return vals[idx]
 
 
+class LegacyHuffmanEncoder(HuffmanEncoder):
+    """The v1-stream Huffman: writes the older layout (int64 head and sync
+    offsets), which every decoder still reads.  ``name`` stays "huffman";
+    blobs are interchangeable with :class:`HuffmanEncoder`."""
+
+    def __init__(self):
+        super().__init__(stream_version=1)
+
+
+class FixedHuffmanEncoder(Encoder):
+    """Predefined tree (SZ-Pastri [19]): no build or storage cost.
+
+    Model: two-sided geometric over the distance from the zero bin (symbol
+    ``radius``), with code 0 (unpredictable) and far tails folded into an
+    escape class that is followed by a raw int64 value.  Built tables are
+    cached per (radius, decay, span) under a lock: chunk workers share them.
+    """
+
+    name = "fixed_huffman"
+    _cache: Dict[Tuple[int, float, int], Tuple[_HuffTable, np.ndarray]] = {}
+    _lock = threading.Lock()
+
+    def __init__(self, radius: int = 32768, decay: float = 0.7, span: int = 256, stream_version: int = 2):
+        self.radius = radius
+        self.decay = decay
+        self.span = span  # symbols within [radius-span, radius+span] get codes
+        self.stream_version = int(stream_version)
+
+    def _table(self) -> Tuple[_HuffTable, np.ndarray]:
+        key = (self.radius, self.decay, self.span)
+        with FixedHuffmanEncoder._lock:
+            hit = FixedHuffmanEncoder._cache.get(key)
+        if hit is not None:
+            return hit
+        # alphabet: 0 (unpred), [radius-span, radius+span], escape symbol
+        core = np.arange(self.radius - self.span, self.radius + self.span + 1)
+        symbols = np.concatenate([[0], core, [-1]])  # -1 = escape
+        dist = np.abs(core - self.radius).astype(np.float64)
+        w = np.power(self.decay, np.minimum(dist, 96.0))  # clamp underflow
+        freqs = np.concatenate([[w.sum() * 0.01], w, [w.sum() * 0.001]])
+        scaled = np.maximum(1, (freqs / freqs.max() * (1 << 30)).astype(np.int64))
+        lens, present = _huffman_code_lengths(scaled)
+        built = (_HuffTable(np.arange(symbols.size, dtype=np.int64), lens), symbols)
+        with FixedHuffmanEncoder._lock:
+            # concurrent misses build the same table; the first one stays
+            return FixedHuffmanEncoder._cache.setdefault(key, built)
+
+    def encode(self, codes):
+        table, symbols = self._table()
+        arr = np.ascontiguousarray(codes).reshape(-1).astype(np.int64)
+        lo, hi = self.radius - self.span, self.radius + self.span
+        in_core = (arr >= lo) & (arr <= hi)
+        is_zero = arr == 0
+        escape = ~(in_core | is_zero)
+        # map to alphabet indices: 0->0, core->1.., escape->last
+        idx = np.where(is_zero, 0, np.where(in_core, arr - lo + 1, symbols.size - 1))
+        stream = _encode_stream(idx.astype(np.int64), table, self.stream_version)
+        esc_vals = arr[escape].astype(np.int64)
+        head = np.asarray([self.radius, self.span, int(esc_vals.size)], np.int64).tobytes()
+        head += np.asarray([self.decay], np.float64).tobytes()
+        return head + esc_vals.tobytes() + stream
+
+    def decode(self, buf, n):
+        head = np.frombuffer(buf, np.int64, count=3)
+        radius, span, n_esc = int(head[0]), int(head[1]), int(head[2])
+        decay = float(np.frombuffer(buf, np.float64, count=1, offset=24)[0])
+        pos = 32
+        esc_vals = np.frombuffer(buf, np.int64, count=n_esc, offset=pos)
+        pos += n_esc * 8
+        table, symbols = FixedHuffmanEncoder(radius=radius, span=span, decay=decay)._table()
+        idx, _ = _decode_stream(buf, pos, table)
+        if idx.size != n:
+            raise ValueError("fixed huffman stream length mismatch")
+        lo = radius - span
+        out = np.where(idx == 0, 0, idx - 1 + lo)
+        out[idx == symbols.size - 1] = esc_vals
+        return out
+
+
 _REGISTRY = {
+    "raw": RawEncoder,
+    "bitpack": BitpackEncoder,
     "huffman": HuffmanEncoder,
+    "fixed_huffman": FixedHuffmanEncoder,
 }
+
+
+def register(name: str, cls) -> None:
+    _REGISTRY[name] = cls
 
 
 def make(name: str, **kw) -> Encoder:

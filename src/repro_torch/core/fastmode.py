@@ -42,9 +42,10 @@ Block statistics (mean + max deviation) come from one of two routes:
 elements, ``"force"`` always (the plain version runs on CPU tensors),
 ``"off"`` never.
 
-Error modes: ABS, REL, ABS_AND_REL, ABS_OR_REL.  PW_REL needs the
-``LogTransform`` preprocessor, which this package does not have yet, so it
-raises.  Container: v6, kind "fast".
+Error modes: every mode; PW_REL composes ``preprocess.LogTransform`` when
+the preprocessor is ``Identity`` (side channels in ``pre_meta``), and the
+float64 log field's blocks reach the kernel route cast to float32, as in the
+JAX package.  Container: v6, kind "fast".
 """
 from __future__ import annotations
 
@@ -77,12 +78,6 @@ _Q_CLIP = 1 << 30
 _KERNEL_MIN_SIZE = 1 << 16
 
 _ROUTES = ("auto", "force", "off")
-
-_PW_REL_GAP = (
-    "sz3_fast under PW_REL needs the LogTransform preprocessor, which "
-    "repro_torch does not have yet"
-)
-
 
 # ---------------------------------------------------------------------------
 # fixed-width planar bit packing (the truncated-bitplane storage, host)
@@ -233,10 +228,12 @@ class FastModeCompressor:
     def compress(self, data, conf: Optional[CompressionConfig] = None, with_stats: bool = False) -> CompressionResult:
         """Compress a numpy array or torch tensor on this compressor's device."""
         conf = conf or self.conf
-        if conf.mode == ErrorBoundMode.PW_REL:
-            raise ValueError(_PW_REL_GAP)
         data = pl_mod._as_tensor(data, pl_mod.resolve_device(self.device))
         pre = self.preprocessor
+        if conf.mode == ErrorBoundMode.PW_REL and isinstance(pre, pre_mod.Identity):
+            # PW_REL-native: compose the log-domain conversion so the
+            # pointwise bound holds by construction
+            pre = pre_mod.LogTransform()
         pdata, conf2, pre_meta = pre.forward(data, conf)
         rng, absmax = pl_mod._finite_stats(pdata)
         abs_eb = conf2.resolve_abs_eb(rng, absmax)
@@ -404,8 +401,6 @@ class FastModeCompressor:
         blob: bytes, header: Dict[str, Any], body_off: int, device: torch.device
     ) -> torch.Tensor:
         spec = header["spec"]
-        if spec["preprocessor"] == "log":
-            raise ContainerError(_PW_REL_GAP)
         pdtype = pl_mod._torch_dtype(header["pdtype"], "pdtype")
         np_pdtype = np.dtype(header["pdtype"])
         bs = guard_count(spec["bs"], 1 << 20, "fast block size")

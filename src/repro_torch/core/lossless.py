@@ -202,7 +202,19 @@ _REGISTRY: Dict[str, Type[LosslessBackend]] = {
 }
 
 
+def register(name: str, cls: Type[LosslessBackend]) -> None:
+    """Extension point: integrate a new lossless routine (paper §3.2)."""
+    _REGISTRY[name] = cls
+
+
 def make(name: str, **kw) -> LosslessBackend:
     if name not in _REGISTRY:
         raise KeyError(f"unknown lossless backend {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kw)
+
+
+def effective_backend(name: str = "zstd") -> str:
+    """The backend ``make(name)`` will ACTUALLY bind in this process:
+    ``"gzip"`` for ``"zstd"`` where ``zstandard`` is missing, so a ratio or
+    a throughput can be attributed to the codec that really ran."""
+    return "gzip" if (name == "zstd" and not _HAVE_ZSTD) else name

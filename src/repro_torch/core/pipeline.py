@@ -18,11 +18,22 @@ Named factory pipelines ported so far:
                     + zstd (= SZ2 [8])
   sz3_interp      — interpolation + linear quant + Huffman + zstd ([17])
   sz3_lorenzo     — pure dual-quant Lorenzo + linear quant + Huffman + zstd
+  sz3_truncation  — byte truncation, all other stages bypassed
+  sz3_pastri      — pattern + UNPRED-AWARE quant + Huffman + zstd     (paper §4)
+  sz_pastri       — pattern + linear quant + fixed Huffman, no lossless
+                    stage                                            (baseline [19])
+  sz_pastri_zstd  — sz_pastri + zstd                     (paper Table 1)
+  sz3_aps         — error-bound-adaptive APS pipeline                 (paper §5)
   sz3_chunked     — chunked engine, per-chunk pipeline selection (v2,
                     chunking.py)
   sz3_transform   — blockwise 4-point DCT + bitplane coding (v3, transform.py)
   sz3_fast        — SZx-style fixed-length blocks, no entropy stage (v6,
                     fastmode.py)
+  sz3_pwr         — pointwise-relative engine: log-composed chunk
+                    pipelines, v4 container (chunking.py)
+
+Pointwise-relative bounds (PW_REL) run through ``preprocess.LogTransform``
+in the preprocessor slot, which hands the predictor a float64 log field.
 """
 from __future__ import annotations
 
@@ -305,11 +316,12 @@ def decompress(
     and runs it on ``device`` (default ``"cuda"``).  Returns a tensor on that
     device.
 
-    Reads v1 single-pipeline containers whose modules are ported, v2
-    multi-chunk, v3 transform and v6 fast-tier containers; every other
+    Reads v1 single-pipeline containers whose modules are ported (the
+    truncation coder's too), v2 multi-chunk, v3 transform, v4
+    pointwise-relative multi-chunk and v6 fast-tier containers; every other
     container kind raises :class:`ContainerError` naming it.  ``workers``
-    decodes the chunks of a v2 container on that many threads (ignored for
-    single-pipeline blobs).
+    decodes the chunks of a v2/v4 container on that many threads (ignored
+    for single-pipeline blobs).
 
     ``verify`` is the integrity policy (see :mod:`.integrity`):
 
@@ -348,13 +360,8 @@ def decompress(
 
 
 def _is_multichunk(header: Dict[str, Any]) -> bool:
-    """A v2 "chunked" container; a v4 "pwr" one raises, naming its kind."""
-    if header.get("v", _VERSION) >= 2 and header.get("kind") == "pwr":
-        raise ContainerError(
-            f"container kind 'pwr' (v{header.get('v')}) is not yet ported to "
-            "repro_torch"
-        )
-    return header.get("v", _VERSION) >= 2 and header.get("kind") == "chunked"
+    """A v2 "chunked" or v4 "pwr" multi-chunk container."""
+    return header.get("v", _VERSION) >= 2 and header.get("kind") in ("chunked", "pwr")
 
 
 def _decoder(header: Dict[str, Any]):
@@ -365,6 +372,8 @@ def _decoder(header: Dict[str, Any]):
     if not isinstance(spec, dict):
         raise ContainerError("corrupt container: spec is not a map")
     kind = spec.get("kind")
+    if kind == "truncation":
+        return TruncationCompressor._decompress_body
     if kind == "transform":  # v3 blockwise-transform containers
         from .transform import TransformCompressor  # local: avoids import cycle
 
@@ -501,6 +510,114 @@ def _decompress_salvage(
     return torch.zeros(shape, dtype=dtype, device=device), report
 
 
+class TruncationCompressor:
+    """SZ3-Truncation (paper §6.2): keep the k most-significant bytes of each
+    value, bypass every other stage; unbounded absolute error (bounded
+    relative error per exponent).  torch has no big-endian dtype, so the
+    byte slicing runs on the host in numpy, as all byte coding does.  Takes
+    float32/float64 (other dtypes become float32, as at every entry point
+    of this package)."""
+
+    kind = "truncation"
+
+    def __init__(self, keep_bytes: int = 2, lossless: str = "none", device: Device = "cuda"):
+        self.keep_bytes = keep_bytes
+        self.lossless = ll_mod.make(lossless)
+        self.device = device
+
+    def compress(self, data, conf=None, with_stats=False) -> CompressionResult:
+        host = quant_mod.to_host(_as_tensor(data, resolve_device(self.device)))
+        itemsize = host.dtype.itemsize
+        k = min(self.keep_bytes, itemsize)
+        # big-endian view so byte 0 is the most significant
+        raw = host.astype(host.dtype.newbyteorder(">")).view(np.uint8).reshape(-1, itemsize)
+        body = self.lossless.compress(np.ascontiguousarray(raw[:, :k]).tobytes())
+        header = {
+            "v": _VERSION,
+            "spec": {"kind": "truncation", "k": k, "lossless": self.lossless.name},
+            "shape": list(host.shape),
+            "dtype": host.dtype.str,
+        }
+        blob = pack_container(header, body)
+        return CompressionResult(blob=blob, ratio=host.nbytes / max(1, len(blob)))
+
+    @staticmethod
+    def _decompress_body(blob, header, body_off, device: torch.device) -> torch.Tensor:
+        spec = header["spec"]
+        _torch_dtype(header["dtype"], "dtype")  # a dtype this package's tensors take
+        dt = np.dtype(header["dtype"])
+        k = guard_count(spec["k"], dt.itemsize, "truncation keep_bytes")
+        if k < 1:
+            raise ContainerError("corrupt container: truncation keep_bytes < 1")
+        shape = guard_shape(header["shape"], dt.itemsize, "shape")
+        n = int(np.prod(shape, dtype=np.int64)) if shape else 1
+        kept = ll_mod.make(spec["lossless"]).decompress_bounded(container_body(blob, body_off), n * k)
+        if len(kept) != n * k:
+            raise ContainerError(
+                f"truncation body holds {len(kept)} bytes; header declares {n}x{k}"
+            )
+        raw = np.zeros((n, dt.itemsize), np.uint8)
+        raw[:, :k] = np.frombuffer(kept, np.uint8).reshape(n, k)
+        out = raw.reshape(-1).view(dt.newbyteorder(">")).astype(dt).reshape(shape)
+        return torch.from_numpy(out).to(device)
+
+
+class AdaptiveAPSCompressor:
+    """The APS adaptive pipeline (paper §5.2, Fig 5).
+
+    error bound >= threshold : 3-D multialgorithm (Lorenzo+regression) pipeline
+    error bound <  threshold : transpose so time is innermost, 1-D Lorenzo,
+                               unpred-aware quantizer with the restricted bin
+                               (eb clamped to 0.5 => exact for integer counts),
+                               fixed Huffman, zstd.
+
+    ``route`` goes to the low branch's ``LorenzoPredictor``: on the card the
+    flattened float32 stack takes its 1-D kernel route.
+    """
+
+    kind = "aps"
+
+    def __init__(self, threshold: float = 0.5, time_axis: int = 0, route: str = "auto", device: Device = "cuda"):
+        self.threshold = threshold
+        self.time_axis = time_axis
+        self.route = route
+        self.device = device
+
+    def _low_pipeline(self, ndim: int) -> SZ3Compressor:
+        perm = tuple(i for i in range(ndim) if i != self.time_axis) + (self.time_axis,)
+        return SZ3Compressor(
+            preprocessor=pre_mod.Transpose(perm=perm, flatten=True),
+            predictor=pred_mod.LorenzoPredictor(order=1, route=self.route),
+            quantizer=quant_mod.UnpredAwareQuantizer(),
+            encoder=enc_mod.FixedHuffmanEncoder(),
+            lossless=ll_mod.Zstd(),
+            device=self.device,
+        )
+
+    def _high_pipeline(self) -> SZ3Compressor:
+        return SZ3Compressor(
+            predictor=pred_mod.CompositePredictor(),
+            quantizer=quant_mod.LinearScaleQuantizer(),
+            encoder=enc_mod.HuffmanEncoder(),
+            lossless=ll_mod.Zstd(),
+            device=self.device,
+        )
+
+    def compress(self, data, conf: CompressionConfig = None, with_stats=False) -> CompressionResult:
+        conf = conf or CompressionConfig()
+        data = _as_tensor(data, resolve_device(self.device))
+        rng, absmax = _finite_stats(data)
+        abs_eb = conf.resolve_abs_eb(rng, absmax)
+        if abs_eb < self.threshold:
+            # restricted quantization bin: integer-valued data becomes
+            # lossless (paper: "SZ3-APS turns out to be lossless in this case")
+            is_integral = bool((torch.round(data) == data).all())
+            eff = conf.replace(mode=ErrorBoundMode.ABS, eb=0.5 if is_integral else abs_eb)
+            return self._low_pipeline(data.ndim).compress(data, eff, with_stats)
+        eff = conf.replace(mode=ErrorBoundMode.ABS, eb=abs_eb)
+        return self._high_pipeline().compress(data, eff, with_stats)
+
+
 # ---------------------------------------------------------------------------
 # named pipeline factories
 # ---------------------------------------------------------------------------
@@ -542,8 +659,59 @@ def sz3_lorenzo(order: int = 1, route: str = "auto", **kw) -> SZ3Compressor:
     )
 
 
+def sz3_truncation(keep_bytes: int = 2, **kw) -> TruncationCompressor:
+    """Byte truncation; ``kw`` goes to :class:`TruncationCompressor`
+    (``lossless``, ``device``)."""
+    return TruncationCompressor(keep_bytes=keep_bytes, **kw)
+
+
+def sz_pastri(pattern_size: int = None, **kw) -> SZ3Compressor:
+    """Baseline SZ-Pastri [19]: linear quantizer (raw unpredictables), fixed
+    Huffman, NO lossless stage; ``kw`` goes to :class:`SZ3Compressor`."""
+    return SZ3Compressor(
+        predictor=pred_mod.PatternPredictor(pattern_size=pattern_size),
+        quantizer=quant_mod.LinearScaleQuantizer(),
+        encoder=enc_mod.FixedHuffmanEncoder(),
+        lossless=ll_mod.Passthrough(),
+        **kw,
+    )
+
+
+def sz_pastri_zstd(pattern_size: int = None, **kw) -> SZ3Compressor:
+    """SZ-Pastri with zstd (paper Table 1 middle rows)."""
+    return SZ3Compressor(
+        predictor=pred_mod.PatternPredictor(pattern_size=pattern_size),
+        quantizer=quant_mod.LinearScaleQuantizer(),
+        encoder=enc_mod.FixedHuffmanEncoder(),
+        lossless=ll_mod.Zstd(),
+        **kw,
+    )
+
+
+def sz3_pastri(pattern_size: int = None, **kw) -> SZ3Compressor:
+    """SZ3-Pastri (paper §4.2): unpred-aware quantizer + lossless stage."""
+    return SZ3Compressor(
+        predictor=pred_mod.PatternPredictor(pattern_size=pattern_size),
+        quantizer=quant_mod.UnpredAwareQuantizer(),
+        encoder=enc_mod.HuffmanEncoder(),
+        lossless=ll_mod.Zstd(),
+        **kw,
+    )
+
+
+def sz3_aps(threshold: float = 0.5, time_axis: int = 0, route: str = "auto", **kw) -> AdaptiveAPSCompressor:
+    """The APS adaptive pipeline; ``route`` as for ``sz3_lorenzo``, ``kw``
+    goes to :class:`AdaptiveAPSCompressor` (``device``)."""
+    return AdaptiveAPSCompressor(threshold=threshold, time_axis=time_axis, route=route, **kw)
+
+
 PIPELINES = {
     "sz3_lr": sz3_lr,
     "sz3_interp": sz3_interp,
     "sz3_lorenzo": sz3_lorenzo,
+    "sz3_truncation": sz3_truncation,
+    "sz_pastri": sz_pastri,
+    "sz_pastri_zstd": sz_pastri_zstd,
+    "sz3_pastri": sz3_pastri,
+    "sz3_aps": sz3_aps,
 }

@@ -13,6 +13,12 @@ Instances:
                                 spline interpolation with per-level feedback.
   * CompositePredictor        — SZ2's per-block Lorenzo-vs-regression
                                 selection on strided samples.
+  * PatternPredictor          — SZ-Pastri [19]: periodic pattern + per-block
+                                scaling for GAMESS ERI data.
+  * LorenzoSequentialPredictor— the paper-faithful SZ1.4 semantics (predict
+                                from *decompressed* neighbours, in scan
+                                order), a float64 loop on the host: the
+                                fidelity oracle, not a production path.
   * ZeroPredictor             — predicts 0 (baseline / bypass).
 
 Predictors take and return torch tensors on the caller's device and drive
@@ -31,6 +37,7 @@ from __future__ import annotations
 
 import abc
 import math
+from fractions import Fraction
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -38,7 +45,7 @@ import torch
 
 from . import telemetry as tel
 from .config import CompressionConfig
-from .quantizers import QuantizerBase, check_numpy_sum_order, pairwise_rowsum, to_host, true_div
+from .quantizers import QuantizerBase, check_numpy_sum_order, pairwise_rowsum, rint_int64, to_host, true_div
 from ..kernels.lorenzo import ops as lops
 
 
@@ -125,15 +132,6 @@ def block_sums(blocks: torch.Tensor) -> torch.Tensor:
     """Per-block sums of (nb, ...) in the order ``np.sum`` over the block
     axes takes (one contiguous run per block)."""
     return pairwise_rowsum(blocks.reshape(blocks.shape[0], -1))
-
-
-def _rint_int64(v: torch.Tensor) -> torch.Tensor:
-    """``np.rint(v).astype(np.int64)``, with x86's answer for what int64
-    cannot hold (nan, inf, |v| >= 2^63): INT64_MIN.  torch's own cast is
-    undefined there and saturates on the card."""
-    ok = torch.isfinite(v) & (v.abs() < 2.0**63)
-    q = torch.round(torch.where(ok, v, 0.0)).to(torch.int64)
-    return torch.where(ok, q, torch.iinfo(torch.int64).min)
 
 
 def _plane(qhat: Sequence[torch.Tensor], cs: Sequence[torch.Tensor], nb: int) -> torch.Tensor:
@@ -530,7 +528,7 @@ class RegressionPredictor(Predictor):
         nb = blocks.shape[0]
         eb = quantizer.eb
         coef_q = [
-            _rint_int64(true_div(vals, 2.0 * _coef_eb(eb, k, b)))
+            rint_int64(true_div(vals, 2.0 * _coef_eb(eb, k, b)))
             for k, vals in enumerate(_fit_coeffs(blocks, b))
         ]
         qhat = [q.to(torch.float64) * (2.0 * _coef_eb(eb, k, b)) for k, q in enumerate(coef_q)]
@@ -739,7 +737,7 @@ class CompositePredictor(Predictor):
         # design: those blocks lose the contest or their points ride the
         # unpredictable fail path
         coef_q = [
-            _rint_int64(true_div(vals, 2.0 * _coef_eb(eb, k, b)))
+            rint_int64(true_div(vals, 2.0 * _coef_eb(eb, k, b)))
             for k, vals in enumerate(_fit_coeffs(blocks, b))
         ]
         qhat = [q.to(torch.float64) * (2.0 * _coef_eb(eb, k, b)) for k, q in enumerate(coef_q)]
@@ -821,11 +819,267 @@ class CompositePredictor(Predictor):
         return out[sl].to(dtype)
 
 
+# ---------------------------------------------------------------------------
+# Sequential Lorenzo (paper-faithful SZ1.4 semantics; a host loop)
+# ---------------------------------------------------------------------------
+
+def _rint(v: float) -> float:
+    """numpy's ``rint`` on one float64: half to even; nan/inf pass."""
+    return float(round(v)) if math.isfinite(v) else v
+
+
+def _fma(a: float, b: float, c: float) -> float:
+    """``a * b + c`` rounded once, as XLA's CPU backend contracts the JAX
+    package's ``pred + q * two_eb`` (exact rational arithmetic, one rounding
+    to float64; non-finite operands keep IEEE semantics)."""
+    if not (math.isfinite(a) and math.isfinite(b) and math.isfinite(c)):
+        return a * b + c
+    exact = Fraction(a) * Fraction(b) + Fraction(c)
+    try:
+        return float(exact)
+    except OverflowError:
+        return math.copysign(math.inf, exact)
+
+
+class LorenzoSequentialPredictor(Predictor):
+    """Predict each point from *decompressed* neighbours, in raster scan order.
+
+    The paper-faithful SZ1.4/SZ2 Lorenzo semantics: the value used for
+    prediction is the reconstruction the decompressor will have, so the
+    quantization-error feedback travels through the scan.  The JAX package
+    runs it as one float64 ``jax.lax.scan`` with a ring buffer of the
+    trailing reconstruction window; this is the same arithmetic as a
+    sequential float64 loop on the host, step for step: the inclusion-
+    exclusion neighbours are read through 0/1 validity masks that MULTIPLY
+    (so ``0 * inf`` is NaN, as there), storage-dtype casts round to nearest,
+    ``rint`` rounds half to even, and ``pred + q * 2eb`` rounds once, as the
+    fused multiply-add XLA's CPU backend makes of it.  Out-of-range
+    neighbours read as 0.  The fidelity oracle of the parallel dual-quant
+    variant; any ndim >= 1.
+    """
+
+    name = "lorenzo_seq"
+
+    def estimate_error(self, sample, abs_eb, conf):
+        return code_bits(
+            lorenzo_residuals(sample, abs_eb, 1, conf.quant_radius), abs_eb, conf.quant_radius
+        )
+
+    @staticmethod
+    def _stencil(shape: Tuple[int, ...]):
+        """Inclusion-exclusion neighbour set: (flat_offset, sign, valid_mask)."""
+        nd = len(shape)
+        strides = np.ones(nd, np.int64)
+        for k in range(nd - 2, -1, -1):
+            strides[k] = strides[k + 1] * shape[k + 1]
+        idx = np.indices(shape).reshape(nd, -1)
+        subsets = []
+        for bits in range(1, 1 << nd):
+            axes = [k for k in range(nd) if bits & (1 << k)]
+            off = int(sum(strides[k] for k in axes))
+            sign = 1.0 if (len(axes) % 2 == 1) else -1.0
+            valid = np.ones(idx.shape[1], bool)
+            for k in axes:
+                valid &= idx[k] >= 1
+            subsets.append((off, sign, valid.astype(np.float64).tolist()))
+        return subsets
+
+    @staticmethod
+    def _cast(dtype: torch.dtype):
+        if dtype == torch.float64:
+            return lambda v: v
+        return lambda v: float(np.float32(v))
+
+    def _scan(self, shape, eb, radius, dtype, stream, aligned=False):
+        """Compress (``stream`` = values) or decode (``stream`` = (codes,
+        q, escape, raw) channels) in scan order; returns the per-step
+        outputs as lists."""
+        subsets = self._stencil(tuple(shape))
+        L = max(off for off, _, _ in subsets) + 1
+        two_eb = 2.0 * eb
+        cast = self._cast(dtype)
+        buf = [0.0] * L
+        decode = isinstance(stream, tuple)
+        n = len(stream[0]) if decode else len(stream)
+        codes, recons, preds = [0] * n, [0.0] * n, [0.0] * n
+        with np.errstate(over="ignore", invalid="ignore"):
+            for i in range(n):
+                pred = 0.0
+                for off, sign, mask in subsets:
+                    pred = pred + sign * (buf[(i - off) % L] * mask[i])
+                if decode:
+                    code = stream[0][i]
+                    if code == 0:
+                        recon = stream[3][i] if stream[2][i] else cast(_fma(stream[1][i], two_eb, pred))
+                    else:
+                        recon = cast(_fma(float(code) - radius, two_eb, pred))
+                else:
+                    x = stream[i]
+                    q = _rint((x - pred) / two_eb)
+                    recon_try = cast(_fma(q, two_eb, pred))
+                    if abs(q) < radius and abs(recon_try - x) <= eb:
+                        recon, codes[i] = recon_try, int(q) + radius
+                    elif aligned:
+                        recon = x if abs(recon_try - x) > eb else recon_try
+                    else:
+                        recon = x
+                    preds[i] = pred
+                buf[i % L] = recon
+                recons[i] = recon
+        return codes, recons, preds
+
+    def compress(self, data, quantizer, conf):
+        x64 = to_host(data).astype(np.float64).reshape(-1)
+        codes, _, preds = self._scan(
+            tuple(data.shape), quantizer.eb, quantizer.radius, data.dtype,
+            x64.tolist(), aligned=quantizer.name == "unpred_aware",
+        )
+        codes = np.asarray(codes, np.int64)
+        un = codes == 0
+        if un.any():
+            quantizer.absorb_unpred(x64[un], np.asarray(preds, np.float64)[un])
+        return torch.from_numpy(codes).to(data.device), {}
+
+    def decompress(self, codes, shape, dtype, quantizer, conf, meta):
+        _check_count(codes, shape)
+        c = to_host(codes).astype(np.int64).reshape(-1)
+        n = c.size
+        un = c == 0
+        un_q = np.zeros(n, np.float64)
+        un_esc = np.zeros(n, bool)
+        un_raw = np.zeros(n, np.float64)
+        cnt = int(un.sum())
+        if cnt:
+            q, esc, raw = quantizer.emit_unpred_channels(cnt)
+            if q.size != cnt or raw.size != cnt:
+                raise ValueError("unpredictable stream exhausted — corrupt payload")
+            un_q[un], un_esc[un], un_raw[un] = q, esc, raw
+        _, recons, _ = self._scan(
+            tuple(shape), quantizer.eb, quantizer.radius, dtype,
+            (c.tolist(), un_q.tolist(), un_esc.tolist(), un_raw.tolist()),
+        )
+        out = torch.tensor(recons, dtype=torch.float64).reshape(tuple(shape))
+        return out.to(codes.device, dtype)
+
+
+# ---------------------------------------------------------------------------
+# Pattern predictor (SZ-Pastri)
+# ---------------------------------------------------------------------------
+
+class PatternPredictor(Predictor):
+    """Periodic pattern + per-block scaling (SZ-Pastri [19]).
+
+    GAMESS ERI blocks repeat a template scaled per block; the template is
+    chosen as the max-energy window, itself quantized and sent first, then a
+    per-block least-squares scale (delta-quantized), then the residual codes:
+    the three code sections are paper Fig 3's data/pattern/scale split.
+
+    The quantization runs on the data's device.  The float64 reductions
+    whose results are written into the blob are computed as numpy computes
+    them: the period's FFT and the per-block scales (a BLAS product) with
+    numpy on host copies, the block energies and the template's norm in
+    numpy's pairwise order (``pairwise_rowsum``) on the device.
+    """
+
+    name = "pattern"
+
+    def __init__(self, pattern_size: Optional[int] = None):
+        self.pattern_size = pattern_size
+
+    @staticmethod
+    def detect_period(x, lo: int = 4, hi: int = 4096) -> int:
+        """Autocorrelation peak via FFT (preprocessing step of SZ-Pastri),
+        on a host copy of at most 2^16 samples (tensor or array)."""
+        size = x.numel() if isinstance(x, torch.Tensor) else np.size(x)
+        n = min(size, 1 << 16)
+        head = x.reshape(-1)[:n]
+        v = _host64(head)
+        v = v - v.mean()
+        f = np.fft.rfft(v, n=2 * n)
+        ac = np.fft.irfft(f * np.conj(f))[: n // 2]
+        hi = min(hi, ac.size - 1)
+        if hi <= lo:
+            return max(2, min(64, size))
+        seg = ac[lo : hi + 1]
+        return int(lo + np.argmax(seg))
+
+    def compress(self, data, quantizer, conf):
+        dev = data.device
+        flat = data.reshape(-1).to(torch.float64)
+        n = flat.numel()
+        P = self.pattern_size or conf.pattern_size or self.detect_period(flat)
+        P = max(2, min(P, n))
+        nb = n // P
+        tail = n - nb * P
+        body = flat[: nb * P].reshape(nb, P)
+        check_numpy_sum_order()  # the energies and the norm are numpy's sums
+        # template: max-energy block, quantized through the shared quantizer
+        t_idx = int(torch.argmax(pairwise_rowsum(body * body))) if nb else 0
+        template = body[t_idx] if nb else flat[:P]
+        tcodes, that = quantizer.quantize(template, torch.zeros(P, dtype=torch.float64, device=dev))
+        that = that.to(torch.float64)
+        tt = float(pairwise_rowsum((that * that)[None, :])[0])
+        if tt <= 0:
+            scales = np.zeros(nb)
+        else:
+            scales = to_host(body) @ to_host(that) / tt
+        # quantize scales (delta, integer stream)
+        s_eb = quantizer.eb / (max(1.0, float(that.abs().max())))
+        sq = np.rint(scales / (2.0 * s_eb)).astype(np.int64)
+        scodes = quantizer.quantize_int_diff(torch.from_numpy(np.diff(sq, prepend=0)).to(dev))
+        shat = torch.from_numpy(sq).to(dev, torch.float64) * (2.0 * s_eb)
+        pred = shat[:, None] * that[None, :]
+        dcodes, _ = quantizer.quantize(body.reshape(-1), pred.reshape(-1))
+        parts = [tcodes, scodes.to(tcodes.dtype), dcodes]
+        if tail:
+            # tail: predict with the template prefix scaled by the last scale
+            tp = (shat[-1] if nb else 0.0) * that[:tail]
+            tl_codes, _ = quantizer.quantize(flat[nb * P :], tp)
+            parts.append(tl_codes)
+        meta = {
+            "P": int(P),
+            "nb": int(nb),
+            "tail": int(tail),
+            "s_eb": float(s_eb),
+            "sections": [int(tcodes.numel()), int(scodes.numel()), int(dcodes.numel())],
+        }
+        return torch.cat(parts), meta
+
+    def decompress(self, codes, shape, dtype, quantizer, conf, meta):
+        P, nb, tail = int(meta["P"]), int(meta["nb"]), int(meta["tail"])
+        s_eb = float(meta["s_eb"])
+        n = math.prod(shape)
+        if min(P, nb, tail) < 0 or nb * P + tail != n or codes.numel() != P + nb + nb * P + tail:
+            raise ValueError(
+                f"pattern meta (P={P}, nb={nb}, tail={tail}) and {codes.numel()} "
+                f"codes do not describe shape {tuple(shape)}"
+            )
+        dev = codes.device
+        pos = 0
+        zeros = torch.zeros(P, dtype=torch.float64, device=dev)
+        that = quantizer.recover(zeros, codes[pos : pos + P]).to(torch.float64)
+        pos += P
+        dsq = quantizer.recover_int_diff(codes[pos : pos + nb])
+        pos += nb
+        shat = torch.cumsum(dsq, 0).to(torch.float64) * (2.0 * s_eb)
+        pred = shat[:, None] * that[None, :]
+        body = quantizer.recover(pred.reshape(-1), codes[pos : pos + nb * P])
+        pos += nb * P
+        out = torch.empty(n, dtype=torch.float64, device=dev)
+        out[: nb * P] = body
+        if tail:
+            tp = (shat[-1] if nb else 0.0) * that[:tail]
+            out[nb * P :] = quantizer.recover(tp, codes[pos : pos + tail])
+        return out.reshape(shape).to(dtype)
+
+
 _REGISTRY = {
     "zero": ZeroPredictor,
     "lorenzo": LorenzoPredictor,
+    "lorenzo_seq": LorenzoSequentialPredictor,
     "regression": RegressionPredictor,
     "interp": InterpolationPredictor,
+    "pattern": PatternPredictor,
     "composite": CompositePredictor,
 }
 

@@ -25,6 +25,15 @@ import torch
 _INT64_MAX = np.iinfo(np.int64).max
 
 
+def rint_int64(v: torch.Tensor) -> torch.Tensor:
+    """``np.rint(v).astype(np.int64)``, with x86's answer for what int64
+    cannot hold (nan, inf, |v| >= 2^63): INT64_MIN.  torch's own cast is
+    undefined there and saturates on the card."""
+    ok = torch.isfinite(v) & (v.abs() < 2.0**63)
+    q = torch.round(torch.where(ok, v, 0.0)).to(torch.int64)
+    return torch.where(ok, q, torch.iinfo(torch.int64).min)
+
+
 def true_div(x: torch.Tensor, s: float) -> torch.Tensor:
     """``x / s`` as an IEEE divide on every device.
 
@@ -164,10 +173,13 @@ class QuantizerBase(abc.ABC):
         # compression-side accumulation / decompression-side cursor state
         self._unpred_int: List[np.ndarray] = []
         self._unpred_raw: List[np.ndarray] = []
+        self._escape_bits: List[np.ndarray] = []
         self._dec_int: Optional[np.ndarray] = None
         self._dec_raw: Optional[np.ndarray] = None
+        self._dec_escape: Optional[np.ndarray] = None
         self._cursor_int = 0
         self._cursor_raw = 0
+        self._cursor_esc = 0
 
     # -- lifecycle ---------------------------------------------------------
     def begin(self, abs_eb: float, dtype: torch.dtype) -> None:
@@ -176,9 +188,9 @@ class QuantizerBase(abc.ABC):
             raise ValueError(f"absolute error bound must be positive, got {abs_eb}")
         self._eb = float(abs_eb)
         self._dtype = dtype
-        self._unpred_int, self._unpred_raw = [], []
-        self._dec_int = self._dec_raw = None
-        self._cursor_int = self._cursor_raw = 0
+        self._unpred_int, self._unpred_raw, self._escape_bits = [], [], []
+        self._dec_int = self._dec_raw = self._dec_escape = None
+        self._cursor_int = self._cursor_raw = self._cursor_esc = 0
 
     @property
     def eb(self) -> float:
@@ -283,26 +295,73 @@ class QuantizerBase(abc.ABC):
         self._cursor_int += count
         return out
 
+    # -- direct registration/emission for wavefront (scan) predictors -------
+    def absorb_unpred(self, x64, p64) -> None:
+        """Register unpredictable (x, pred) pairs a sequential predictor found
+        in its scan, which applied the reconstruction policy itself; this
+        records the payload so save() emits it (in scan order)."""
+        x = torch.as_tensor(np.asarray(x64, np.float64))
+        p = torch.as_tensor(np.asarray(p64, np.float64))
+        mask = torch.ones(x.shape, dtype=torch.bool)
+        self._store_unpred_float(x, p, mask, torch.zeros(x.shape, dtype=self._dtype))
+
+    def emit_unpred_channels(self, count: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """Decompression side: the (q, escape, raw) channels of the next
+        ``count`` unpredictable points, as host arrays.  A sequential decoder
+        reconstructs ``raw`` where ``escape``, else ``pred + q * 2*eb`` (pred
+        is only known inside its scan, hence the split)."""
+        if isinstance(self, LinearScaleQuantizer):
+            raw = self._dec_raw[self._cursor_raw : self._cursor_raw + count]
+            self._cursor_raw += count
+            return np.zeros(count, np.float64), np.ones(count, bool), np.asarray(raw, np.float64)
+        esc = np.asarray(self._dec_escape[self._cursor_esc : self._cursor_esc + count], bool)
+        self._cursor_esc += count
+        n_raw = int(esc.sum())
+        q_small = self._load_unpred_int(count - n_raw)
+        raw_small = self._dec_raw[self._cursor_raw : self._cursor_raw + n_raw]
+        self._cursor_raw += n_raw
+        q = np.zeros(count, np.float64)
+        raw = np.zeros(count, np.float64)
+        q[~esc] = q_small.astype(np.float64)
+        raw[esc] = raw_small
+        return q, esc, raw
+
     # -- save/load (paper Appendix A.3) --------------------------------------
     def save(self) -> bytes:
-        """Serialize the unpredictable payload: head [int bytes, raw count,
-        escape-bit count] as int64, then the int64 diffs and the float64 raw
-        values.  The escape channel belongs to the JAX package's unpred-aware
-        quantizer; this one always writes it empty."""
+        """Serialize the unpredictable payload: head [int stream bytes, raw
+        count, escape-bit count] as int64, then the int stream (layout per
+        subclass), the float64 raw values and the packed escape bits."""
         ints = np.concatenate(self._unpred_int) if self._unpred_int else np.zeros(0, np.int64)
         raws = np.concatenate(self._unpred_raw) if self._unpred_raw else np.zeros(0, np.float64)
-        int_payload = ints.astype(np.int64).tobytes()
-        head = np.asarray([len(int_payload), raws.size, 0], np.int64).tobytes()
-        return head + int_payload + raws.astype(np.float64).tobytes()
+        escs = np.concatenate(self._escape_bits) if self._escape_bits else np.zeros(0, np.uint8)
+        int_payload = self._encode_int_stream(ints.astype(np.int64))
+        esc_payload = np.packbits(escs).tobytes() if escs.size else b""
+        head = np.asarray([len(int_payload), raws.size, escs.size], np.int64).tobytes()
+        return head + int_payload + raws.astype(np.float64).tobytes() + esc_payload
 
     def load(self, buf: bytes) -> None:
         head = np.frombuffer(buf, np.int64, count=3)
-        int_len, n_raw = int(head[0]), int(head[1])
+        int_len, n_raw, n_esc = int(head[0]), int(head[1]), int(head[2])
         pos = 24
-        self._dec_int = np.frombuffer(buf[pos : pos + int_len], np.int64).copy()
+        self._dec_int = self._decode_int_stream(buf[pos : pos + int_len])
         pos += int_len
         self._dec_raw = np.frombuffer(buf, np.float64, count=n_raw, offset=pos)
-        self._cursor_int = self._cursor_raw = 0
+        pos += n_raw * 8
+        if n_esc:
+            nb = (n_esc + 7) // 8
+            self._dec_escape = np.unpackbits(
+                np.frombuffer(buf, np.uint8, count=nb, offset=pos), count=n_esc
+            ).astype(bool)
+        else:
+            self._dec_escape = np.zeros(0, bool)
+        self._cursor_int = self._cursor_raw = self._cursor_esc = 0
+
+    # how the int64 unpredictable stream is laid out — THE subclass difference
+    def _encode_int_stream(self, ints: np.ndarray) -> bytes:
+        return ints.tobytes()
+
+    def _decode_int_stream(self, payload: bytes) -> np.ndarray:
+        return np.frombuffer(payload, np.int64).copy()
 
 
 class LinearScaleQuantizer(QuantizerBase):
@@ -328,9 +387,80 @@ class LinearScaleQuantizer(QuantizerBase):
         return recon
 
 
+class UnpredAwareQuantizer(QuantizerBase):
+    """Paper §4.2: exponent-align unpredictable prediction errors to the error
+    bound, store the resulting integers in MSB->LSB bitplane order.
+
+    Float-domain unpredictables become q = rint((x - pred)/(2*eb)) (error
+    <= eb); the rare points where a dtype cast would still break the bound
+    escape to raw storage via a 1-bit side channel.  Integer-domain
+    unpredictables (the dual-quant Lorenzo path, both routes) are
+    bitplane-coded directly.  The arithmetic runs on the tensors' device;
+    the streams are built on the host.
+    """
+
+    name = "unpred_aware"
+
+    def _store_unpred_float(self, x64, p64, mask, recon):
+        eb = self.eb
+        xm, pm = x64[mask], p64[mask]
+        scaled = true_div(xm - pm, 2.0 * eb)
+        overflow = scaled.abs() >= float(_INT64_MAX // 2)
+        # a NaN error is not escaped (NaN compares False) and is stored as
+        # x86 numpy's cast of it, INT64_MIN, on every device
+        q = rint_int64(torch.where(overflow, 0.0, scaled))
+        cand = (pm + q.to(torch.float64) * (2.0 * eb)).to(self._dtype)
+        bad = overflow | ((cand.to(torch.float64) - xm).abs() > eb)
+        # escape channel: 1 = raw IEEE value, 0 = bitplane integer
+        self._escape_bits.append(to_host(bad).astype(np.uint8))
+        self._unpred_int.append(to_host(q[~bad]))
+        if bool(bad.any()):
+            self._unpred_raw.append(to_host(xm[bad]))
+            cand = cand.clone()
+            cand[bad] = xm[bad].to(self._dtype)
+        recon = recon.clone()
+        recon[mask] = cand
+        return recon
+
+    def _load_unpred_float(self, p64, mask, recon):
+        count = int(mask.sum())
+        esc = self._dec_escape[self._cursor_esc : self._cursor_esc + count]
+        if esc.size != count:
+            raise ValueError("escape stream exhausted — corrupt payload")
+        self._cursor_esc += count
+        n_raw = int(esc.sum())
+        q = self._load_unpred_int(count - n_raw)
+        raw = self._dec_raw[self._cursor_raw : self._cursor_raw + n_raw]
+        if raw.size != n_raw:
+            raise ValueError("unpredictable stream exhausted — corrupt payload")
+        self._cursor_raw += n_raw
+        dev = p64.device
+        esc_t = torch.from_numpy(esc.copy()).to(dev)
+        preds = p64[mask]
+        vals = torch.empty(count, dtype=torch.float64, device=dev)
+        vals[~esc_t] = preds[~esc_t] + torch.from_numpy(q).to(dev, torch.float64) * (2.0 * self.eb)
+        if n_raw:
+            vals[esc_t] = torch.from_numpy(raw.copy()).to(dev)
+        recon = recon.clone()
+        recon[mask] = vals.to(self._dtype)
+        return recon
+
+    def _encode_int_stream(self, ints: np.ndarray) -> bytes:
+        return bitplane_encode(ints)
+
+    def _decode_int_stream(self, payload: bytes) -> np.ndarray:
+        vals, _ = bitplane_decode(payload)
+        return vals
+
+
 _REGISTRY = {
     "linear": LinearScaleQuantizer,
+    "unpred_aware": UnpredAwareQuantizer,
 }
+
+
+def register(name: str, cls) -> None:
+    _REGISTRY[name] = cls
 
 
 def make(name: str, **kw) -> QuantizerBase:

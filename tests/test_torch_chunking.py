@@ -13,7 +13,11 @@ the JAX package, on the CPU.
 * ``sz3_chunked`` blobs are the reference's byte for byte (ABS and REL, two
   chunk sizes, one and two workers); the stream API, random access, the
   committed v2 fixtures and salvage of a damaged chunk behave as pinned;
-  each package decodes the other's v2 blobs within the bound.
+  each package decodes the other's v2 blobs within the bound;
+* under pointwise-relative bounds (PW_REL), ``sz3_pwr`` (v4), ``sz3_chunked``
+  and the stream API write the reference's bytes (one and four workers), the
+  pointwise bound holds, and the committed v4 fixtures decode bit-equal to
+  the reference or as ``tests/data/faults/manifest.json`` pins them.
 """
 import io
 import json
@@ -134,7 +138,7 @@ def test_rint_int64_takes_x86_numpy_cast_for_non_finite():
         want = np.rint(v).astype(np.int64)
     if want[0] != np.iinfo(np.int64).min:
         pytest.skip("this CPU's float->int64 cast is not x86's")
-    np.testing.assert_array_equal(t_pred._rint_int64(torch.from_numpy(v)).numpy(), want)
+    np.testing.assert_array_equal(t_pred.rint_int64(torch.from_numpy(v)).numpy(), want)
 
 
 # ---------------------------------------------------------------------------
@@ -433,13 +437,12 @@ def test_v2_fixtures_decode_as_pinned():
     assert "q" in tc.parse_header((DATA / "v2_quality_psnr.sz3").read_bytes())[0]["chunks"][0]
 
 
-@pytest.mark.parametrize("workers", [1, 2])
-def test_v2_fault_fixture_as_the_manifest_pins_it(workers):
-    man = json.loads((FAULTS / "manifest.json").read_text())["v2_chunked"]
-    pristine = (FAULTS / "v2_chunked.sz3").read_bytes()
-    want = np.load(FAULTS / "v2_chunked.npy")
+def _fault_fixture_as_pinned(name, workers):
+    man = json.loads((FAULTS / "manifest.json").read_text())[name]
+    pristine = (FAULTS / f"{name}.sz3").read_bytes()
+    want = np.load(FAULTS / f"{name}.npy")
     _same_bits(tc.decompress(pristine, workers=workers, device=CPU).numpy(), want)
-    corrupt = (FAULTS / "v2_chunked_corrupt.sz3").read_bytes()
+    corrupt = (FAULTS / f"{name}_corrupt.sz3").read_bytes()
     with pytest.raises(tc.IntegrityError) as err:
         tc.decompress(corrupt, workers=workers, device=CPU)
     assert err.value.chunk_index == man["damaged_chunks"][0]
@@ -462,15 +465,110 @@ def test_v2_fault_fixture_as_the_manifest_pins_it(workers):
                        r_ch.decompress_chunk(corrupt, i))
 
 
-def test_pw_rel_raises_naming_what_is_missing():
-    x = ENGINE["1d"]
-    conf = tc.CompressionConfig(mode=tc.ErrorBoundMode.PW_REL, eb=1e-3)
-    with pytest.raises(ValueError, match="LogTransform"):
-        tc.sz3_chunked(device=CPU).compress(x, conf)
-    with pytest.raises(ValueError, match="LogTransform"):
-        list(tc.compress_stream(x, conf, device=CPU))
-    with pytest.raises(tc.ContainerError, match="pwr"):
-        tc.decompress((DATA / "v4_pwr.sz3").read_bytes(), device=CPU)
+@pytest.mark.parametrize("workers", [1, 2])
+def test_v2_fault_fixture_as_the_manifest_pins_it(workers):
+    _fault_fixture_as_pinned("v2_chunked", workers)
+
+
+@pytest.mark.parametrize("workers", [1, 2])
+def test_v4_fault_fixture_as_the_manifest_pins_it(workers):
+    _fault_fixture_as_pinned("v4_pwr", workers)
+
+
+def test_v4_conformance_fixture_decodes_like_the_reference():
+    blob = (DATA / "v4_pwr.sz3").read_bytes()
+    assert tc.parse_header(blob)[0]["kind"] == "pwr"
+    out = tc.decompress(blob, device=CPU).numpy()
+    _same_bits(out, rc.decompress(blob))
+    _same_bits(out, np.load(DATA / "v4_pwr.npy"))
+    index = tc.parse_chunked_index(blob)
+    for i in range(index.n_chunks):
+        _same_bits(tc.decompress_chunk(blob, i, parsed=index, device=CPU).numpy(), r_ch.decompress_chunk(blob, i))
+
+
+# ---------------------------------------------------------------------------
+# pointwise-relative bounds: sz3_pwr (v4), sz3_chunked and the stream API
+# ---------------------------------------------------------------------------
+
+def _signed(x, seed):
+    """A PW_REL input: positive magnitudes with negatives, zeros and
+    non-finite values written in."""
+    rng = np.random.default_rng(seed)
+    y = np.exp(x.astype(np.float64) / 4.0).astype(x.dtype).reshape(-1)
+    pick = rng.permutation(y.size)
+    y[pick[: y.size // 5]] *= -1
+    y[pick[y.size // 5 : y.size // 5 + 4]] = [0.0, np.nan, np.inf, -np.inf]
+    return y.reshape(x.shape)
+
+
+PWR = {
+    "2d": _signed(ENGINE["2d"], 1),
+    "1d": _signed(ENGINE["1d"], 2),
+    "f64": _signed(FIELDS["f64"], 3),
+}
+
+
+def _pw_bound_holds(out, x, eb):
+    x64, o64 = np.asarray(x, np.float64), np.asarray(out, np.float64)
+    fin = np.isfinite(x64) & (x64 != 0)
+    assert np.all(np.abs(o64[fin] - x64[fin]) <= eb * np.abs(x64[fin]))
+    assert np.all(o64[x64 == 0] == 0)
+    _same_bits(np.asarray(out)[~np.isfinite(x64)], np.asarray(x)[~np.isfinite(x64)])
+
+
+@pytest.mark.parametrize("field", list(PWR))
+@pytest.mark.parametrize("chunk_bytes", [2048, 1 << 22])
+@pytest.mark.parametrize("workers", [1, 4])
+def test_pwr_blob_equals_reference(field, chunk_bytes, workers):
+    x = PWR[field]
+    ref = rc.sz3_pwr(chunk_bytes=chunk_bytes, workers=workers).compress(x, with_stats=True)
+    port = tc.sz3_pwr(chunk_bytes=chunk_bytes, workers=workers, device=CPU).compress(x, with_stats=True)
+    assert [c["pipeline"] for c in port.meta["chunks"]] == [c["pipeline"] for c in ref.meta["chunks"]]
+    assert port.blob == ref.blob
+    header = tc.parse_header(port.blob)[0]
+    assert (header["v"], header["kind"]) == (4, "pwr")
+    out = tc.decompress(ref.blob, workers=workers, device=CPU).numpy()
+    _same_bits(out, rc.decompress(port.blob))
+    _pw_bound_holds(out, x, 1e-3)
+
+
+@pytest.mark.parametrize("field", list(PWR))
+def test_chunked_and_stream_under_pw_rel_equal_reference(field):
+    x = PWR[field]
+    rconf, tconf = _confs("pw_rel", 1e-3)
+    ref = rc.sz3_chunked(chunk_bytes=2048).compress(x, rconf).blob
+    port = tc.sz3_chunked(chunk_bytes=2048, device=CPU).compress(x, tconf).blob
+    assert port == ref
+    _same_bits(tc.decompress(ref, device=CPU).numpy(), rc.decompress(port))
+    r_frames = list(rc.compress_stream(x, rconf, chunk_bytes=2048))
+    t_frames = list(tc.compress_stream(x, tconf, chunk_bytes=2048, device=CPU))
+    assert t_frames == r_frames
+    v4 = tc.frames_to_blob(t_frames)
+    assert v4 == rc.frames_to_blob(r_frames)
+    assert v4 == tc.sz3_pwr(chunk_bytes=2048, device=CPU).compress(x).blob
+    parts = list(tc.decompress_stream(t_frames, device=CPU))
+    _same_bits(np.concatenate([p.numpy() for p in parts]), rc.decompress(v4))
+
+
+def test_pwr_candidates_equal_reference():
+    cands = ("sz3_lorenzo", "sz3_transform", "sz3_fast", "sz3_lr", "sz3_truncation", "sz3_aps")
+    ref = rc.ChunkedCompressor(candidates=cands)._pwr_candidates()
+    assert tc.ChunkedCompressor(candidates=cands, device=CPU)._pwr_candidates() == ref
+    assert ref == ("sz3_lorenzo", "sz3_fast", "sz3_lr")
+    x = PWR["2d"]
+    rconf, tconf = _confs("pw_rel", 1e-3)
+    port = tc.sz3_chunked(candidates=cands, chunk_bytes=4096, device=CPU).compress(x, tconf, with_stats=True)
+    ref_res = rc.sz3_chunked(candidates=cands, chunk_bytes=4096).compress(x, rconf, with_stats=True)
+    assert [c["pipeline"] for c in port.meta["chunks"]] == [c["pipeline"] for c in ref_res.meta["chunks"]]
+    assert port.blob == ref_res.blob
+
+
+def test_pwr_refuses_other_modes():
+    with pytest.raises(ValueError, match="pointwise-relative"):
+        tc.sz3_pwr(device=CPU).compress(PWR["1d"], tc.CompressionConfig())
+
+
+def test_sz3_auto_is_not_yet_a_pipeline():
     with pytest.raises(KeyError):
         t_ch._make_pipeline("sz3_auto")
 

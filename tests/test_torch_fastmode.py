@@ -11,8 +11,8 @@ the CPU.
 * the plain ``block_stats`` agrees with the JAX kernel (interpret mode)
   within ``1e-6 * max|x|`` per block: XLA sums the JAX kernel's blocks in
   its own order, the port's kernel and plain version in the written order;
-* PW_REL names the missing ``LogTransform``; the committed v6 fixtures and
-  fault fixtures behave as pinned.
+* PW_REL composes ``LogTransform`` and writes the reference's bytes on the
+  host route; the committed v6 fixtures and fault fixtures behave as pinned.
 
 The ``cuda``-marked tests hold the CUDA kernel against its plain version
 and run on a card (``python -m pytest -q -m cuda tests/test_torch_fastmode.py``).
@@ -265,17 +265,52 @@ def test_library_is_named_after_its_source():
 
 
 # ---------------------------------------------------------------------------
-# the PW_REL gap and argument checks
+# PW_REL and argument checks
 # ---------------------------------------------------------------------------
 
-def test_pw_rel_names_the_missing_log_transform():
-    conf = tc.CompressionConfig(mode=tc.ErrorBoundMode.PW_REL, eb=1e-3)
-    with pytest.raises(ValueError, match="LogTransform"):
-        tc.sz3_fast(device=CPU).compress(FIELDS["smooth"], conf)
-    ref_blob = r_fm.sz3_fast().compress(FIELDS["smooth"], RConf(mode=RMode.PW_REL, eb=1e-3)).blob
-    assert tc.parse_header(ref_blob)[0]["spec"]["preprocessor"] == "log"
-    with pytest.raises(tc.ContainerError, match="LogTransform"):
-        tc.decompress(ref_blob, device=CPU)
+def _pw_rel_field(name):
+    """A field with negatives, zeros, NaN and +-inf written in, for PW_REL."""
+    x = FIELDS[name].copy().reshape(-1)
+    x[~np.isfinite(x)] = 1.0
+    x = np.where(x == 0, 1.0, x).astype(x.dtype)
+    x[::11] = 0.0
+    x[5], x[6], x[7] = np.nan, np.inf, -np.inf
+    return x.reshape(FIELDS[name].shape)
+
+
+@pytest.mark.parametrize("field", ["smooth", "walk", "mixed", "f64"])
+@pytest.mark.parametrize("bs", [128, 256])
+def test_pw_rel_composes_log_transform_same_bytes(field, bs):
+    """Under PW_REL the fast tier composes LogTransform: on the host route
+    the port writes the reference's bytes, each package decodes the other's
+    blob to the same bits, and the pointwise bound holds."""
+    x = _pw_rel_field(field)
+    rconf = RConf(mode=RMode.PW_REL, eb=1e-3)
+    tconf = tc.CompressionConfig(mode=tc.ErrorBoundMode.PW_REL, eb=1e-3)
+    port = _port(x, tconf, bs)
+    assert tc.parse_header(port)[0]["spec"]["preprocessor"] == "log"
+    ref = _ref(x, rconf, bs)
+    assert port == ref
+    out = tc.decompress(ref, device=CPU).numpy()
+    _same_bits(out, ref_decompress(port))
+    x64, o64 = x.astype(np.float64), out.astype(np.float64)
+    fin = np.isfinite(x64) & (x64 != 0)
+    assert np.all(np.abs(o64[fin] - x64[fin]) <= 1e-3 * np.abs(x64[fin]))
+    assert np.all(o64[x64 == 0] == 0)
+    _same_bits(out[~np.isfinite(x64)], x[~np.isfinite(x64)])
+
+
+def test_pw_rel_kernel_route_blobs_decode_alike():
+    """route="force" casts the float64 log field to float32 for the plain
+    block_stats, as the reference's device="force" does; its blob decodes to
+    the same bits in both packages, and so does the reference's."""
+    x = _pw_rel_field("walk")
+    rconf = RConf(mode=RMode.PW_REL, eb=1e-3)
+    tconf = tc.CompressionConfig(mode=tc.ErrorBoundMode.PW_REL, eb=1e-3)
+    port = _port(x, tconf, route="force")
+    assert tc.parse_header(port)[0]["fast_meta"].get("device")
+    for blob in (port, _ref(x, rconf, device="force")):
+        _same_bits(tc.decompress(blob, device=CPU).numpy(), ref_decompress(blob))
 
 
 def test_rejects_bad_block_size_and_route():

@@ -55,11 +55,12 @@ LORENZO_FIXTURES = {"v1_lorenzo_abs.sz3", "v1_lorenzo.sz3"}
 #: v1 composite and v2 chunked fixtures, decoded since the chunked engine
 #: was ported (``test_ported_fixture_decodes_like_the_reference``)
 CHUNKED_FIXTURES = ("v1_lr_rel.sz3", "v2_chunked_rel.sz3", "v2_quality_psnr.sz3", "faults/v2_chunked.sz3")
-#: corpus files of the kinds the port decodes (v1 Lorenzo and composite, v2,
-#: v3, v6)
+#: corpus files of the kinds the port decodes (v1 Lorenzo, composite and
+#: log-preprocessed, v2, v3, v4, v6)
 PORTED_FIXTURES = LORENZO_FIXTURES | {pathlib.PurePath(f).name for f in CHUNKED_FIXTURES} | {
     "v3_transform_abs.sz3", "v3_transform.sz3",
     "v6_fast_mixed_abs.sz3", "v6_fast_const_rel.sz3", "v6_fast.sz3",
+    "v1_log_pwrel.sz3", "v4_pwr.sz3",
 }
 CPU = "cpu"
 

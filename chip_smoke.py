@@ -84,14 +84,34 @@ Phases, one JSON line each:
    exactly), at ABS 2.0 (the 3-D composite, within the bound) and
    ``sz3_truncation(keep_bytes=2)`` (the top two bytes of every value):
    the plain route's bytes each;
-9. compressed DP step: a seeded gradient tree with Qwen1.5-0.5B's full
+9. block hybrid (``hybrid``): ``sz3_hybrid`` compressing and decompressing
+   on the card, on the field at REL 1e-4 and at ABS 1e-3 of its range, on
+   the series at REL 1e-4, on a 100x500x500 float32 field (the shape of an
+   SDRBench Hurricane-ISABEL field) with regime tiles written in so each of
+   the four tags wins somewhere, at ABS 2^-8, and on the ``pw_rel`` field
+   at PW_REL 1e-3: no launches, the plain route's bytes, the bound
+   (pointwise under PW_REL, non-finite values and subnormals bit-exact),
+   and every gamma length the card computed equal to numpy's on the host
+   copy; tag shares and stage seconds;
+10. ``sz3_auto`` (``auto``) on the field and the series at REL 1e-4, with
+   the chunked engine's checks: per-chunk picks among the six candidates,
+   the ``workers=4`` blob, launches equal to the chunks routed to each
+   kernel (the transform's too), the plain route's bytes chunk by chunk;
+11. quality controller (``quality``): ``sz3_quality(target_psnr=60)`` and
+   ``sz3_quality(target_ratio=10)`` on the field: the achieved PSNR at or
+   above the target (the record's, and the decode's within 1e-9 dB), the
+   plain route's bytes, launches equal to those of the full-chunk
+   compressions that ran on the card, per-chunk eb, iterations,
+   confirmations and picks, and the share of the MSE stage (numpy on host
+   copies);
+12. compressed DP step: a seeded gradient tree with Qwen1.5-0.5B's full
    shapes (463,987,712 parameters) through ``compressed_reduce_tree``
    (``int8:bs=512`` and ``int4:bs=512``) on a one-rank NCCL group opened
    through a ``FileStore`` in a temporary directory, every block within its
    bound and the card's codes equal to ``encode_host`` on the host copy;
    then three ``adamw.update`` steps with compressed moments
    (``int8:bs=256``);
-10. KV prefill: ``quantize_prefill``/``dequantize_prefill`` on one layer's K
+13. KV prefill: ``quantize_prefill``/``dequantize_prefill`` on one layer's K
    and V, (1, 32768, 16, 64), within the per-token bound and equal to
    ``encode_host``; then ``kv_quantize`` on the V cache as (32768, 1024) and
    ``kv_dequant_matmul`` with 128 rows of attention weights — the
@@ -113,6 +133,7 @@ script fails.  Full results also go to ``chiprun_out/chip_smoke.json``.
 from __future__ import annotations
 
 import argparse
+import collections
 import concurrent.futures
 import importlib
 import json
@@ -1156,11 +1177,16 @@ def phase_bitplane_path(coder_ints: torch.Tensor, launches_total: dict) -> None:
 
 #: kernels a chunk's pipeline launches per compress + decompress, when the
 #: chunk takes the kernel route: Lorenzo encodes once and decodes twice (the
-#: compress-side verification, then the decode), the fast tier classifies once
+#: compress-side verification, then the decode), the fast tier classifies
+#: once, the transform runs its main path's launches (``PATHS``); the block
+#: hybrid launches none
 _CHUNK_KERNELS = {
     "sz3_lorenzo": {1: {"encode_1d": 1, "decode_1d": 2}, 2: {"encode_2d": 1, "decode_2d": 2}},
     "sz3_fast": {1: {"block_stats": 1}, 2: {"block_stats": 1}},
+    "sz3_transform": PATHS["sz3_transform"],
 }
+#: the kernels a chunked path can launch (the counts checked per chunk)
+_CHUNK_KERNEL_NAMES = sorted({k for by_nd in _CHUNK_KERNELS.values() for ks in by_nd.values() for k in ks})
 
 
 def _chunk_blobs(blob: bytes) -> list:
@@ -1174,49 +1200,61 @@ def _chunk_blobs(blob: bytes) -> list:
 def _takes_kernel_route(pipeline: str, n: int) -> bool:
     """Does a chunk of ``n`` elements take its pipeline's kernel route?  The
     pipelines' own size floors: smaller chunks take the host route."""
-    from repro_torch.core import fastmode, predictors
+    from repro_torch.core import fastmode, predictors, transform
 
     if pipeline == "sz3_lorenzo":
         return n >= predictors.LorenzoPredictor._KERNEL_MIN_SIZE
     if pipeline == "sz3_fast":  # the floor counts the blocks, padded
         bs = fastmode.DEFAULT_BS
         return -(-n // bs) * bs >= fastmode._KERNEL_MIN_SIZE
+    if pipeline == "sz3_transform":
+        return n >= transform.TransformCompressor._KERNEL_MIN_SIZE
     return False
 
 
-def phase_chunked(label: str, x: torch.Tensor, launches_total: dict, speed_tier: str = "ratio") -> None:
-    """``sz3_chunked`` at REL 1e-4 with 4 MiB chunks: compress and decompress
-    on the card, then every check of a main path, per-chunk picks, the
-    ``workers=4`` blob and exact launch counts per routed chunk."""
+def _expected_chunk_launches(picks, ndim: int) -> dict:
+    """Launches a chunked path must make: ``picks`` are the (pipeline,
+    elements) of each chunk compressed and decoded once on the card."""
+    expected = {name: 0 for name in _CHUNK_KERNEL_NAMES}
+    for pipeline, n in picks:
+        if _takes_kernel_route(pipeline, n):
+            for name, k in _CHUNK_KERNELS[pipeline][ndim].items():
+                expected[name] += k
+    return expected
+
+
+def phase_chunked(label: str, x: torch.Tensor, launches_total: dict, speed_tier: str = "ratio",
+                  engine: str = "sz3_chunked") -> None:
+    """``engine`` (``sz3_chunked`` or ``sz3_auto``) at REL 1e-4 with 4 MiB
+    chunks: compress and decompress on the card, then every check of a main
+    path, per-chunk picks, the ``workers=4`` blob and exact launch counts per
+    routed chunk."""
     import repro_torch.core as tc
 
+    make = tc.PIPELINES[engine]
     conf = tc.CompressionConfig(mode=tc.ErrorBoundMode.REL, eb=1e-4)
-    comp = tc.sz3_chunked(speed_tier=speed_tier)
+    comp = make(speed_tier=speed_tier)
     reset_all_launches()
     res, t_c = _timed(lambda: comp.compress(x, conf, with_stats=True))
     out, t_d = _timed(lambda: tc.decompress(res.blob))
     launches = all_launches()
     chunks = res.meta["chunks"]
     inner = math.prod(x.shape[1:])
-    expected = {name: 0 for name in ("encode_1d", "decode_1d", "encode_2d", "decode_2d", "block_stats")}
-    for c in chunks:
-        if _takes_kernel_route(c["pipeline"], c["n0"] * inner):
-            for name, k in _CHUNK_KERNELS[c["pipeline"]][x.ndim].items():
-                expected[name] += k
+    expected = _expected_chunk_launches([(c["pipeline"], c["n0"] * inner) for c in chunks], x.ndim)
     for name, want in expected.items():
         if launches[name] != want:
-            raise AssertionError(f"sz3_chunked {label}: kernel {name} launched {launches[name]} times, "
+            raise AssertionError(f"{engine} {label}: kernel {name} launched {launches[name]} times, "
                                  f"expected {want} for the chunks routed to it")
         launches_total[name] += launches[name]
     body_off = tc.parse_header(res.blob)[1]
     abs_eb = tc.parse_header(res.blob[body_off : body_off + chunks[0]["len"]])[0]["abs_eb"]  # resolved once
     if out.shape != x.shape or out.dtype != x.dtype or not bool(torch.isfinite(out).all()):
-        raise AssertionError(f"sz3_chunked {label}: decoded {tuple(out.shape)} {out.dtype}, not finite or not {tuple(x.shape)}")
+        raise AssertionError(f"{engine} {label}: decoded {tuple(out.shape)} {out.dtype}, not finite or not {tuple(x.shape)}")
     err = float((out.double() - x.double()).abs().max())
     if err > abs_eb:
-        raise AssertionError(f"sz3_chunked {label}: max error {err} breaks the bound {abs_eb}")
+        raise AssertionError(f"{engine} {label}: max error {err} breaks the bound {abs_eb}")
     x_cpu = x.cpu()
-    plain, t_plain = _timed(lambda: tc.sz3_chunked(speed_tier=speed_tier, device="cpu", route="force").compress(x_cpu, conf).blob)
+    plain, t_plain = _timed(lambda: make(speed_tier=speed_tier, device="cpu", route="force").compress(x_cpu, conf).blob)
     same_as = "plain versions"
     if plain != res.blob:
         # route="force" takes the fast tier's kernel route below its size
@@ -1224,28 +1262,28 @@ def phase_chunked(label: str, x: torch.Tensor, launches_total: dict, speed_tier:
         # takes the host route there.  Chunk by chunk, the card's bytes are
         # the plain versions' where it launched a kernel, the CPU host
         # route's elsewhere.
-        host_blob = tc.sz3_chunked(speed_tier=speed_tier, device="cpu").compress(x_cpu, conf).blob
+        host_blob = make(speed_tier=speed_tier, device="cpu").compress(x_cpu, conf).blob
         want = [
             f if _takes_kernel_route(c["pipeline"], c["n0"] * inner) else h
             for c, f, h in zip(chunks, _chunk_blobs(plain), _chunk_blobs(host_blob))
         ]
         picks = [(c["pipeline"], c["n0"]) for c in tc.parse_header(plain)[0]["chunks"]]
         if _chunk_blobs(res.blob) != want or picks != [(c["pipeline"], c["n0"]) for c in chunks]:
-            raise AssertionError(f"sz3_chunked {label}: the card's blob differs from the plain versions' blob")
+            raise AssertionError(f"{engine} {label}: the card's blob differs from the plain versions' blob")
         same_as = "plain versions on kernel-routed chunks, CPU host route on the rest"
     host = tc.decompress(res.blob, device="cpu")
     host_err = float((host.double() - x_cpu.double()).abs().max())
     if host_err > abs_eb:
-        raise AssertionError(f"sz3_chunked {label}: CPU decode error {host_err} breaks the bound {abs_eb}")
-    par, t_par = _timed(lambda: tc.sz3_chunked(speed_tier=speed_tier, workers=4).compress(x, conf).blob)
+        raise AssertionError(f"{engine} {label}: CPU decode error {host_err} breaks the bound {abs_eb}")
+    par, t_par = _timed(lambda: make(speed_tier=speed_tier, workers=4).compress(x, conf).blob)
     if par != res.blob:
-        raise AssertionError(f"sz3_chunked {label}: the workers=4 blob differs from the serial one")
+        raise AssertionError(f"{engine} {label}: the workers=4 blob differs from the serial one")
     out4, t_d4 = _timed(lambda: tc.decompress(res.blob, workers=4))
     if not same_bits(out4, out):
-        raise AssertionError(f"sz3_chunked {label}: the workers=4 decode differs from the serial one")
+        raise AssertionError(f"{engine} {label}: the workers=4 decode differs from the serial one")
     mb = x.numel() * x.element_size() / 1e6
     emit(
-        f"main path sz3_chunked {label}" + ("" if speed_tier == "ratio" else f" {speed_tier}"),
+        f"main path {engine} {label}" + ("" if speed_tier == "ratio" else f" {speed_tier}"),
         shape=list(x.shape),
         speed_tier=speed_tier,
         mode="rel",
@@ -1269,7 +1307,7 @@ def phase_chunked(label: str, x: torch.Tensor, launches_total: dict, speed_tier:
         workers4_same_bytes=True,
         launches={k: v for k, v in launches.items() if v},
         expected_launches={k: v for k, v in expected.items() if v},
-        stages=stage_breakdown("sz3_chunked", x, conf, lambda: tc.sz3_chunked(speed_tier=speed_tier)),
+        stages=stage_breakdown("sz3_chunked", x, conf, lambda: make(speed_tier=speed_tier)),
     )
 
 
@@ -1321,11 +1359,25 @@ def _stage_patches(pipeline: str):
             (encoders.HuffmanEncoder, "encode", "huffman encode (host)"),
             (encoders.HuffmanEncoder, "decode", "huffman decode (host)"),
         ]
+    if pipeline == "sz3_hybrid":
+        from repro_torch.core import blockwise, preprocess
+
+        return host_lossless + [
+            (blockwise.BlockHybridCompressor, "_compress_blocks", "contest (device)"),
+            (preprocess.LogTransform, "forward", "log2 and side channels (host numpy)"),
+            (preprocess.LogTransform, "inverse", "exp2 and side channels (host numpy)"),
+            (encoders.HuffmanEncoder, "encode", "huffman encode (host)"),
+            (encoders.HuffmanEncoder, "decode", "huffman decode (host)"),
+        ]
     if pipeline in ("sz3_lr", "sz3_interp", "sz3_chunked"):
-        from repro_torch.core import chunking
+        from repro_torch.core import blockwise, chunking
 
         return host_lossless + [
             (chunking, "select_pipeline", "select (host sample)"),
+            (blockwise.BlockHybridCompressor, "_compress_blocks", "predict (device)"),
+            (tops, "fwd_pipeline", "predict (device)"),
+            (transform, "_encode_bands", "bitplane encode (host)"),
+            (transform, "_decode_bands", "bitplane decode (host)"),
             (predictors.LorenzoPredictor, "compress", "predict (device)"),
             (predictors.CompositePredictor, "compress", "predict (device)"),
             (predictors.InterpolationPredictor, "compress", "predict (device)"),
@@ -1989,6 +2041,212 @@ def phase_aps(seed: int, launches_total: dict) -> None:
                    stages=stage_breakdown(stage_key, x, conf, make))
 
 
+#: the block hybrid's 3-D input: the shape of an SDRBench Hurricane-ISABEL
+#: field (100 x 500 x 500 float32 per variable), at ABS 2^-8
+HYBRID_3D_SHAPE = (100, 500, 500)
+HYBRID_3D_EB = 2.0**-8
+#: side of the regime tiles written into it (a multiple of its 8^3 blocks)
+HYBRID_TILE = 32
+
+
+def hybrid_field_3d(seed: int, shape=HYBRID_3D_SHAPE) -> torch.Tensor:
+    """A smooth float32 3-D field (plane waves plus small noise) with
+    32^3 regime tiles written in, cycling through exact zeros and
+    zero-mean noise (the zero tag's turf), steep ramps with noise of one
+    bound (regression's), a quadratic (Lorenzo-1's: its third difference
+    vanishes inside a block) and a trilinear product i*j*k on the
+    quantization grid (Lorenzo-2's: Lorenzo-1 leaves its constant third
+    difference); the smooth rest is Lorenzo-1's."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kw = {"device": "cuda", "dtype": torch.float64}
+    d0, d1, d2 = shape
+    z = torch.linspace(0, 1, d0, **kw)[:, None, None]
+    y = torch.linspace(0, 1, d1, **kw)[None, :, None]
+    x = torch.linspace(0, 1, d2, **kw)[None, None, :]
+    f = torch.zeros(shape, **kw)
+    for _ in range(4):
+        kz, ky, kx, ph = torch.rand(4, generator=g, **kw)
+        f += 5.0 * torch.sin(2 * math.pi * ((1 + 3 * kz) * z + (1 + 3 * ky) * y + (1 + 3 * kx) * x) + 6.3 * ph)
+    f += 1e-3 * torch.randn(shape, generator=g, **kw)
+    t, eb = HYBRID_TILE, HYBRID_3D_EB
+    i = torch.arange(t, **kw)
+    ii, jj, kk = i[:, None, None], i[None, :, None], i[None, None, :]
+    regimes = (
+        lambda: torch.zeros((t, t, t), **kw),
+        lambda: 0.3 * torch.randn((t, t, t), generator=g, **kw),
+        lambda: 0.05 * ii + 0.03 * jj + 0.02 * kk + eb * torch.randn((t, t, t), generator=g, **kw),
+        lambda: 2.0 * eb * (ii * ii + jj * jj + kk * kk),
+        lambda: 2.0 * eb * ii * jj * kk,
+        None,
+    )
+    n = 0
+    for z0 in range(0, d0 - t + 1, t):
+        for y0 in range(0, d1 - t + 1, 2 * t):
+            for x0 in range(0, d2 - t + 1, 2 * t):
+                make = regimes[n % len(regimes)]
+                n += 1
+                if make is not None:
+                    f[z0 : z0 + t, y0 : y0 + t, x0 : x0 + t] = make()
+    return f.to(torch.float32)
+
+
+def gamma_mismatches(make, x: torch.Tensor, conf) -> dict:
+    """One more compress, in which every gamma length the card computes
+    (``blockwise._gamma_bits``) is held against numpy's
+    ``2*log2(1+|q|)+1`` on a host copy of the same codes."""
+    from repro_torch.core import blockwise
+
+    fn = blockwise._gamma_bits
+    tally = {"values": 0, "differ": 0}
+
+    def checked(q):
+        out = fn(q)
+        host = 2.0 * np.log2(1.0 + np.abs(q.double().cpu().numpy())) + 1.0
+        tally["values"] += host.size
+        tally["differ"] += int((out.cpu().numpy().view(np.int64) != host.view(np.int64)).sum())
+        return out
+
+    blockwise._gamma_bits = checked
+    try:
+        make().compress(x, conf)
+    finally:
+        blockwise._gamma_bits = fn
+    return tally
+
+
+def phase_hybrid(x2d: torch.Tensor, x1d: torch.Tensor, seed: int) -> None:
+    """sz3_hybrid compressing and decompressing on the card: the field at
+    REL 1e-4 and at ABS 1e-3 of its range, the series at REL 1e-4, the
+    Hurricane-shaped 3-D field with regime tiles at ABS 2^-8 and the
+    PW_REL field at PW_REL 1e-3.  No kernel launches (the contest is plain
+    torch); each blob equals the plain route's, each decode keeps its
+    bound, and no gamma length differs from numpy's."""
+    import repro_torch.core as tc
+
+    mode = tc.ErrorBoundMode
+    rel = tc.CompressionConfig(mode=mode.REL, eb=1e-4)
+    field_range = float(x2d.max() - x2d.min())
+    runs = [
+        ("field rel", lambda: x2d, rel),
+        ("field abs", lambda: x2d, tc.CompressionConfig(mode=mode.ABS, eb=1e-3 * field_range)),
+        ("series rel", lambda: x1d, rel),
+        ("3-D field abs", lambda: hybrid_field_3d(seed + 70), tc.CompressionConfig(mode=mode.ABS, eb=HYBRID_3D_EB)),
+        ("pw_rel field", lambda: pw_rel_field(x2d, seed + 30), tc.CompressionConfig(mode=mode.PW_REL, eb=1e-3)),
+    ]
+    make = tc.sz3_hybrid
+    make().compress(x2d[:64].contiguous(), rel)  # warm-up
+    for label, data, conf in runs:
+        x = data()
+        reset_all_launches()
+        res, t_c = _timed(lambda: make().compress(x, conf, with_stats=True))
+        out, t_d = _timed(lambda: tc.decompress(res.blob))
+        launches = all_launches()
+        if any(launches.values()):
+            raise AssertionError(f"hybrid {label}: a kernel launched on a path that has none: {launches}")
+        if conf.mode == mode.PW_REL:
+            check = {"max_pointwise_rel_err": pointwise_check(f"hybrid {label}", out, x, conf.eb),
+                     "zeros_exact": True, "nonfinite_bit_exact": True}
+        else:
+            abs_eb = tc.parse_header(res.blob)[0]["abs_eb"]
+            if out.shape != x.shape or out.dtype != x.dtype:
+                raise AssertionError(f"hybrid {label}: decoded {tuple(out.shape)} {out.dtype}, not {tuple(x.shape)}")
+            err = float((out.double() - x.double()).abs().max())
+            if not err <= abs_eb:
+                raise AssertionError(f"hybrid {label}: max error {err} breaks the bound {abs_eb}")
+            check = {"abs_eb": abs_eb, "max_abs_err": err}
+        x_cpu = x.cpu()
+        plain, t_plain = _timed(lambda: make(device="cpu").compress(x_cpu, conf).blob)
+        if plain != res.blob:
+            raise AssertionError(f"hybrid {label}: the card's blob differs from the plain route's")
+        gamma = gamma_mismatches(make, x, conf)
+        if gamma["differ"]:
+            raise AssertionError(f"hybrid {label}: {gamma['differ']} of {gamma['values']} gamma lengths differ from numpy's")
+        _path_line(f"hybrid {label}", x, res, t_c, t_d, "zstd", mode=conf.mode.value, eb=conf.eb, **check,
+                   same_bytes_as_plain=True, plain_cpu_compress_s=t_plain, gamma_values=gamma["values"],
+                   gamma_mismatches=gamma["differ"], blocks=res.meta["nb"], tag_shares=res.meta["tag_shares"],
+                   nfail=res.meta["nfail"], launches=0, stages=stage_breakdown("sz3_hybrid", x, conf, make))
+
+
+def phase_auto(x2d: torch.Tensor, x1d: torch.Tensor, launches_total: dict) -> None:
+    """sz3_auto at REL 1e-4 on the field and the series: the chunked
+    engine's checks (picks, workers=4, exact launches per routed chunk, the
+    plain route's bytes chunk by chunk) over the six-way contest."""
+    phase_chunked("2-D", x2d, launches_total, engine="sz3_auto")
+    phase_chunked("1-D", x1d, launches_total, engine="sz3_auto")
+
+
+def phase_quality(x2d: torch.Tensor, launches_total: dict) -> None:
+    """sz3_quality(target_psnr=60) and sz3_quality(target_ratio=10) on the
+    field: the achieved PSNR, the plain route's bytes, the per-chunk
+    records, and launches equal to those of the full-chunk compressions
+    (each decoded once) that ran on the card."""
+    import repro_torch.core as tc
+    from repro_torch.core import quality
+
+    x_cpu = x2d.cpu()
+    x_host = x_cpu.double().numpy()
+    field_range = float(x2d.max() - x2d.min())
+    for label, kw in (("psnr 60", {"target_psnr": 60.0}), ("ratio 10", {"target_ratio": 10.0})):
+        calls = []
+        mse_s = [0.0]
+        routed, finite_mse = quality._routed_pipeline, quality._finite_mse
+
+        def counted(name, route, device):
+            comp = routed(name, route, device)
+            inner = comp.compress
+
+            def compress(data, *a, **k):
+                calls.append((name, data.numel()))
+                return inner(data, *a, **k)
+
+            comp.compress = compress
+            return comp
+
+        def timed_mse(a, b):
+            t0 = time.perf_counter()
+            try:
+                return finite_mse(a, b)
+            finally:
+                mse_s[0] += time.perf_counter() - t0
+
+        quality._routed_pipeline, quality._finite_mse = counted, timed_mse
+        try:
+            reset_all_launches()
+            res, t_c = _timed(lambda: tc.sz3_quality(**kw).compress(x2d))
+            launches = all_launches()
+        finally:
+            quality._routed_pipeline, quality._finite_mse = routed, finite_mse
+        expected = _expected_chunk_launches(calls, x2d.ndim)
+        for name, want in expected.items():
+            if launches[name] != want:
+                raise AssertionError(f"quality {label}: kernel {name} launched {launches[name]} times, "
+                                     f"expected {want} for the compressions routed to it")
+            launches_total[name] += launches[name]
+        out, t_d = _timed(lambda: tc.decompress(res.blob))
+        mse = float(np.mean((out.double().cpu().numpy() - x_host) ** 2))
+        psnr = 20.0 * math.log10(field_range) - 10.0 * math.log10(mse)
+        rec = res.meta["quality"]
+        if "target_psnr" in kw and not (rec["achieved_psnr"] >= kw["target_psnr"] and psnr >= kw["target_psnr"] - 1e-9):
+            raise AssertionError(f"quality {label}: achieved PSNR {rec['achieved_psnr']} (decode: {psnr}) "
+                                 f"is below the target {kw['target_psnr']}")
+        plain, t_plain = _timed(lambda: tc.sz3_quality(device="cpu", route="force", **kw).compress(x_cpu).blob)
+        if plain != res.blob:
+            raise AssertionError(f"quality {label}: the card's blob differs from the plain route's")
+        chunks = [{"pipeline": c["pipeline"], "rows": c["n0"], **{k: c["q"][k] for k in ("eb", "iters", "confirms", "bits", "psnr")}}
+                  for c in res.meta["chunks"]]
+        mb = x2d.numel() * x2d.element_size() / 1e6
+        emit(f"quality {label}", shape=list(x2d.shape), target=rec["target"], achieved_psnr=rec["achieved_psnr"],
+             decoded_psnr=psnr, achieved_ratio=rec["achieved_ratio"], achieved_bits=rec["achieved_bits"],
+             blob_bytes=len(res.blob), compress_s=t_c, decompress_s=t_d, compress_MBps=mb / t_c,
+             decompress_MBps=mb / t_d, mse_s=mse_s[0], mse_share=mse_s[0] / t_c,
+             full_chunk_compressions=len(calls),
+             compressions_by_pipeline_and_rows=dict(collections.Counter(
+                 f"{name} {n // math.prod(x2d.shape[1:])}" for name, n in calls)),
+             chunks=chunks, same_bytes_as_plain=True,
+             plain_cpu_compress_s=t_plain, launches={k: v for k, v in launches.items() if v},
+             expected_launches={k: v for k, v in expected.items() if v})
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2022,6 +2280,12 @@ def main() -> int:
     t_gamess = time.perf_counter()
     phase_aps(args.seed, launches)
     t_aps = time.perf_counter()
+    phase_hybrid(x2d, x1d, args.seed)
+    t_hybrid = time.perf_counter()
+    phase_auto(x2d, x1d, launches)
+    t_auto = time.perf_counter()
+    phase_quality(x2d, launches)
+    t_quality = time.perf_counter()
     phase_dp_step(args.seed)
     t_dp = time.perf_counter()
     phase_kv_path(args.seed, launches)
@@ -2033,7 +2297,10 @@ def main() -> int:
         "pw_rel": t_pw_rel - t_paths,
         "gamess": t_gamess - t_pw_rel,
         "aps": t_aps - t_gamess,
-        "dp step": t_dp - t_aps,
+        "hybrid": t_hybrid - t_aps,
+        "auto": t_auto - t_hybrid,
+        "quality": t_quality - t_auto,
+        "dp step": t_dp - t_quality,
         "kv path": time.perf_counter() - t_dp,
     }
     summary = {

@@ -3,11 +3,13 @@
 The paper's five-module abstraction (preprocessor -> predictor -> quantizer ->
 encoder -> lossless) composed per §3.3.  Ported so far: the v1 pipelines
 ``sz3_lorenzo``, ``sz3_lr`` and ``sz3_interp`` and the modules they are
-built from, the v2 chunked engine ``sz3_chunked``, the v3 transform coder
-``sz3_transform``, the v6 fast tier ``sz3_fast``, pointwise-relative bounds
-(``LogTransform``, the v4 engine ``sz3_pwr``) and the customized pipelines of
-§4 (GAMESS: ``sz3_pastri``, ``sz_pastri``, ``sz_pastri_zstd``), §5 (APS:
-``sz3_aps``) and §6.2 (``sz3_truncation``).
+built from, the v2 chunked engine ``sz3_chunked`` and its widest contest
+``sz3_auto``, the v3 transform coder ``sz3_transform``, the v5 block hybrid
+``sz3_hybrid``, the v6 fast tier ``sz3_fast``, the quality controller
+``sz3_quality``, pointwise-relative bounds (``LogTransform``, the v4 engine
+``sz3_pwr``) and the customized pipelines of §4 (GAMESS: ``sz3_pastri``,
+``sz_pastri``, ``sz_pastri_zstd``), §5 (APS: ``sz3_aps``) and §6.2
+(``sz3_truncation``).
 """
 from . import telemetry  # noqa: I001  (stdlib-only; imported first)
 from . import encoders, lossless, metrics, predictors, preprocess, quantizers
@@ -53,9 +55,26 @@ from .chunking import (
     sz3_pwr,
     write_frames,
 )
-from . import fastmode, transform  # noqa: E402  (register their pipelines)
+from . import transform
+from . import blockwise  # noqa: I001  (blockwise must import after transform:
+# it registers sz3_hybrid and appends it to transform.AUTO_CANDIDATES)
+from . import fastmode  # noqa: I001  (fastmode must import after blockwise:
+# it registers sz3_fast and appends it to transform.AUTO_CANDIDATES)
 from .fastmode import FastModeCompressor, sz3_fast
-from .transform import TransformCompressor, sz3_transform
+from .transform import (  # noqa: I001  (re-export AFTER blockwise extends it)
+    AUTO_CANDIDATES,
+    TransformCompressor,
+    sz3_auto,
+    sz3_transform,
+)
+from .blockwise import BlockHybridCompressor, sz3_hybrid
+from . import quality
+from .quality import (  # noqa: I001  (quality must import after transform)
+    QualityCompressor,
+    QualityTarget,
+    achieved_quality,
+    sz3_quality,
+)
 
 __all__ = [
     "telemetry",
@@ -86,6 +105,11 @@ __all__ = [
     "PWRelChunkedCompressor",
     "sz3_chunked",
     "sz3_pwr",
+    "QualityCompressor",
+    "QualityTarget",
+    "achieved_quality",
+    "sz3_quality",
+    "quality",
     "compress_stream",
     "decompress_stream",
     "decompress_chunk",
@@ -96,11 +120,16 @@ __all__ = [
     "read_frames",
     "select_pipeline",
     "chunking",
-    "sz3_transform",
-    "sz3_fast",
     "TransformCompressor",
-    "FastModeCompressor",
+    "sz3_transform",
+    "sz3_auto",
+    "AUTO_CANDIDATES",
     "transform",
+    "BlockHybridCompressor",
+    "sz3_hybrid",
+    "blockwise",
+    "FastModeCompressor",
+    "sz3_fast",
     "fastmode",
     "encoders",
     "lossless",

@@ -232,6 +232,15 @@ def _make_pipeline(name: str, **kw):
     return factory(**kw)
 
 
+def _routed_pipeline(name: str, route: str, device):
+    """The candidate ``name`` built on ``device``, with ``route`` where its
+    factory takes one (the candidates with kernel routes)."""
+    kw: Dict[str, Any] = {"device": device}
+    if name in _ROUTED:
+        kw["route"] = route
+    return _make_pipeline(name, **kw)
+
+
 #: estimate scores within this factor of the best are "too close to call" and
 #: go to a trial-compression runoff on the sample
 RUNOFF_MARGIN = 1.3
@@ -348,6 +357,8 @@ class ChunkRecord:
     length: int
     n0: int  # extent along the chunk axis
     pipeline: str  # winning candidate name (observability; blob self-describes)
+    extra: Optional[Dict[str, Any]] = None  # e.g. the quality controller's
+    # per-chunk achieved record; readers that predate it ignore the key
     sel: Optional[Dict[str, Any]] = None  # selection-decision record
     # (telemetry.sel_header_entry), present only while a trace records
 
@@ -358,8 +369,10 @@ class ChunkRecord:
             "n0": int(self.n0),
             "pipeline": self.pipeline,
         }
+        if self.extra:
+            h["q"] = pl_mod._clean_meta(self.extra)
         if self.sel:
-            h["sel"] = dict(self.sel)
+            h["sel"] = pl_mod._clean_meta(self.sel)
         return h
 
 
@@ -421,10 +434,7 @@ class ChunkedCompressor:
         return cached
 
     def _chunk_pipeline(self, name: str, device: torch.device):
-        kw: Dict[str, Any] = {"device": device}
-        if name in _ROUTED:
-            kw["route"] = self.route
-        return _make_pipeline(name, **kw)
+        return _routed_pipeline(name, self.route, device)
 
     def _compress_chunk(
         self, chunk: torch.Tensor, abs_eb: float, eff: CompressionConfig
@@ -554,10 +564,13 @@ def _assemble_v2(
     conf: CompressionConfig,
     kind: str = "chunked",
     version: int = _VERSION2,
+    header_extra: Optional[Dict[str, Any]] = None,
 ) -> bytes:
     """Assemble a multi-chunk container (``dtype`` is numpy's ``dtype.str``).
     ``kind``/``version`` distinguish the generations sharing this layout: v2
-    "chunked" (ABS/REL) and v4 "pwr"."""
+    "chunked" (ABS/REL) and v4 "pwr".  ``header_extra`` merges further
+    top-level header fields (the quality controller's achieved-quality
+    summary); readers ignore fields they do not know."""
     header = {
         "v": int(version),
         "kind": kind,
@@ -570,6 +583,8 @@ def _assemble_v2(
     }
     if conf.eb_rel is not None:
         header["eb_rel"] = float(conf.eb_rel)
+    if header_extra:
+        header.update(pl_mod._clean_meta(header_extra))
     # per-chunk checksums in the trailer mirror the header chunk table, so
     # verification can name the damaged chunk and salvage can skip only it
     return pack_container(
@@ -589,13 +604,15 @@ def decompress_chunked(
     workers: Optional[int] = None,
     verify: str = "strict",
     device: pl_mod.Device = None,
+    route: str = "auto",
 ) -> torch.Tensor:
     """Decode a v2 multi-chunk container (called from pipeline.decompress)
     into an output preallocated on ``device``, filled chunk by chunk.
 
     Chunks decode on ``workers`` threads; output placement is positional.
     The chunk table is validated against the real body size before any
-    slice, and ``verify`` propagates to the nested per-chunk decode.
+    slice, and ``verify`` and ``route`` propagate to the nested per-chunk
+    decode.
     """
     dev = pl_mod.resolve_device(device)
     workers = DECOMPRESS_WORKERS if workers is None else max(1, int(workers))
@@ -610,7 +627,7 @@ def decompress_chunked(
     flat = out.reshape(-1)
     pos = 0
     parts = _parallel_map_ordered(
-        lambda b: pl_mod.decompress(body[b[0] : b[0] + b[1]], verify=nested, device=dev),
+        lambda b: pl_mod.decompress(body[b[0] : b[0] + b[1]], verify=nested, device=dev, route=route),
         bounds,
         workers,
     )

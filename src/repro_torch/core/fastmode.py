@@ -58,6 +58,7 @@ from . import lossless as ll_mod
 from . import pipeline as pl_mod
 from . import preprocess as pre_mod
 from . import telemetry as tel
+from . import transform as tr_mod
 from .config import CompressionConfig, ErrorBoundMode
 from .integrity import ContainerError, guard_alloc, guard_count, guard_shape
 from .pipeline import CompressionResult, container_body, pack_container
@@ -522,5 +523,9 @@ def sz3_fast(bs: int = DEFAULT_BS, lossless: str = "none", route: str = "auto", 
     return FastModeCompressor(bs=bs, lossless=ll_mod.make(lossless), route=route, **kw)
 
 
-# registration (fastmode imports pipeline, never vice versa)
+# registration (fastmode imports pipeline/transform, never vice versa); the
+# fast tier also joins the auto contest — sz3_auto / sz3_quality read
+# AUTO_CANDIDATES at call time, so they pick this up
 pl_mod.PIPELINES["sz3_fast"] = sz3_fast
+if "sz3_fast" not in tr_mod.AUTO_CANDIDATES:
+    tr_mod.AUTO_CANDIDATES = tr_mod.AUTO_CANDIDATES + ("sz3_fast",)

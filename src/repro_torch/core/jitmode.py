@@ -543,10 +543,11 @@ def decode_host(c: BlockCodes) -> np.ndarray:
 def host_compress(arr, engine: str = "sz3_auto", conf=None, device=None):
     """Route an array through a REGISTERED pipeline of the port (the
     facade's door to the entropy-coded engines), on ``device`` (default
-    ``"cuda"``).  ``sz3_auto`` is not ported yet: like any unregistered
-    engine it raises ``KeyError`` naming the registered ones."""
-    from . import fastmode, transform  # noqa: F401 (register their pipelines)
+    ``"cuda"``).  The default ``sz3_auto`` contests every coder family per
+    chunk; an unregistered engine raises ``KeyError`` naming the registered
+    ones."""
     from . import pipeline as pl_mod
+    from .transform import sz3_auto  # noqa: F401 (registers sz3_auto)
 
     if engine not in pl_mod.PIPELINES:
         raise KeyError(f"unknown engine {engine!r}; registered: {sorted(pl_mod.PIPELINES)}")

@@ -31,6 +31,14 @@ Named factory pipelines ported so far:
                     fastmode.py)
   sz3_pwr         — pointwise-relative engine: log-composed chunk
                     pipelines, v4 container (chunking.py)
+  sz3_auto        — the chunked engine contesting prediction, transform,
+                    block-hybrid and fast coders per chunk (transform.py)
+  sz3_hybrid      — block-level multi-predictor hybrid engine: per-block
+                    zero/Lorenzo-1/Lorenzo-2/regression contest feeding one
+                    shared entropy stream (blockwise.py; v5 container)
+  sz3_quality     — quality-targeted rate control over the auto contest
+                    (PSNR, ratio or bitrate targets; quality.py, v2
+                    container)
 
 Pointwise-relative bounds (PW_REL) run through ``preprocess.LogTransform``
 in the preprocessor slot, which hands the predictor a float64 log field.
@@ -38,6 +46,7 @@ in the preprocessor slot, which hands the predictor a float64 log field.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
@@ -131,6 +140,21 @@ def _finite_stats(data: torch.Tensor) -> Tuple[float, float]:
     return mx - mn, max(abs(mn), abs(mx))
 
 
+def _clean_meta(meta: Dict[str, Any]) -> Dict[str, Any]:
+    """Coerce numpy scalars and arrays so msgpack accepts the header."""
+    out = {}
+    for k, v in meta.items():
+        if isinstance(v, np.integer):
+            out[k] = int(v)
+        elif isinstance(v, np.floating):
+            out[k] = float(v)
+        elif isinstance(v, np.ndarray):
+            out[k] = v.tolist()
+        else:
+            out[k] = v
+    return out
+
+
 def pack_container(
     header: Dict[str, Any], body: bytes, chunk_bounds: Optional[Any] = None
 ) -> bytes:
@@ -207,16 +231,18 @@ class SZ3Compressor:
         }
 
     @staticmethod
-    def from_spec(spec: Dict[str, Any], device: Device = "cuda") -> "SZ3Compressor":
+    def from_spec(spec: Dict[str, Any], device: Device = "cuda", route: str = "auto") -> "SZ3Compressor":
+        """The compressor a container's spec names, on ``device``; ``route``
+        goes to a Lorenzo predictor."""
         for role, registry in _MODULES.items():
             if spec[role] not in registry:
                 raise ContainerError(
-                    f"container {role} {spec[role]!r} is not yet ported to "
-                    "repro_torch"
+                    f"unknown container {role} {spec[role]!r}"
                 )
+        routed = {"route": route} if spec["predictor"] == pred_mod.LorenzoPredictor.name else {}
         return SZ3Compressor(
             preprocessor=pre_mod.make(spec["preprocessor"]),
-            predictor=pred_mod.make(spec["predictor"]),
+            predictor=pred_mod.make(spec["predictor"], **routed),
             quantizer=quant_mod.make(spec["quantizer"], radius=spec["quant_radius"]),
             encoder=enc_mod.make(spec["encoder"]),
             lossless=ll_mod.make(spec["lossless"]),
@@ -311,15 +337,24 @@ def decompress(
     workers: Optional[int] = None,
     verify: str = "strict",
     device: Device = None,
+    route: str = "auto",
 ):
     """Self-describing decompression — rebuilds the pipeline from the header
     and runs it on ``device`` (default ``"cuda"``).  Returns a tensor on that
     device.
 
-    Reads v1 single-pipeline containers whose modules are ported (the
-    truncation coder's too), v2 multi-chunk, v3 transform, v4
-    pointwise-relative multi-chunk and v6 fast-tier containers; every other
-    container kind raises :class:`ContainerError` naming it.  ``workers``
+    ``route`` is the Lorenzo decode's kernel route for blobs the kernel
+    route wrote, as for ``LorenzoPredictor``: ``"auto"`` takes the kernel on
+    CUDA tensors and the host route on the CPU, ``"force"`` runs the
+    kernel's plain version on CPU tensors too (bit for bit the card's
+    decode), ``"off"`` never takes it.  The other decoders give the same
+    bits on every route.
+
+    Reads v1 single-pipeline containers (the truncation coder's too), v2
+    multi-chunk (the quality controller's too), v3 transform, v4
+    pointwise-relative multi-chunk, v5 block-hybrid and v6 fast-tier
+    containers; a container kind it does not know raises
+    :class:`ContainerError` naming it.  ``workers``
     decodes the chunks of a v2/v4 container on that many threads (ignored
     for single-pipeline blobs).
 
@@ -329,7 +364,7 @@ def decompress(
       raise :class:`IntegrityError` naming the damage.  Blobs written before
       the trailer era carry no checksums and pass unverified.
     * ``"salvage"`` — return ``(data, SalvageReport)``: a v2 container
-      loses only its damaged chunks (zero-filled); a v1, v3 or v6 body is
+      loses only its damaged chunks (zero-filled); a v1, v3, v5 or v6 body is
       one stream, so damage loses the whole array.
     * ``"off"`` — skip checksum verification (malformed-structure errors
       still raise).
@@ -338,6 +373,8 @@ def decompress(
     """
     if verify not in VERIFY_MODES:
         raise ValueError(f"verify must be one of {VERIFY_MODES}, got {verify!r}")
+    if route not in pred_mod._ROUTES:
+        raise ValueError(f"route must be one of {pred_mod._ROUTES}, got {route!r}")
     dev = resolve_device(device)
     blob = bytes(blob)
     with decode_errors("container"):
@@ -355,8 +392,8 @@ def decompress(
         if _is_multichunk(header):
             from .chunking import decompress_chunked  # local: avoids import cycle
 
-            return decompress_chunked(blob, header, body_off, workers, verify, dev)
-        return _decoder(header)(blob, header, body_off, dev)
+            return decompress_chunked(blob, header, body_off, workers, verify, dev, route)
+        return _decoder(header, route)(blob, header, body_off, dev)
 
 
 def _is_multichunk(header: Dict[str, Any]) -> bool:
@@ -364,10 +401,10 @@ def _is_multichunk(header: Dict[str, Any]) -> bool:
     return header.get("v", _VERSION) >= 2 and header.get("kind") in ("chunked", "pwr")
 
 
-def _decoder(header: Dict[str, Any]):
-    """The body decoder of a parsed single-body container's generation;
-    raises :class:`ContainerError` naming a container kind this package
-    cannot decode yet."""
+def _decoder(header: Dict[str, Any], route: str = "auto"):
+    """The body decoder of a parsed single-body container's generation (a v1
+    decoder on ``route``); raises :class:`ContainerError` naming a container
+    kind this package does not know."""
     spec = header["spec"]
     if not isinstance(spec, dict):
         raise ContainerError("corrupt container: spec is not a map")
@@ -382,11 +419,15 @@ def _decoder(header: Dict[str, Any]):
         from .fastmode import FastModeCompressor  # local: avoids import cycle
 
         return FastModeCompressor._decompress_body
+    if kind == "hybrid":  # v5 block-level multi-predictor containers
+        from .blockwise import BlockHybridCompressor  # local: avoids import cycle
+
+        return BlockHybridCompressor._decompress_body
     if kind != SZ3Compressor.kind:
         raise ContainerError(
-            f"container kind {kind!r} is not yet ported to repro_torch"
+            f"unknown container kind {kind!r}"
         )
-    return _decompress_v1
+    return functools.partial(_decompress_v1, route=route)
 
 
 def _max_codes(spec: Dict[str, Any], header: Dict[str, Any], pshape: Tuple[int, ...], n_elems: int) -> int:
@@ -414,12 +455,12 @@ def _max_codes(spec: Dict[str, Any], header: Dict[str, Any], pshape: Tuple[int, 
 
 
 def _decompress_v1(
-    blob: bytes, header: Dict[str, Any], body_off: int, device: torch.device
+    blob: bytes, header: Dict[str, Any], body_off: int, device: torch.device, route: str = "auto"
 ) -> torch.Tensor:
     """The v1 single-pipeline decode path, with every header-declared size
     bounded before allocation."""
     spec = header["spec"]
-    comp = SZ3Compressor.from_spec(spec, device=device)
+    comp = SZ3Compressor.from_spec(spec, device=device, route=route)
     dtype = _torch_dtype(header["dtype"], "dtype")
     pdtype = _torch_dtype(header["pdtype"], "pdtype")
     shape = guard_shape(header["shape"], dtype.itemsize, "shape")
@@ -475,7 +516,7 @@ def _decompress_salvage(
     workers: Optional[int] = None,
 ):
     """``verify="salvage"``: a v2 container recovers every intact chunk and
-    zero-fills the damaged ones (see ``chunking.salvage_chunked``); a v1, v3
+    zero-fills the damaged ones (see ``chunking.salvage_chunked``); a v1, v3, v5
     or v6 body is one stream, so it is all-or-nothing — a failed checksum or
     decode zero-fills the whole array and records one damage entry.  A
     damaged HEADER is not salvageable and raises :class:`IntegrityError`."""

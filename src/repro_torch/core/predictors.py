@@ -131,7 +131,7 @@ def block_coords(b: int, nd: int, device=None) -> List[torch.Tensor]:
 def block_sums(blocks: torch.Tensor) -> torch.Tensor:
     """Per-block sums of (nb, ...) in the order ``np.sum`` over the block
     axes takes (one contiguous run per block)."""
-    return pairwise_rowsum(blocks.reshape(blocks.shape[0], -1))
+    return pairwise_rowsum(blocks.reshape(blocks.shape[0], math.prod(blocks.shape[1:])))
 
 
 def _plane(qhat: Sequence[torch.Tensor], cs: Sequence[torch.Tensor], nb: int) -> torch.Tensor:
@@ -141,6 +141,54 @@ def _plane(qhat: Sequence[torch.Tensor], cs: Sequence[torch.Tensor], nb: int) ->
     for k in range(nd):
         pred = pred + qhat[1 + k].reshape((nb,) + (1,) * nd) * cs[k]
     return pred
+
+
+def block_lorenzo_filter(qblocks: torch.Tensor, order: int = 1) -> torch.Tensor:
+    """Block-local Lorenzo filter, batched: axis 0 indexes blocks, the stencil
+    runs over axes 1..nd only (zero-padded block boundaries, as in SZ2's
+    block-wise candidate)."""
+    d = qblocks
+    for _ in range(order):
+        for ax in range(1, qblocks.ndim):
+            shape = list(d.shape)
+            shape[ax] = 1
+            d = torch.diff(d, dim=ax, prepend=d.new_zeros(shape))
+    return d
+
+
+def block_lorenzo_inverse(dblocks: torch.Tensor, order: int = 1) -> torch.Tensor:
+    """Inverse of :func:`block_lorenzo_filter` (per-block cumulative sums)."""
+    q = dblocks
+    for _ in range(order):
+        for ax in range(q.ndim - 1, 0, -1):
+            q = torch.cumsum(q, dim=ax)
+    return q
+
+
+def block_plane_fit(
+    blocks: torch.Tensor, b: int, eb: float
+) -> Tuple[List[torch.Tensor], torch.Tensor, torch.Tensor]:
+    """Batched SZ2 hyperplane fit on pre-blockified float64 data.
+
+    Returns ``(coef_q, pred, bad)``: per-block quantized coefficient integers
+    (nd+1 int64 streams, SZ2 bounds — eb/2 intercept, eb/(2b) slopes), the
+    prediction every decoder rebuilds from them, and a per-block mask of
+    fits that are not finite or reach 2^62 bins (nan/inf inputs), whose
+    coefficients are zeroed: such blocks must not win a contest."""
+    nd = blocks.ndim - 1
+    nb = blocks.shape[0]
+    bad = torch.zeros(nb, dtype=torch.bool, device=blocks.device)
+    coef_q: List[torch.Tensor] = []
+    qhat: List[torch.Tensor] = []
+    for k, vals in enumerate(_fit_coeffs(blocks, b)):
+        step = 2.0 * _coef_eb(eb, k, b)
+        scaled = true_div(vals, step)
+        finite = torch.isfinite(scaled) & (scaled.abs() < float(2**62))
+        bad |= ~finite
+        q = rint_int64(torch.where(finite, scaled, 0.0))
+        coef_q.append(q)
+        qhat.append(q.to(torch.float64) * step)
+    return coef_q, _plane(qhat, block_coords(b, nd, blocks.device), nb), bad
 
 
 # -- estimators: host numpy, the JAX package's code ---------------------------

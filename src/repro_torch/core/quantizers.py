@@ -80,8 +80,12 @@ def _pairwise(v: torch.Tensor, lo: int, n: int) -> torch.Tensor:
 
 
 #: block shapes whose sums decide bytes: regression/composite blocks of the
-#: default 6 in 1-3 D, the composite's strided samples, a long run
-_PROBE_SHAPES = ((6,), (2,), (2, 2), (2, 2, 2), (6, 6), (3, 3, 3), (6, 6, 6), (300,))
+#: default 6 in 1-3 D, the composite's strided samples, a long run, and the
+#: block hybrid's blocks in 1-4 D
+_PROBE_SHAPES = (
+    (6,), (2,), (2, 2), (2, 2, 2), (6, 6), (3, 3, 3), (6, 6, 6), (300,),
+    (256,), (16, 16), (8, 8, 8), (4, 4, 4, 4),
+)
 
 
 @functools.lru_cache(maxsize=1)

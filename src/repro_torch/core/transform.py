@@ -39,7 +39,9 @@ the float64 host inverse, which every compress verifies.  The tag is never a
 JAX backend name, so the JAX package decodes this package's blobs through
 its host inverse too.
 
-Containers carry the v3 header tag (``kind: "transform"``).
+Containers carry the v3 header tag (``kind: "transform"``).  The module also
+holds ``sz3_auto``, the chunked engine over ``AUTO_CANDIDATES`` (prediction,
+transform, block-hybrid and fast coders contesting per chunk).
 """
 from __future__ import annotations
 
@@ -52,6 +54,7 @@ import torch
 from . import lossless as ll_mod
 from . import pipeline as pl_mod
 from . import telemetry as tel
+from .chunking import DEFAULT_CANDIDATES, ChunkedCompressor
 from .config import CompressionConfig
 from .integrity import ContainerError, guard_alloc, guard_count, guard_shape
 from .pipeline import CompressionResult, container_body, pack_container
@@ -391,5 +394,26 @@ def sz3_transform(lossless: str = "zstd", route: str = "auto", **kw) -> Transfor
     return TransformCompressor(lossless=lossless, route=route, **kw)
 
 
+#: prediction AND transform entrants — the online SZ/ZFP selection criterion.
+#: blockwise.py appends "sz3_hybrid" and fastmode.py "sz3_fast" at import
+#: time, so consumers read this at CALL time (late binding), never capture it
+#: in a default argument.
+AUTO_CANDIDATES: Tuple[str, ...] = DEFAULT_CANDIDATES + ("sz3_transform",)
+
+
+def sz3_auto(candidates=None, chunk_bytes: int = 1 << 22, workers: int = 1, **kw) -> ChunkedCompressor:
+    """Chunked engine contesting prediction vs transform (vs block-hybrid vs
+    fast) per chunk.  ``candidates=None`` resolves ``AUTO_CANDIDATES`` at
+    call time so late-registered engines join the contest; ``kw`` goes to
+    :class:`ChunkedCompressor` (``conf``, ``route``, ``device``, ...)."""
+    return ChunkedCompressor(
+        candidates=AUTO_CANDIDATES if candidates is None else candidates,
+        chunk_bytes=chunk_bytes,
+        workers=workers,
+        **kw,
+    )
+
+
 # registration happens here (transform imports pipeline, not vice versa)
 pl_mod.PIPELINES["sz3_transform"] = sz3_transform
+pl_mod.PIPELINES["sz3_auto"] = sz3_auto

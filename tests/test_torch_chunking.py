@@ -568,9 +568,11 @@ def test_pwr_refuses_other_modes():
         tc.sz3_pwr(device=CPU).compress(PWR["1d"], tc.CompressionConfig())
 
 
-def test_sz3_auto_is_not_yet_a_pipeline():
-    with pytest.raises(KeyError):
-        t_ch._make_pipeline("sz3_auto")
+def test_sz3_auto_builds_a_chunked_engine_over_auto_candidates():
+    eng = t_ch._make_pipeline("sz3_auto", device=CPU)
+    assert isinstance(eng, t_ch.ChunkedCompressor) and eng.kind == "chunked"
+    assert eng.candidates == tc.AUTO_CANDIDATES == rc.AUTO_CANDIDATES
+    assert eng.device == CPU
 
 
 def test_launch_counter_is_thread_safe():

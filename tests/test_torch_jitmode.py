@@ -306,15 +306,24 @@ def test_empty_input(spec):
 
 
 def test_host_compress_names_the_registered_engines():
-    with pytest.raises(KeyError, match="sz3_auto") as err:
-        tj.host_compress(np.zeros(16, np.float32), device=CPU)
-    for name in ("sz3_fast", "sz3_lorenzo", "sz3_transform"):
-        assert name in str(err.value)
+    """The default engine ``sz3_auto`` round-trips within the bound and
+    writes the JAX package's bytes; an unknown engine raises ``KeyError``
+    naming the registered ones."""
     x = np.cumsum(np.random.default_rng(3).standard_normal(5000)).astype(np.float32)
     conf = tc.CompressionConfig(mode=tc.ErrorBoundMode.ABS, eb=1e-3)
-    res = tj.host_compress(x, "sz3_lorenzo", conf, device=CPU)
+    res = tj.host_compress(x, conf=conf, device=CPU)
+    assert tc.parse_header(res.blob)[0]["kind"] == "chunked"
     back = tj.host_decompress(res.blob, device=CPU).numpy()
     assert np.abs(back - x).max() <= 1e-3
+    import repro.core as rc
+
+    assert res.blob == rj.host_compress(x, conf=rc.CompressionConfig(mode=rc.ErrorBoundMode.ABS, eb=1e-3)).blob
+    with pytest.raises(KeyError, match="sz3_wavelet") as err:
+        tj.host_compress(x, "sz3_wavelet", conf, device=CPU)
+    for name in ("sz3_auto", "sz3_fast", "sz3_hybrid", "sz3_lorenzo", "sz3_quality", "sz3_transform"):
+        assert name in str(err.value)
+    res = tj.host_compress(x, "sz3_lorenzo", conf, device=CPU)
+    assert np.abs(tj.host_decompress(res.blob, device=CPU).numpy() - x).max() <= 1e-3
 
 
 # ---------------------------------------------------------------------------

@@ -56,11 +56,12 @@ LORENZO_FIXTURES = {"v1_lorenzo_abs.sz3", "v1_lorenzo.sz3"}
 #: was ported (``test_ported_fixture_decodes_like_the_reference``)
 CHUNKED_FIXTURES = ("v1_lr_rel.sz3", "v2_chunked_rel.sz3", "v2_quality_psnr.sz3", "faults/v2_chunked.sz3")
 #: corpus files of the kinds the port decodes (v1 Lorenzo, composite and
-#: log-preprocessed, v2, v3, v4, v6)
+#: log-preprocessed, v2, v3, v4, v5, v6): all of them
 PORTED_FIXTURES = LORENZO_FIXTURES | {pathlib.PurePath(f).name for f in CHUNKED_FIXTURES} | {
     "v3_transform_abs.sz3", "v3_transform.sz3",
     "v6_fast_mixed_abs.sz3", "v6_fast_const_rel.sz3", "v6_fast.sz3",
     "v1_log_pwrel.sz3", "v4_pwr.sz3",
+    "v5_hybrid_const_rel.sz3", "v5_hybrid_mixed_abs.sz3", "v5_hybrid.sz3",
 }
 CPU = "cpu"
 
@@ -347,13 +348,45 @@ def test_malformed_input_raises_value_error(case, verify):
         tc.decompress(MALFORMED[case](), verify=verify, device=CPU)
 
 
-@pytest.mark.parametrize(
-    "path", [p for p in CORPUS if p.name not in PORTED_FIXTURES and "corrupt" not in p.name],
-    ids=lambda p: p.name,
-)
-def test_unported_kinds_raise_container_error(path):
-    with pytest.raises(tc.ContainerError, match="not yet ported"):
-        tc.decompress(path.read_bytes(), verify="off", device=CPU)
+@pytest.mark.parametrize("path", CORPUS, ids=lambda p: str(p.relative_to(DATA)))
+def test_every_corpus_file_is_ported_and_decodes(path, monkeypatch):
+    """Every kind in the corpus is ported: each pristine file decodes to the
+    reference's bits and to its pinned array; each ``*_corrupt`` file fails
+    strict verification as ``faults/manifest.json`` pins it."""
+    if r_int._crc32c_mod is None:
+        monkeypatch.setattr(r_int, "_crc32c_mod", types.SimpleNamespace(
+            extend=lambda value, data: t_int.crc32c_numpy(data, value)))
+    blob = path.read_bytes()
+    if "corrupt" in path.name:
+        man = json.loads((FAULTS / "manifest.json").read_text())[path.stem.replace("_corrupt", "")]
+        with pytest.raises(tc.IntegrityError):
+            tc.decompress(blob, device=CPU)
+        _, report = tc.decompress(blob, verify="salvage", device=CPU)
+        assert sorted(d.index for d in report.damage) == man.get("damaged_chunks", [0])
+        return
+    assert path.name in PORTED_FIXTURES
+    got = tc.decompress(blob, device=CPU).numpy()
+    _assert_same_bits(got, ref_decompress(blob))
+    _assert_same_bits(got, np.load(path.with_suffix(".npy")))
+
+
+def _respec(blob, **spec):
+    """``blob``'s v1 container with spec fields replaced (no trailer)."""
+    header, body_off = tc.parse_header(blob)
+    header = dict(header, spec=dict(header["spec"], **spec))
+    header.pop("itg", None)
+    h = _msgpack.packb(header)
+    body = blob[body_off : body_off + int.from_bytes(blob[12:20], "little")]
+    return b"SZ3J" + np.asarray([len(h), len(body)], np.int64).tobytes() + h + body
+
+
+@pytest.mark.parametrize("spec", [{"kind": "wavelet"}, {"predictor": "spline"}, {"encoder": "arithmetic"}],
+                         ids=["kind", "predictor", "encoder"])
+def test_unported_kinds_raise_container_error(spec):
+    """A container kind or module this package does not know (none of the
+    JAX package's is left unported) raises a typed error naming it."""
+    with pytest.raises(tc.ContainerError, match="unknown container"):
+        tc.decompress(_respec(_real_blob(), **spec), verify="off", device=CPU)
 
 
 def test_unknown_verify_policy_raises():

@@ -104,14 +104,47 @@ Phases, one JSON line each:
    compressions that ran on the card, per-chunk eb, iterations,
    confirmations and picks, and the share of the MSE stage (numpy on host
    copies);
-12. compressed DP step: a seeded gradient tree with Qwen1.5-0.5B's full
+12. telemetry (``telemetry``): a traced ``sz3_chunked`` compress and
+   decode of the field at REL 1e-4, at ``workers=1`` and ``workers=4``: the
+   traced blobs (their chunk tables carry ``sel`` entries) equal each other
+   and the plain route's traced blob, ``explain`` and the live decision
+   records read the same from both, launches equal the routed chunks; the
+   trace's stage seconds (its spans synchronise the card at exit) beside
+   the wrapped stages, ``trace_summary`` and the Prometheus page's lines;
+13. checkpoint (``checkpoint``): Qwen1.5-0.5B's train state at full width
+   (d_model 1024, d_ff 2816, vocab 151936, QKV bias, tied embedding) with
+   its stacked blocks cut from 24 layers to 2, laid out as the JAX
+   package's ``init_train_state`` lays it out: bf16 ``params``, float32
+   ``opt/m`` and ``opt/v`` from two steps of ``adamw.update`` on gradients
+   made on the card, ``opt/step``; saved under the default
+   ``CheckpointPolicy`` sync and async (every param ``add_(1)`` in place
+   after the async ``save()`` returns: the two checkpoints must be equal),
+   restored onto the card from a meta-device template: lossless leaves bit
+   for bit, lossy leaves within their recorded bound, a sample of leaf
+   blobs (one per whole-leaf codec, 4 chunks of each ``sz3_auto_rel`` leaf)
+   equal to the plain route's on the host, launches of a save and a
+   restore equal to the chunks routed to each kernel;
+14. KV offload (``offload``): one ``OffloadService`` on the card (thread
+   executor, ABS 1e-3, 64 KiB chunks, strict verify) with one sequence's K
+   and V pages of (4096, 1024) float32 made by ``v_cache`` (on these every chunk
+   picks ``sz3_interp``, so no kernel runs), one chunk of one page
+   corrupted through ``faults.corrupt_chunk``, 256 fetches (whole pages and
+   chunks, half at two hot pages): exactly the requests that read the
+   damaged chunk fail
+   with ``OffloadError``, every fetched value keeps the bound and equals
+   the plain route's decode of the same blob, ``encode_2d`` launches equal
+   the chunks routed to ``sz3_lorenzo`` and ``decode_2d`` launches the
+   chunk decodes that missed the cache (plus the whole-page decodes);
+   request latency p50/p99 from the port's ``StreamingHistogram``; a put
+   of a quarter page under ``cProfile`` (where a put's host time goes);
+15. compressed DP step: a seeded gradient tree with Qwen1.5-0.5B's full
    shapes (463,987,712 parameters) through ``compressed_reduce_tree``
    (``int8:bs=512`` and ``int4:bs=512``) on a one-rank NCCL group opened
    through a ``FileStore`` in a temporary directory, every block within its
    bound and the card's codes equal to ``encode_host`` on the host copy;
    then three ``adamw.update`` steps with compressed moments
    (``int8:bs=256``);
-13. KV prefill: ``quantize_prefill``/``dequantize_prefill`` on one layer's K
+16. KV prefill: ``quantize_prefill``/``dequantize_prefill`` on one layer's K
    and V, (1, 32768, 16, 64), within the per-token bound and equal to
    ``encode_host``; then ``kv_quantize`` on the V cache as (32768, 1024) and
    ``kv_dequant_matmul`` with 128 rows of attention weights — the
@@ -1542,12 +1575,13 @@ def phase_host_route(seed: int) -> None:
         emit("axis of 4 sz3_transform", shape=list(shape), same_bytes_as_cpu=True, max_abs_err=err)
 
 
-def qwen_tree(seed: int, scale: float) -> dict:
+def qwen_tree(seed: int, scale: float, layers: int = QWEN["layers"]) -> dict:
     """A tree with Qwen1.5-0.5B's full parameter shapes, as the JAX
     package's ``init_lm`` lays it out (layers stacked under ``blocks``),
-    filled on the card from ``seed``: 463,987,712 float32 values."""
+    filled on the card from ``seed``: 463,987,712 float32 values at the full
+    24 layers."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    L, d, ff = QWEN["layers"], QWEN["d"], QWEN["ff"]
+    L, d, ff = layers, QWEN["d"], QWEN["ff"]
 
     def leaf(*shape):
         return torch.randn(shape, generator=g, device="cuda") * scale
@@ -2247,6 +2281,517 @@ def phase_quality(x2d: torch.Tensor, launches_total: dict) -> None:
              expected_launches={k: v for k, v in expected.items() if v})
 
 
+# ---------------------------------------------------------------------------
+# telemetry, the checkpoint manager and the KV-offload service
+# ---------------------------------------------------------------------------
+
+def _decode_launches(picks, ndim: int) -> dict:
+    """Launches a chunked container's decode makes on the card: one
+    ``decode_2d`` (or ``decode_1d``) per kernel-routed Lorenzo chunk (the
+    transform and fast tiers are not in these paths' contests)."""
+    name = "decode_2d" if ndim == 2 else "decode_1d"
+    return {name: sum(1 for p, n in picks if p == "sz3_lorenzo" and _takes_kernel_route(p, n))}
+
+
+def phase_telemetry(x: torch.Tensor, launches_total: dict) -> None:
+    """A traced ``sz3_chunked`` compress and decode of the field at one and
+    four workers: the traced blobs are equal, each equals the plain route's
+    traced blob, ``explain`` reads the same records from both, launches
+    equal the chunks routed to the kernels; the trace's stage seconds (its
+    spans synchronise the card at exit) beside the phase's wrapped stages."""
+    import repro_torch.core as tc
+    from repro_torch.core import telemetry
+
+    conf = tc.CompressionConfig(mode=tc.ErrorBoundMode.REL, eb=1e-4)
+    runs = {}
+    for workers in (1, 4):
+        reset_all_launches()
+        with telemetry.trace(f"sz3_chunked workers={workers}") as tr:
+            res, t_c = _timed(lambda: tc.sz3_chunked(workers=workers).compress(x, conf, with_stats=True))
+        c_totals = tr.stage_totals()
+        with telemetry.trace("decompress") as trd:
+            out, t_d = _timed(lambda: tc.decompress(res.blob))
+        launches = all_launches()
+        inner = math.prod(x.shape[1:])
+        expected = _expected_chunk_launches([(c["pipeline"], c["n0"] * inner) for c in res.meta["chunks"]], x.ndim)
+        for name, want in expected.items():
+            if launches[name] != want:
+                raise AssertionError(f"telemetry workers={workers}: kernel {name} launched {launches[name]} times, "
+                                     f"expected {want} for the chunks routed to it")
+            launches_total[name] += launches[name]
+        header = tc.parse_header(res.blob)[0]
+        if not all("sel" in c for c in header["chunks"]):
+            raise AssertionError("a traced chunked blob lacks its sel entries")
+        runs[workers] = (res, tr, trd, c_totals, t_c, t_d, out, launches)
+    (res1, tr1, trd1, totals1, t_c1, t_d1, out1, launches1), (res4, tr4, *_rest) = runs[1], runs[4]
+    if res4.blob != res1.blob:
+        raise AssertionError("the traced workers=4 blob differs from the traced serial one")
+    x_cpu = x.cpu()
+    with telemetry.trace("plain") as trp:
+        plain = tc.sz3_chunked(device="cpu", route="force").compress(x_cpu, conf).blob
+    if plain != res1.blob:
+        raise AssertionError("the card's traced blob differs from the plain route's traced blob")
+    records = telemetry.explain(res1.blob)
+    if records != telemetry.explain(plain) or [r["winner"] for r in records] != [r["winner"] for r in tr1.decisions]:
+        raise AssertionError("explain reads other records from the card's blob than from the plain route's")
+    if tr1.decisions != trp.decisions or tr4.decisions != tr1.decisions:
+        raise AssertionError("the live decision records differ between the card, workers=4 and the plain route")
+    abs_eb = tc.parse_header(_chunk_blobs(res1.blob)[0])[0]["abs_eb"]
+    err = float((out1.double() - x.double()).abs().max())
+    if err > abs_eb:
+        raise AssertionError(f"telemetry: traced decode error {err} breaks the bound {abs_eb}")
+    summary = telemetry.trace_summary(tr1)
+    print(summary, flush=True)
+    emit(
+        "telemetry sz3_chunked 2-D",
+        shape=list(x.shape),
+        chunks=len(res1.meta["chunks"]),
+        picks=[c["pipeline"] for c in res1.meta["chunks"]],
+        traced_compress_s=t_c1,
+        traced_decompress_s=t_d1,
+        decisions=len(tr1.decisions),
+        explain_records=len(records),
+        same_bytes_as_workers4_and_plain_route=True,
+        trace_summary=summary.splitlines(),
+        trace_compress_stage_seconds={k: v["seconds"] for k, v in totals1.items()},
+        trace_decompress_stage_seconds={k: v["seconds"] for k, v in trd1.stage_totals().items()},
+        stages=stage_breakdown("sz3_chunked", x, conf),
+        launches={k: v for k, v in launches1.items() if v},
+        expected_launches={k: v for k, v in expected.items() if v},
+        prometheus_lines=len(telemetry.prometheus_text().splitlines()),
+        max_abs_err=err,
+    )
+
+
+#: the checkpoint's train state: Qwen1.5-0.5B at full width (d_model 1024,
+#: d_ff 2816, vocab 151936, QKV bias, tied embedding), its stacked blocks cut
+#: from 24 layers to 2
+CKPT_LAYERS = 2
+#: chunks of each ``sz3_auto_rel`` leaf held to the plain route's bytes
+CKPT_SAMPLE_CHUNKS = 4
+
+
+def _ckpt_state(seed: int) -> dict:
+    """``init_train_state``'s layout: bf16 params, float32 AdamW moments
+    after two steps of the port's ``adamw.update`` on gradients made on the
+    card, and the step."""
+    from repro_torch import tree as tree_util
+    from repro_torch.optim import adamw
+
+    params = tree_util.tree_map(lambda t: t.to(torch.bfloat16), qwen_tree(seed + 50, 0.02, CKPT_LAYERS))
+    cfg = adamw.AdamWConfig(lr=1e-3)
+    opt = adamw.init_state(params, cfg)
+    for step in range(2):
+        grads = qwen_tree(seed + 51 + step, 1e-3, CKPT_LAYERS)
+        params, opt, _ = adamw.update(params, grads, opt, cfg)
+        del grads
+    return {"params": params, "opt": opt}
+
+
+def _leaf_blob_abs_eb(blob: bytes) -> float:
+    """The bound a lossy leaf's container records (its first v1 body's)."""
+    import repro_torch.core as tc
+
+    header, _ = tc.parse_header(blob)
+    return tc.parse_header(_chunk_blobs(blob)[0])[0]["abs_eb"] if "chunks" in header else header["abs_eb"]
+
+
+def _ckpt_expected_launches(manifest: dict, files: dict) -> dict:
+    """Launches of one save and one restore: each lossy leaf's Lorenzo
+    compress and decode (the leaf reshaped to (rows, -1)), or its chunks'."""
+    import repro_torch.core as tc
+
+    picks = []
+    for meta in manifest["leaves"].values():
+        shape = meta["shape"]
+        inner = math.prod(shape[1:]) if len(shape) > 1 else 1
+        if meta["codec"] == "sz3_lorenzo_rel" and len(shape) > 1:
+            picks.append(("sz3_lorenzo", math.prod(shape)))
+        elif meta["codec"] == "sz3_auto_rel":
+            header = tc.parse_header(files[meta["file"]])[0]
+            picks += [(c["pipeline"], c["n0"] * inner) for c in header["chunks"]]
+    return _expected_chunk_launches(picks, 2), picks
+
+
+def _ckpt_plain_sample(manifest: dict, files: dict, leaves: dict) -> dict:
+    """The sampled leaf blobs against the plain route on the host: one leaf
+    of each whole-leaf codec (the largest ``sz3_lorenzo_rel`` leaf, the
+    smallest lossless one), and ``CKPT_SAMPLE_CHUNKS`` chunks (first, last
+    and two between) of every ``sz3_auto_rel`` leaf, through the chunked
+    engine's own per-chunk path (selection included)."""
+    import repro_torch.core as tc
+    from repro_torch.core import pipeline
+    from repro_torch.core.chunking import ChunkedCompressor
+    from repro_torch.ft import checkpoint as ck
+
+    conf = tc.CompressionConfig(mode=tc.ErrorBoundMode.REL, eb=1e-4)
+    def preference(meta):
+        n = math.prod(meta["shape"])
+        return n if meta["codec"] == "sz3_lorenzo_rel" else -n
+
+    jobs = []
+    by_codec: dict = {}
+    for path, meta in manifest["leaves"].items():
+        if meta["codec"] != "sz3_auto_rel":
+            best = by_codec.get(meta["codec"])
+            if best is None or preference(meta) > preference(manifest["leaves"][best]):
+                by_codec[meta["codec"]] = path
+    for codec, path in by_codec.items():
+        meta = manifest["leaves"][path]
+        leaf = leaves[path].cpu()
+        if codec == "sz3_lorenzo_rel":
+            flat2d = leaf.reshape(leaf.shape[0], -1) if leaf.ndim > 1 else leaf
+            jobs.append((path, lambda f=flat2d: tc.sz3_lorenzo(device="cpu", route="force").compress(f, conf).blob,
+                         files[meta["file"]]))
+        else:
+            pol = ck.CheckpointPolicy().for_path(path)
+            jobs.append((path, lambda t=leaf, p=pol: ck.encode_leaf(t, p)[0], files[meta["file"]]))
+    chunk_checks = 0
+    for path, meta in manifest["leaves"].items():
+        if meta["codec"] != "sz3_auto_rel":
+            continue
+        blob = files[meta["file"]]
+        header, _ = tc.parse_header(blob)
+        parts = _chunk_blobs(blob)
+        n = len(parts)
+        pick = sorted({0, n - 1, n // 3, (2 * n) // 3})[:CKPT_SAMPLE_CHUNKS]
+        flat2d = leaves[path].cpu().reshape(meta["shape"][0], -1)
+        abs_eb = conf.resolve_abs_eb(*pipeline._finite_stats(flat2d))  # the engine's global bound
+        eff = conf.replace(mode=tc.ErrorBoundMode.ABS, eb=abs_eb)
+        starts = np.cumsum([0] + [c["n0"] for c in header["chunks"]])
+        eng = ChunkedCompressor(candidates=ck._LOSSY_CANDIDATES, device="cpu", route="force")
+        for i in pick:
+            chunk = flat2d[starts[i] : starts[i + 1]]
+            jobs.append((f"{path}#{i}", lambda c=chunk, a=abs_eb, e=eff: eng._compress_chunk(c, a, e)[0], parts[i]))
+            chunk_checks += 1
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        got = list(pool.map(lambda job: job[1](), jobs))
+    for (label, _, want), blob in zip(jobs, got):
+        if blob != want:
+            raise AssertionError(f"checkpoint: {label}'s blob differs from the plain route's")
+    return {"whole_leaves": sorted(by_codec.values()), "chunks": chunk_checks}
+
+
+def phase_checkpoint(seed: int, launches_total: dict) -> None:
+    """Qwen1.5-0.5B's train state (2 layers) saved under the default policy,
+    sync and async (params ``add_(1)`` in place after the async save
+    returns), then restored onto the card from a meta-device template:
+    lossless leaves bit for bit, lossy ones within their recorded bound,
+    sampled blobs equal to the plain route's, launches equal to the chunks
+    routed to the Lorenzo kernels."""
+    import shutil
+    import tempfile
+
+    from repro_torch import tree as tree_util
+    from repro_torch.core import telemetry
+    from repro_torch.ft import CheckpointManager
+
+    torch.cuda.empty_cache()
+    state = _ckpt_state(seed)
+    leaves = dict(tree_util.flatten_with_path(state)[0])
+    saved = tree_util.tree_map(lambda t: t.clone(), state)
+    n_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    lossless_bytes = sum(t.numel() * t.element_size() for p, t in leaves.items() if p.startswith("params/"))
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "chiprun_out"))
+    try:
+        sync = CheckpointManager(tmp / "sync", use_async=False)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        _, t_save = _timed(lambda: sync.save(1, state))
+        save_launches = all_launches()
+        manifest = json.loads((tmp / "sync" / "step_1" / "manifest.json").read_text())
+        files = {m["file"]: (tmp / "sync" / "step_1" / m["file"]).read_bytes() for m in manifest["leaves"].values()}
+        asyn = CheckpointManager(tmp / "async", use_async=True)
+        reset_all_launches()
+        t0 = time.perf_counter()
+        asyn.save(1, state)
+        t_return = time.perf_counter() - t0
+        for leaf in tree_util.flatten(state["params"])[0]:
+            leaf.add_(1)  # an optimizer's in-place update, racing the save
+        asyn.wait()
+        torch.cuda.synchronize()
+        t_async = time.perf_counter() - t0
+        async_launches = all_launches()
+        if async_launches != save_launches:
+            raise AssertionError(f"checkpoint: the async save launched {async_launches}, the sync one {save_launches}")
+        amanifest = json.loads((tmp / "async" / "step_1" / "manifest.json").read_text())
+        for path, meta in manifest["leaves"].items():
+            other = amanifest["leaves"][path]
+            if {k: v for k, v in meta.items() if k != "seconds"} != {k: v for k, v in other.items() if k != "seconds"}:
+                raise AssertionError(f"checkpoint: {path}'s async manifest entry differs from the sync one")
+            if (tmp / "async" / "step_1" / meta["file"]).read_bytes() != files[meta["file"]]:
+                raise AssertionError(f"checkpoint: {path}'s async leaf differs from the sync one")
+        template = tree_util.tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype, device="meta"), saved)
+        reset_all_launches()
+        with telemetry.trace("checkpoint restore") as tr:  # a trace changes no decoded bit
+            (restored, _), t_restore = _timed(lambda: asyn.restore(template))
+        restore_launches = all_launches()
+        expected, picks = _ckpt_expected_launches(manifest, files)
+        for name, want in expected.items():
+            got = save_launches[name] + restore_launches[name]
+            if got != want:
+                raise AssertionError(f"checkpoint: kernel {name} launched {got} times in a save and a restore, "
+                                     f"expected {want} for the leaves and chunks routed to it")
+            launches_total[name] += save_launches[name] + async_launches[name] + restore_launches[name]
+        per_leaf = {}
+        for (path, want), got in zip(tree_util.flatten_with_path(saved)[0], tree_util.flatten(restored)[0]):
+            meta = manifest["leaves"][path]
+            if got.device.type != "cuda" or got.dtype != want.dtype or got.shape != want.shape:
+                raise AssertionError(f"checkpoint: {path} restored as {got.dtype} {tuple(got.shape)} on {got.device}")
+            if meta["codec"].startswith("sz3_"):
+                bound = _leaf_blob_abs_eb(files[meta["file"]])
+                err = float((got.double() - want.double()).abs().max())
+                if not err <= bound:
+                    raise AssertionError(f"checkpoint: {path}'s error {err} breaks its bound {bound}")
+            else:
+                bits = (lambda t: t.view(torch.int16)) if want.dtype == torch.bfloat16 else (lambda t: t)
+                if not torch.equal(bits(got), bits(want)):
+                    raise AssertionError(f"checkpoint: lossless leaf {path} did not restore bit for bit")
+                err = 0.0
+            per_leaf[path] = {"codec": meta["codec"], "ratio": meta["ratio"], "seconds": meta["seconds"],
+                              "max_abs_err": err}
+        sample = _ckpt_plain_sample(manifest, files, dict(tree_util.flatten_with_path(saved)[0]))
+        codecs = collections.Counter(m["codec"] for m in manifest["leaves"].values())
+        emit(
+            "checkpoint qwen1.5-0.5b train state",
+            layers=CKPT_LAYERS,
+            leaves=len(per_leaf),
+            state_bytes=n_bytes,
+            lossless_param_bytes=lossless_bytes,
+            lossy_moment_bytes=sum(t.numel() * t.element_size() for p, t in leaves.items()
+                                   if manifest["leaves"][p]["codec"].startswith("sz3_")),
+            checkpoint_bytes=manifest["bytes_out"],
+            ratio=manifest["ratio"],
+            codecs=dict(codecs),
+            chunk_picks=dict(collections.Counter(p for p, _ in picks)),
+            save_s=t_save,
+            save_seconds_by_codec={c: sum(m["seconds"] for m in manifest["leaves"].values() if m["codec"] == c)
+                                   for c in codecs},
+            async_save_return_s=t_return,
+            async_save_s=t_async,
+            restore_s=t_restore,
+            restore_stage_seconds={k: v["seconds"] for k, v in tr.stage_totals().items()},
+            save_MBps=n_bytes / 1e6 / t_save,
+            restore_MBps=n_bytes / 1e6 / t_restore,
+            async_snapshot_survives_add_=True,
+            plain_route_sample=sample,
+            per_leaf=per_leaf,
+            launches={k: save_launches[k] + restore_launches[k] for k in save_launches
+                      if save_launches[k] + restore_launches[k]},
+            expected_launches={k: v for k, v in expected.items() if v},
+        )
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del state, saved, leaves
+    torch.cuda.empty_cache()
+
+
+#: KV pages: one layer's K or V for one sequence at a 4096-token window,
+#: (4096, 1024) float32 (16 MiB); tenants x pages (cut from 4 x 2: at 2 x 2
+#: the puts took 168 s); fetches, half of them at the two hot pages
+OFFLOAD_PAGE = (4096, 1024)
+OFFLOAD_TENANTS, OFFLOAD_PAGES_EACH, OFFLOAD_FETCHES = 1, 2, 256
+
+
+def _offload_requests(pages, n_chunks: int, bad, seed: int):
+    """``OFFLOAD_FETCHES`` requests: every 128th a whole page (one per page),
+    the rest single chunks; half of them at the two hot pages' first 8 chunks, and a
+    few at the damaged chunk ``bad`` = (page, chunk)."""
+    rng = np.random.default_rng(seed)
+    hot = pages[:2]
+    reqs = []
+    for i in range(OFFLOAD_FETCHES):
+        if i % 128 == 127:
+            reqs.append((*pages[(i // 128) % len(pages)], None))
+        elif i % 2:
+            reqs.append((*hot[int(rng.integers(0, 2))], int(rng.integers(0, 8))))
+        elif i % 32 == 6:
+            reqs.append((*bad[0], bad[1]))
+        else:
+            reqs.append((*pages[int(rng.integers(0, len(pages)))], int(rng.integers(0, n_chunks))))
+    return reqs
+
+
+def _put_profile(page: torch.Tensor) -> dict:
+    """Where a put's time goes: the first quarter of ``page`` compressed as
+    the service compresses a page, on this thread under ``cProfile`` (a
+    put's executor thread is not profiled): the functions with the most own
+    time, and the cumulative time of the chunk contest and the Huffman
+    tree builds."""
+    import cProfile
+    import pstats
+
+    from repro_torch.serve import offload as off
+
+    rows = page.shape[0] // 4
+    part = page[:rows].contiguous()
+    prof = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prof.enable()
+    off._compress_page(part, "abs", 1e-3, None, 1 << 16, "cuda")
+    torch.cuda.synchronize()
+    prof.disable()
+    wall = time.perf_counter() - t0
+    stats = pstats.Stats(prof).stats
+    chunks = part.numel() * part.element_size() // (1 << 16)
+
+    def label(key):
+        return f"{pathlib.Path(key[0]).name}:{key[1]}({key[2]})"
+
+    def cumulative(name):
+        return sum(v[3] for k, v in stats.items() if k[2] == name)
+
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:12]
+    return {
+        "chunks": chunks,
+        "seconds": wall,
+        "ms_per_chunk": wall / chunks * 1e3,
+        "select_pipeline_s": cumulative("select_pipeline"),
+        "huffman_code_lengths_s": cumulative("_huffman_code_lengths"),
+        "top_own_s": [{"function": label(k), "calls": v[1], "own_s": v[2], "cum_s": v[3]} for k, v in top],
+    }
+
+
+def phase_offload(seed: int, launches_total: dict) -> None:
+    """One ``OffloadService`` on the card (thread executor, defaults: ABS
+    1e-3, 64 KiB chunks, strict verify): one sequence's K and V put, one chunk
+    of one page corrupted (``put_compressed`` of ``faults.corrupt_chunk``),
+    256 fetches.  Exactly the requests that read the damaged chunk fail;
+    every fetched chunk keeps the bound and equals the plain route's decode
+    of the same blob; ``encode_2d`` launches equal the chunks routed to
+    ``sz3_lorenzo``, ``decode_2d`` launches the chunk decodes that missed the
+    cache (plus the whole-page decodes' routed chunks)."""
+    import asyncio
+
+    import repro_torch.core as tc
+    from repro_torch.core import faults, telemetry
+    from repro_torch.serve import OffloadError, OffloadService
+    from repro_torch.serve import offload as off
+
+    telemetry.reset_metrics()
+    data = {(f"t{i}", kv): v_cache(OFFLOAD_PAGE, seed + 60 + 2 * i + j)
+            for i in range(OFFLOAD_TENANTS) for j, kv in enumerate(("k", "v")[:OFFLOAD_PAGES_EACH])}
+    pages = list(data)
+    decoded = []
+    real = off.decompress_chunk
+
+    def counted(blob, index, *a, **k):
+        out = real(blob, index, *a, **k)
+        decoded.append((off.blob_key(blob), int(index)))
+        return out
+
+    async def run():
+        async with OffloadService() as svc:
+            torch.cuda.synchronize()
+            reset_all_launches()
+            t0 = time.perf_counter()
+            reports = await asyncio.gather(*[svc.put(t, p, x) for (t, p), x in data.items()])
+            torch.cuda.synchronize()
+            t_put = time.perf_counter() - t0
+            put_launches = all_launches()
+            blobs = {key: svc._pages[key] for key in pages}
+            n_chunks = reports[0]["chunks"]
+            bad = (pages[-1], n_chunks // 3)
+            blobs[bad[0]] = faults.corrupt_chunk(blobs[bad[0]], bad[1])
+            await svc.put_compressed(*bad[0], blobs[bad[0]], n_in=reports[-1]["n_in"])
+            reqs = _offload_requests(pages, n_chunks, bad, seed)
+            before = svc.cache.stats()
+            reset_all_launches()
+            t0 = time.perf_counter()
+            results = await asyncio.gather(*[svc.fetch(*r) for r in reqs], return_exceptions=True)
+            torch.cuda.synchronize()
+            t_fetch = time.perf_counter() - t0
+            return (reports, t_put, put_launches, blobs, bad, reqs, results, t_fetch, all_launches(),
+                    before, svc.cache.stats(), svc.stats())
+
+    off.decompress_chunk = counted
+    try:
+        (reports, t_put, put_launches, blobs, bad, reqs, results, t_fetch, fetch_launches,
+         before, after, stats) = asyncio.run(run())
+    finally:
+        off.decompress_chunk = real
+    picks = {key: [(c["pipeline"], c["n0"] * OFFLOAD_PAGE[1]) for c in tc.parse_header(b)[0]["chunks"]]
+             for key, b in blobs.items()}
+    routed = {key: _decode_launches(p, 2)["decode_2d"] for key, p in picks.items()}
+    if put_launches["encode_2d"] != sum(routed.values()) or put_launches["decode_2d"] != sum(routed.values()):
+        raise AssertionError(f"offload: puts launched {put_launches['encode_2d']} encode_2d and "
+                             f"{put_launches['decode_2d']} decode_2d, expected {sum(routed.values())} each")
+    # exactly the requests that read the damaged chunk fail
+    failed = [i for i, r in enumerate(results) if isinstance(r, BaseException)]
+    should = [i for i, (t, p, c) in enumerate(reqs) if (t, p) == bad[0] and c in (None, bad[1])]
+    if failed != should or not all(isinstance(results[i], OffloadError) for i in failed):
+        raise AssertionError(f"offload: requests {failed} failed, {should} read the damaged chunk")
+    misses = after["chunk_misses"] - before["chunk_misses"]
+    bad_misses = sum(1 for t, p, c in reqs if (t, p) == bad[0] and c == bad[1])
+    if len(decoded) != misses - bad_misses:
+        raise AssertionError(f"offload: {len(decoded)} chunk decodes for {misses - bad_misses} good cache misses")
+    keys = {off.blob_key(b): key for key, b in blobs.items()}
+    whole = [(t, p) for i, (t, p, c) in enumerate(reqs) if c is None and i not in failed]
+    want_decode = sum(1 for k, i in decoded if picks[keys[k]][i][0] == "sz3_lorenzo") + sum(routed[k] for k in whole)
+    if fetch_launches["decode_2d"] != want_decode or fetch_launches["encode_2d"]:
+        raise AssertionError(f"offload: fetches launched {fetch_launches['decode_2d']} decode_2d "
+                             f"(and {fetch_launches['encode_2d']} encode_2d), expected {want_decode}")
+    for name in ("encode_2d", "decode_2d"):
+        launches_total[name] += put_launches[name] + fetch_launches[name]
+    # every fetched chunk: within the bound, and the plain route's decode
+    rows = OFFLOAD_PAGE[0] // len(picks[pages[0]])
+    good = [(r, out) for r, out in zip(reqs, results) if not isinstance(out, BaseException)]
+    wanted = sorted({r for r, _ in good}, key=str)
+
+    def plain(r):
+        t, p, c = r
+        blob = blobs[(t, p)] if c is None else _chunk_blobs(blobs[(t, p)])[c]
+        return tc.decompress(blob, device="cpu", route="force")
+
+    with concurrent.futures.ThreadPoolExecutor(8) as pool:
+        plain_out = dict(zip(wanted, pool.map(plain, wanted)))
+    max_err = 0.0
+    for (t, p, c), out in good:
+        want = plain_out[(t, p, c)]
+        x = data[(t, p)] if c is None else data[(t, p)][c * rows : (c + 1) * rows]
+        if not (out.device.type == "cuda" and same_bits(out.cpu(), want)):
+            raise AssertionError(f"offload: fetch {t}/{p}[{c}] differs from the plain route's decode")
+        max_err = max(max_err, float((out.double() - x.double()).abs().max()))
+    if not max_err <= 1e-3:
+        raise AssertionError(f"offload: a fetched value's error {max_err} breaks the bound 1e-3")
+    put_profile = _put_profile(data[pages[0]])
+    snap = telemetry.METRICS.snapshot()
+    lat = snap["histograms"]["sz3_serve_request_seconds"]
+    n_in = sum(r["n_in"] for r in reports)
+    n_out = sum(len(b) for b in blobs.values())
+    emit(
+        "offload kv pages",
+        page_shape=list(OFFLOAD_PAGE),
+        pages=len(pages),
+        chunks_per_page=len(picks[pages[0]]),
+        chunk_picks=dict(collections.Counter(name for p in picks.values() for name, _ in p)),
+        fetches=len(reqs),
+        whole_page_fetches=sum(1 for r in reqs if r[2] is None),
+        failed_requests=len(failed),
+        put_s=t_put,
+        put_MBps=n_in / 1e6 / t_put,
+        fetch_s=t_fetch,
+        request_p50_s=lat["p50"],
+        request_p99_s=lat["p99"],
+        chunk_cache_hits=after["chunk_hits"] - before["chunk_hits"],
+        chunk_cache_misses=misses,
+        chunk_decodes=len(decoded),
+        batches=snap["counters"]["sz3_serve_batches_total"],
+        batched_requests=snap["counters"]["sz3_serve_batched_requests_total"],
+        ratio=n_in / n_out,
+        max_abs_err=max_err,
+        same_as_plain_route=True,
+        prometheus_lines=len(telemetry.prometheus_text().splitlines()),
+        huffman_table_cache=stats["huffman_table_cache"],
+        put_profile=put_profile,
+        launches={k: put_launches[k] + fetch_launches[k] for k in ("encode_2d", "decode_2d")},
+        expected_launches={"encode_2d": sum(routed.values()), "decode_2d": sum(routed.values()) + want_decode},
+    )
+    del data
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2286,6 +2831,12 @@ def main() -> int:
     t_auto = time.perf_counter()
     phase_quality(x2d, launches)
     t_quality = time.perf_counter()
+    phase_telemetry(x2d, launches)
+    t_telemetry = time.perf_counter()
+    phase_checkpoint(args.seed, launches)
+    t_checkpoint = time.perf_counter()
+    phase_offload(args.seed, launches)
+    t_offload = time.perf_counter()
     phase_dp_step(args.seed)
     t_dp = time.perf_counter()
     phase_kv_path(args.seed, launches)
@@ -2300,7 +2851,10 @@ def main() -> int:
         "hybrid": t_hybrid - t_aps,
         "auto": t_auto - t_hybrid,
         "quality": t_quality - t_auto,
-        "dp step": t_dp - t_quality,
+        "telemetry": t_telemetry - t_quality,
+        "checkpoint": t_checkpoint - t_telemetry,
+        "offload": t_offload - t_checkpoint,
+        "dp step": t_dp - t_offload,
         "kv path": time.perf_counter() - t_dp,
     }
     summary = {

@@ -9,9 +9,12 @@ built from, the v2 chunked engine ``sz3_chunked`` and its widest contest
 ``sz3_quality``, pointwise-relative bounds (``LogTransform``, the v4 engine
 ``sz3_pwr``) and the customized pipelines of §4 (GAMESS: ``sz3_pastri``,
 ``sz_pastri``, ``sz_pastri_zstd``), §5 (APS: ``sz3_aps``) and §6.2
-(``sz3_truncation``).
+(``sz3_truncation``); with them the telemetry spine (spans, decision
+records, ``explain``, the metrics registry), the fault generator ``faults``
+and ``verify_blob``.
 """
-from . import telemetry  # noqa: I001  (stdlib-only; imported first)
+from . import telemetry  # noqa: I001  (imports no other core module; first)
+from .telemetry import Trace, explain, trace_summary
 from . import encoders, lossless, metrics, predictors, preprocess, quantizers
 from . import integrity
 from .config import CompressionConfig, ErrorBoundMode
@@ -20,6 +23,7 @@ from .integrity import (
     ContainerError,
     IntegrityError,
     SalvageReport,
+    verify_blob,
 )
 from .pipeline import (  # noqa: I001  (chunking must import after pipeline)
     PIPELINES,
@@ -75,16 +79,22 @@ from .quality import (  # noqa: I001  (quality must import after transform)
     achieved_quality,
     sz3_quality,
 )
+from . import faults  # noqa: I001  (faults reads containers through pipeline)
 
 __all__ = [
     "telemetry",
+    "Trace",
+    "explain",
+    "trace_summary",
     "CompressionConfig",
     "ErrorBoundMode",
     "ContainerError",
     "IntegrityError",
     "SalvageReport",
     "ChunkDamage",
+    "verify_blob",
     "integrity",
+    "faults",
     "SZ3Compressor",
     "TruncationCompressor",
     "AdaptiveAPSCompressor",

@@ -337,7 +337,8 @@ class BlockHybridCompressor:
         eb = quantizer.eb
         # prequantize once for all integer-grid candidates; fail marks points
         # the grid cannot represent in bound (non-finite, cast rounding)
-        qfull, _recon, fail = quantizer.prequantize(blocks)
+        with tel.span("quantize", bytes=blocks.numel() * blocks.element_size()):
+            qfull, _recon, fail = quantizer.prequantize(blocks)
         d1, d2, qres, coef_q, pred_reg, reg_bad = _candidate_codes(blocks, qfull, eb)
         tags = _select_tags(qfull, d1, d2, qres, coef_q, reg_bad)
         use_reg = tags == TAG_REG
@@ -380,8 +381,7 @@ class BlockHybridCompressor:
         q_len = guard_alloc(header["q_len"], "q_len")
         tag_len = guard_alloc(header["tag_len"], "tag_len")
         total = guard_alloc(enc_len + q_len + tag_len, "hybrid body")
-        with tel.span("lossless", bytes=total):
-            body = ll_mod.make(spec["lossless"]).decompress_bounded(container_body(blob, body_off), total)
+        body = ll_mod.make(spec["lossless"]).decompress_bounded(container_body(blob, body_off), total)
         if len(body) != total:
             raise ContainerError(
                 f"hybrid body decompressed to {len(body)} bytes; header "
@@ -421,8 +421,7 @@ class BlockHybridCompressor:
                 f"shape {list(padded_shape)}, work shape {list(work_shape)} and "
                 f"pshape {list(pshape)} do not agree"
             )
-        with tel.span("huffman", bytes=len(enc_bytes)):
-            codes_np = encoder.decode(enc_bytes, n_codes)
+        codes_np = encoder.decode(enc_bytes, n_codes)
         if tag_len != (nb + 3) // 4:
             raise ContainerError(
                 f"corrupt hybrid container: tag channel holds {tag_len} "

@@ -443,8 +443,8 @@ class ChunkedCompressor:
         builds its own pipeline instances, which hold quantizer state), so
         the function is pure in (chunk, eff) and parallel output is
         byte-identical to serial.  The 4th element is the selection-decision
-        info, computed only while a trace records (never, until tracing is
-        ported).
+        info, computed only while a trace records, so the untraced path does
+        no extra work and writes containers without ``sel`` entries.
 
         PW_REL chunks compose ``preprocess.LogTransform`` into the winning
         Algorithm-1 pipeline: selection scores the log-domain view of the

@@ -35,10 +35,9 @@ gather.
 from __future__ import annotations
 
 import abc
-import heapq
 import threading
 from collections import OrderedDict
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -55,6 +54,46 @@ _HIST_MAX = 1 << 22
 # canonical Huffman machinery
 # ---------------------------------------------------------------------------
 
+def _huffman_tree_depths(f: np.ndarray) -> np.ndarray:
+    """Leaf depths of the greedy Huffman tree of ``f`` (at least 2 leaves).
+
+    The two-queue form of the classic heap [36]: leaves sorted by (freq,
+    index), merged nodes in creation order (their freqs never decrease).
+    Taking the smaller head, a leaf on a tie, pops nodes in the heap's
+    (freq, id) order, so the tree, and every length, is the heap's."""
+    n = f.size
+    order = np.argsort(f, kind="stable")
+    leaf_f = f[order].tolist()
+    big = sum(leaf_f) + 1  # above every node (Python ints): ends an emptied queue
+    leaf_f.append(big)
+    leaf_id = order.tolist()
+    merged = [big] * (n - 1)
+    parent = [0] * (2 * n - 1)
+    i = j = 0
+    for node in range(n, 2 * n - 1):
+        if leaf_f[i] <= merged[j]:
+            a = leaf_f[i]
+            parent[leaf_id[i]] = node
+            i += 1
+        else:
+            a = merged[j]
+            parent[n + j] = node
+            j += 1
+        if leaf_f[i] <= merged[j]:
+            b = leaf_f[i]
+            parent[leaf_id[i]] = node
+            i += 1
+        else:
+            b = merged[j]
+            parent[n + j] = node
+            j += 1
+        merged[node - n] = a + b
+    depth = [0] * (2 * n - 1)
+    for node in range(2 * n - 3, -1, -1):  # a parent's id exceeds its children's
+        depth[node] = depth[parent[node]] + 1
+    return np.array(depth[:n], np.uint8)
+
+
 def _huffman_code_lengths(freqs: np.ndarray) -> np.ndarray:
     """Code length per symbol with freq > 0 (classic greedy heap [36])."""
     sym = np.flatnonzero(freqs)
@@ -64,28 +103,7 @@ def _huffman_code_lengths(freqs: np.ndarray) -> np.ndarray:
         return np.ones(1, np.uint8), sym
     f = freqs[sym].astype(np.int64)
     while True:
-        heap = [(int(fi), i, None) for i, fi in enumerate(f)]
-        heapq.heapify(heap)
-        nodes = {}
-        counter = len(heap)
-        while len(heap) > 1:
-            a = heapq.heappop(heap)
-            b = heapq.heappop(heap)
-            nodes[counter] = (a[1], b[1])
-            heapq.heappush(heap, (a[0] + b[0], counter, None))
-            counter += 1
-        lengths = np.zeros(counter, np.uint8)
-        root = heap[0][1]
-        stack = [(root, 0)]
-        while stack:
-            node, depth = stack.pop()
-            if node in nodes:
-                l, r = nodes[node]
-                stack.append((l, depth + 1))
-                stack.append((r, depth + 1))
-            else:
-                lengths[node] = max(1, depth)
-        lens = lengths[: sym.size]
+        lens = _huffman_tree_depths(f)
         if lens.max() <= _MAXLEN:
             return lens, sym
         # cap: flatten the distribution and rebuild (zlib heuristic)
@@ -93,18 +111,18 @@ def _huffman_code_lengths(freqs: np.ndarray) -> np.ndarray:
 
 
 def _canonical_codes(lens_sorted: np.ndarray) -> np.ndarray:
-    """Canonical codes for symbols already sorted by (len, symbol)."""
-    codes = np.zeros(lens_sorted.size, np.uint32)
-    # code_i = (code_{i-1} + 1) << (len_i - len_{i-1}); alphabet is small so a
-    # python recurrence is fine (the data-sized paths are all vectorized)
-    shifted = np.zeros(lens_sorted.size, np.int64)
-    shifted[1:] = (lens_sorted[1:] - lens_sorted[:-1]).astype(np.int64)
-    c = 0
-    for i in range(lens_sorted.size):
-        if i:
-            c = (c + 1) << int(shifted[i])
-        codes[i] = c
-    return codes
+    """Canonical codes for symbols already sorted by (len, symbol).
+
+    code_i = (code_{i-1} + 1) << (len_i - len_{i-1}) is the Kraft sum of the
+    shorter codes, sum_{k<i} 2^-len_k, scaled by 2^len_i: exact in int64 for
+    lengths up to ``_MAXLEN``."""
+    if lens_sorted.size == 0:
+        return np.zeros(0, np.uint32)
+    lens = lens_sorted.astype(np.int64)
+    top = int(lens.max())
+    kraft = np.zeros(lens.size, np.int64)
+    np.cumsum(np.left_shift(1, top - lens[:-1]), out=kraft[1:])
+    return np.right_shift(kraft, top - lens).astype(np.uint32)
 
 
 class _HuffTable:
@@ -416,6 +434,36 @@ def _alphabet_of(arr: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     return vals, np.bincount(inv), inv.astype(np.int64)
 
 
+class HuffmanDecodeHandle:
+    """Parsed, reusable decode state for one Huffman blob: the alphabet
+    values, the built canonical table and the stream offset, so a caller
+    that decodes the same blob repeatedly (the serving layer's random-access
+    reads) pays the header parse and table build once.  The handle pins its
+    table, so it stays valid after the signature leaves the module LRU."""
+
+    __slots__ = ("vals", "table", "stream_pos")
+
+    def __init__(self, vals: np.ndarray, table: _HuffTable, stream_pos: int):
+        self.vals = vals
+        self.table = table
+        self.stream_pos = stream_pos
+
+
+def huffman_decode_handle(buf: bytes) -> Optional[HuffmanDecodeHandle]:
+    """A :class:`HuffmanDecodeHandle` for a ``HuffmanEncoder`` blob; None for
+    the empty-stream blob (k == 0), which decodes without a table."""
+    # alphabet header: K, symbol values (int64), lengths (uint8)
+    k = int(np.frombuffer(buf, np.int64, count=1)[0])
+    if k == 0:
+        return None
+    pos = 8
+    vals = np.frombuffer(buf, np.int64, count=k, offset=pos)
+    pos += k * 8
+    lens = np.frombuffer(buf, np.uint8, count=k, offset=pos)
+    pos += k
+    return HuffmanDecodeHandle(vals, _cached_table(lens), pos)
+
+
 class HuffmanEncoder(Encoder):
     """Canonical Huffman built from the observed code frequencies [36].
 
@@ -442,20 +490,15 @@ class HuffmanEncoder(Encoder):
         head = np.asarray([vals.size], np.int64).tobytes()
         return head + vals.astype(np.int64).tobytes() + lens.tobytes() + stream
 
-    def decode(self, buf, n):
-        # alphabet header: K, symbol values (int64), lengths (uint8)
-        k = int(np.frombuffer(buf, np.int64, count=1)[0])
-        if k == 0:  # empty stream
+    def decode(self, buf, n, handle: Optional[HuffmanDecodeHandle] = None):
+        if handle is None:
+            handle = huffman_decode_handle(buf)
+        if handle is None:  # empty stream (k == 0)
             return np.zeros(0, np.int64)
-        pos = 8
-        vals = np.frombuffer(buf, np.int64, count=k, offset=pos)
-        pos += k * 8
-        lens = np.frombuffer(buf, np.uint8, count=k, offset=pos)
-        pos += k
-        idx, _ = _decode_stream(buf, pos, _cached_table(lens))
+        idx, _ = _decode_stream(buf, handle.stream_pos, handle.table)
         if idx.size != n:
             raise ValueError(f"huffman stream length mismatch {idx.size} != {n}")
-        return vals[idx]
+        return handle.vals[idx]
 
 
 class LegacyHuffmanEncoder(HuffmanEncoder):

@@ -266,9 +266,20 @@ class FastModeCompressor:
         with tel.span("lossless", bytes=sum(len(p) for p in body_parts)):
             body = self.lossless.compress(b"".join(body_parts))
         blob = pack_container(header, body)
-        # while a trace records (tel.enabled()), the JAX package takes a
-        # block-summary decision record here; none is taken until tracing
-        # is ported
+        if tel.enabled():
+            nb, n_const = int(fmeta["nb"]), int(fmeta["n_const"])
+            tel.record_decision(tel.make_decision(
+                "sz3_fast",
+                "constant" if n_const * 2 > nb else "fixed_length",
+                scope="block-summary",
+                candidates=["constant", "fixed_length"],
+                estimates={"constant": float(n_const),
+                           "fixed_length": float(nb - n_const)},
+                realized_bits=8.0 * len(blob) / max(1, data.numel()),
+                n_elems=int(data.numel()),
+                fallbacks=int(fmeta["nfail"]),
+                device="device" if fmeta.get("device") else "host",
+            ))
         meta = None
         if with_stats:
             meta = {k: v for k, v in fmeta.items() if not isinstance(v, bytes)}

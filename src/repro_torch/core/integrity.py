@@ -489,6 +489,17 @@ def _nchunks(header: Dict[str, Any]) -> int:
     return len(chunks) if isinstance(chunks, list) else 1
 
 
+def verify_blob(blob: bytes) -> bool:
+    """One-call integrity check (no decode): True when a trailer was present
+    and every checksum passed, False for legacy trailer-less blobs; raises
+    :class:`IntegrityError` / :class:`ContainerError` on damage."""
+    from . import pipeline as pl_mod  # local: integrity is imported by pipeline
+
+    with decode_errors():
+        header, body_off = pl_mod.parse_header(blob)
+        return verify_container(blob, header, body_off).has_trailer
+
+
 # ---------------------------------------------------------------------------
 # salvage reporting
 # ---------------------------------------------------------------------------

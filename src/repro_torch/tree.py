@@ -8,6 +8,14 @@ flattens a dict in SORTED key order, while ``torch.utils._pytree`` keeps
 insertion order; this module follows JAX, so a tree flattens to the same
 vector in both packages.  ``None`` is an empty subtree, as in JAX; any
 other object (a namedtuple included) is a leaf.
+
+:func:`flatten_with_path` also names each leaf by its path, as the JAX
+package's checkpoint manager names it (``ft/checkpoint.py``'s ``_path_str``
+over ``jax.tree_util.tree_flatten_with_path``): keys joined with ``/``,
+sequence indices as numbers, namedtuple fields by name.  There, as in JAX,
+a namedtuple is a node, not a leaf.  The strings pick a leaf's checkpoint
+policy and name its file, so a checkpoint crosses between the packages only
+if both build the same strings.
 """
 from __future__ import annotations
 
@@ -37,6 +45,30 @@ def _flatten(tree, leaves: List[Any]) -> TreeDef:
     return ("leaf",)
 
 
+def flatten_with_path(tree) -> Tuple[List[Tuple[str, Any]], TreeDef]:
+    """``(path, leaf)`` pairs in JAX order and the structure to rebuild
+    (with :func:`unflatten`).  Namedtuples are nodes here, their fields in
+    declaration order."""
+    out: List[Tuple[str, Any]] = []
+    return out, _flatten_path(tree, (), out)
+
+
+def _flatten_path(tree, path: Tuple[str, ...], out: List[Tuple[str, Any]]) -> TreeDef:
+    if tree is None:
+        return ("none",)
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        return ("dict", tuple(keys), tuple(_flatten_path(tree[k], path + (str(k),), out) for k in keys))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        children = tuple(_flatten_path(v, path + (f,), out) for f, v in zip(tree._fields, tree))
+        return ("namedtuple", type(tree), children)
+    if isinstance(tree, (list, tuple)):
+        kind = "list" if isinstance(tree, list) else "tuple"
+        return (kind, tuple(_flatten_path(t, path + (str(i),), out) for i, t in enumerate(tree)))
+    out.append(("/".join(path), tree))
+    return ("leaf",)
+
+
 def unflatten(treedef: TreeDef, leaves) -> Any:
     """Inverse of :func:`flatten`."""
     it = iter(leaves)
@@ -60,6 +92,8 @@ def _unflatten(treedef: TreeDef, it) -> Any:
         return None
     if kind == "dict":
         return {k: _unflatten(c, it) for k, c in zip(treedef[1], treedef[2])}
+    if kind == "namedtuple":
+        return treedef[1](*[_unflatten(c, it) for c in treedef[2]])
     children = [_unflatten(c, it) for c in treedef[1]]
     return children if kind == "list" else tuple(children)
 

@@ -30,13 +30,13 @@ import torch
 
 import repro_torch.core as tc
 from repro_torch.core import blockwise as t_bw
+from repro_torch.core import faults
 from repro_torch.core import integrity as t_int
 from repro_torch.core import predictors as t_pred
 
 try:  # the card's test below needs no JAX
     import repro.core as rc
     from repro.core import blockwise as r_bw
-    from repro.core import faults
     from repro.core import integrity as r_int
     from repro.core import predictors as r_pred
 except ImportError:  # pragma: no cover - a machine without JAX

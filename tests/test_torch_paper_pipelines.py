@@ -310,6 +310,39 @@ def test_encoder_bytes_and_reference_streams(name, seed):
     np.testing.assert_array_equal(np.asarray(make[0]().decode(port, codes.size), np.int64), codes.astype(np.int64))
 
 
+def _frequencies(kind, n, rng):
+    if kind == "ties":
+        return rng.integers(0, 5, n)
+    if kind == "uniform":
+        return rng.integers(0, 1000, n)
+    if kind == "heavy_tail":  # deep trees: the length cap's rebuilds
+        return np.round(np.exp(rng.normal(0, 4, n))).astype(np.int64)
+    if kind == "powers_of_two":  # one leaf per level, past the length cap
+        return 2 ** np.minimum(np.arange(n), 40)
+    if kind == "constant":
+        return np.full(n, 7)
+    return rng.poisson(np.exp(-np.abs(np.arange(n) - n / 2) / max(1, n / 40)) * 1e5)  # quantization codes
+
+
+@pytest.mark.parametrize("kind", ["ties", "uniform", "heavy_tail", "powers_of_two", "constant", "codes"])
+def test_huffman_lengths_and_canonical_codes_are_the_references(kind):
+    """The port builds the tree by a two-queue merge, the reference by a
+    heap: the lengths (ties, the length cap's rebuilds) and canonical codes
+    must be the same for every alphabet size."""
+    rng = np.random.default_rng(len(kind))
+    for n in [1, 2, 3, 5, 17, *rng.integers(1, 3000, 12).tolist()]:
+        f = np.asarray(_frequencies(kind, n, rng), np.int64)
+        (t_lens, t_sym), (r_lens, r_sym) = t_enc._huffman_code_lengths(f), r_enc._huffman_code_lengths(f)
+        np.testing.assert_array_equal(t_sym, r_sym)
+        np.testing.assert_array_equal(t_lens, r_lens)
+        assert t_lens.dtype == r_lens.dtype
+        if r_lens.size:
+            lens = r_lens[np.lexsort((r_sym, r_lens))]
+            t_codes, r_codes = t_enc._canonical_codes(lens), r_enc._canonical_codes(lens)
+            np.testing.assert_array_equal(t_codes, r_codes)
+            assert t_codes.dtype == r_codes.dtype
+
+
 def test_legacy_huffman_stream_reads_through_the_fast_decoder():
     codes = _codes(3)
     v1 = t_enc.LegacyHuffmanEncoder().encode(codes)

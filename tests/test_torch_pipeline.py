@@ -30,7 +30,6 @@ from repro.core import CompressionConfig as RConf
 from repro.core import ErrorBoundMode as RMode
 from repro.core import decompress as ref_decompress
 from repro.core import encoders as r_enc
-from repro.core import faults
 from repro.core import integrity as r_int
 from repro.core import lossless as r_ll
 from repro.core import metrics as r_metrics
@@ -41,6 +40,7 @@ from repro.core.predictors import ZeroPredictor as RZero
 
 import repro_torch.core as tc
 from repro_torch.core import _msgpack
+from repro_torch.core import faults
 from repro_torch.core import encoders as t_enc
 from repro_torch.core import integrity as t_int
 from repro_torch.core import lossless as t_ll
@@ -423,6 +423,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.core.jitmode, repro_torch.compression, repro_torch.optim, repro_torch.tree\n"
         "import repro_torch.kernels.kvquant.ops, repro_torch.core.chunking\n"
         "import repro_torch.kernels.bitplane.ops\n"
+        "import repro_torch.codec, repro_torch.ft, repro_torch.serve, repro_torch.core.faults\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

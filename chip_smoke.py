@@ -17,7 +17,9 @@ Phases, one JSON line each:
    and (54, 3600), on (1, 5000), (5000, 1), (2, 4099), (65, 129) and on
    wrapping sums (3, 70001) and (300, 1000); chunk shapes timed over
    ``CHUNK_REPS`` calls), the float32 transform (``fwd``/``inv``,
-   1d and 2d modes), the float64 transform axis product (against numpy's
+   1d and 2d modes; also, over 101 calls, at the ``checkpoint`` phase's
+   chunks (1024, 1024) and 1-row chunks padded to (4, 2^20) and
+   (4, 2883584)), the float64 transform axis product (against numpy's
    product on the host), the fast tier's ``block_stats`` (bs 128, 256;
    also at the throughput tier's chunk 4096x256, on 1 and 8003 blocks and
    on NaN and +-inf inside blocks and as whole blocks) and
@@ -148,7 +150,26 @@ Phases, one JSON line each:
    and V, (1, 32768, 16, 64), within the per-token bound and equal to
    ``encode_host``; then ``kv_quantize`` on the V cache as (32768, 1024) and
    ``kv_dequant_matmul`` with 128 rows of attention weights — the
-   KV-quantization kernels' main path.
+   KV-quantization kernels' main path;
+17. serving (``serve``): the launcher's ``serve`` at granite-3-8b's full
+   width and depth (40 layers, d_model 4096, 32 query and 8 KV heads of
+   128, d_ff 12800, vocab 49155 padded to 49408, bf16: 8.37 B parameters
+   drawn from the seed on the card) with the launcher's defaults, batch 4
+   and 16 greedy tokens: at ``--kv bf16`` every logit finite, no kernel
+   launched, ``prefill_logits`` over the 16 consumed tokens within 10% of
+   the largest |logit| of the last step's (bf16 drift over 40 layers);
+   ``offload_cache`` of the finished cache (chunked, REL 1e-3, strict
+   verify): per-leaf ratio and picks, ``encode_2d``/``decode_2d``
+   launches equal to the chunks routed to ``sz3_lorenzo``, the ``k``
+   leaf's blob equal to the plain route's on the host, and the same
+   offload traced for its stage seconds; at ``--kv int8``: ``absmax`` and
+   ``quantize_with_scale`` launched exactly 2 x 40 x 16 times each (the
+   int8 append), the log-probability drift from bf16 on the same tokens
+   under the reference's 0.3, ``_quantize_token`` of the bf16 cache's K
+   and V on the card equal bit for bit to its plain version on the host,
+   and the int8 cache's offload (the scales only: the codes are not
+   float); tokens/s and step p50/p99 from ``sz3_decode_step_seconds``;
+   both kernels timed at the decode shape (128, 32).
 
 Each main path must launch its kernels (the launch counters are zeroed just
 before the path and read just after; the chunked engine exactly once per
@@ -157,7 +178,9 @@ the plain versions on the CPU (``device="cpu", route="force"``), and decode
 on the CPU within the bound.
 
 The last three lines are the ``{"kernels": [...]}`` summary (with
-``chunk_*`` fields where a kernel was also timed at a chunk shape), the card's name
+``chunk_*`` and ``row_chunk_*`` fields where a kernel was also timed at a
+chunk shape, ``serve_*`` fields for the kvquant kernels at the decode
+shape, whose ``launches`` include the serve phase's), the card's name
 and power limit as ``nvidia-smi`` prints them, and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before them.
 Without a CUDA device, or without the repository's ``src/`` beside it, the
@@ -456,6 +479,10 @@ CHUNK_1D = (1, 1 << 20)
 #: repetitions of a chunk-shape timing: at ~15 us a call the spread of 15
 #: is as large as the differences sought
 CHUNK_REPS = 101
+#: the transform's chunk shapes in the ``checkpoint`` phase (Qwen1.5-0.5B's
+#: moments): a 4 MiB chunk of the embedding's (151936, 1024), and the 1-row
+#: chunks of the stacked blocks, padded to 4 rows (attention, MLP)
+TRANSFORM_CHUNKS = {"chunk": (1024, 1024), "row_chunk_attn": (4, 1 << 20), "row_chunk": (4, 1024 * 2816)}
 
 
 def _chunk_fields(case: dict) -> dict:
@@ -628,6 +655,36 @@ def transform_kernels(timer, bw: float, x2d: torch.Tensor, x1d: torch.Tensor) ->
                 _check_case(f"transform_{name}_{mode} {which} {arg.shape[0]}x{arg.shape[1]}", case)
                 if which == "main":
                     cases[f"transform_{name}_{mode}"] = case
+    # the checkpoint's chunk shapes, where nearly all of the transform's
+    # launches are: 4 MiB chunks (1024, 1024) of a (rows, 1024) moment, and
+    # 1-row chunks of a stacked two-layer moment, which the coder pads to 4
+    # rows (one layer's attention and MLP weights: 1024x1024, 1024x2816)
+    chunk_timer = Timer(reps=CHUNK_REPS, warmup=5)
+    for label, shape in TRANSFORM_CHUNKS.items():
+        x = torch.randn(shape, generator=g, device="cuda") * 100
+        rows, cols = shape
+        for name, kfn, rfn, arg, m in (
+            ("fwd", K.fwd, R.fwd, x, mat32), ("inv", K.inv, R.inv, R.fwd(x, "2d"), mat32.T.contiguous()),
+        ):
+            got = kfn(arg, "2d")
+            torch.cuda.synchronize()
+            want = rfn(arg, "2d")
+            n = arg.numel()
+            case = {
+                "name": f"transform_{name}_2d",
+                "shape": list(shape),
+                "bit_identical": same_bits(got, want),
+                "max_abs_err": max_abs_diff([(got, want)]),
+                "kernel_ms": chunk_timer(lambda: kfn(arg, "2d")),
+                "plain_ms": chunk_timer(lambda: rfn(arg, "2d")),
+                "library_ms": chunk_timer(lambda a=arg, m=m: torch.einsum(
+                    "kj,pjql,ml->pkqm", m, a.reshape(rows // 4, 4, cols // 4, 4), m)),
+                **bound(8 * n, 14 * n, bw),
+            }
+            _check_case(f"transform_{name}_2d {label} {rows}x{cols}", case)
+            if label in ("chunk", "row_chunk"):  # chunk_* and row_chunk_* fields of the summary
+                prefix = "" if label == "chunk" else "row_"
+                cases[f"transform_{name}_2d"].update({prefix + k: v for k, v in _chunk_fields(case).items()})
     # the float64 product: the kernel on the card against numpy on the host,
     # along every axis of the main paths' padded fields and of fields with an
     # axis of exactly 4 (numpy's BLAS dgemv orders), both matrices
@@ -2792,6 +2849,285 @@ def phase_offload(seed: int, launches_total: dict) -> None:
     del data
 
 
+# ---------------------------------------------------------------------------
+# serving: the launcher's decode and KV offload at granite-3-8b's full size
+# ---------------------------------------------------------------------------
+
+#: the serve launcher's defaults: granite-3-8b (its default --arch) at full
+#: width and depth, batch 4, 16 greedy tokens, a cache of 24 positions
+SERVE_ARCH, SERVE_BATCH, SERVE_TOKENS = "granite-3-8b", 4, 16
+#: prefill against the last decode step, in bf16 at 40 layers: bf16 keeps 8
+#: significant bits, and prefill and decode round at different points (decode
+#: rounds the scaled query and the softmax weights to bf16, prefill keeps
+#: them in float32; their GEMMs split K differently), so the two drift apart
+#: by a random walk of some 40 x 5 roundings of 2^-9: about 3% of the logits'
+#: scale (2% seen at widths 256 and 512 on the CPU); the bound is 10% of the
+#: largest |logit|
+SERVE_PREFILL_RTOL = 0.1
+#: the reference's own bound on int8-versus-bf16 log-probability drift
+#: (tests/test_models_smoke.py::test_int8_kv_cache_close_to_bf16)
+SERVE_INT8_DRIFT = 0.3
+
+
+def _step_latency() -> dict:
+    from repro_torch.core import telemetry
+
+    h = telemetry.METRICS.snapshot()["histograms"]["sz3_decode_step_seconds"]
+    return {"step_p50_s": h["p50"], "step_p99_s": h["p99"], "step_max_s": h["max"], "step_sum_s": h["sum"],
+            "steps": h["count"]}
+
+
+def _offload_recorded(offload, cache) -> tuple:
+    """``offload(cache)`` with each leaf's stream frames recorded (the
+    chunked engine's ``compress_stream`` wrapped for the call)."""
+    from repro_torch.core import chunking
+
+    real = chunking.compress_stream
+    streams = []
+
+    def recording(arr, *a, **k):
+        frames = []
+        streams.append((arr, frames))
+        for frame in real(arr, *a, **k):
+            frames.append(frame)
+            yield frame
+
+    chunking.compress_stream = recording
+    try:
+        torch.cuda.synchronize()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        n_in, n_out = offload(cache)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    finally:
+        chunking.compress_stream = real
+    return n_in, n_out, seconds, streams, all_launches()
+
+
+def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None:
+    """``repro_torch.launch.serve.serve`` at granite-3-8b's full size: 16
+    greedy bf16 steps, prefill against the last step, the bf16 cache through
+    ``offload_cache`` (chunked, strict verify; launches equal to the chunks
+    routed to ``sz3_lorenzo``, the first leaf's blob equal to the plain
+    route's), then 16 int8 steps (``absmax`` and ``quantize_with_scale``
+    2 x 40 x 16 times each), the int8 drift from bf16 on the same tokens,
+    ``_quantize_token`` on the bf16 cache's K and V against its plain
+    version, and the int8 cache's offload (its scales only)."""
+    import repro_torch.core as tc
+    from repro_torch import configs, models
+    from repro_torch.core import chunking, telemetry
+    from repro_torch.kernels.kvquant import kernel as KK
+    from repro_torch.kernels.kvquant import ref as KR
+    from repro_torch.launch import serve as ls
+    from repro_torch.models import lm
+    from repro_torch.parallel import ParallelPlan
+    from repro_torch.serve.step import make_serve_step
+
+    cfg = configs.get(SERVE_ARCH)
+    plan, plan8 = ParallelPlan(), ParallelPlan(kv_cache_dtype="int8")
+    B, T = SERVE_BATCH, SERVE_TOKENS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = models.init_params(seed, cfg, plan, device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in params.parameters())
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+
+    # 1. bf16: 16 greedy steps, then prefill over the consumed tokens
+    telemetry.reset_metrics()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    bf = ls.serve(cfg, plan, B, T, arch=SERVE_ARCH, seed=seed, params=params)
+    torch.cuda.synchronize()
+    bf_launches = {k: v for k, v in all_launches().items() if v}
+    if bf_launches:
+        raise AssertionError(f"serve bf16: a bf16 decode launched kernels {bf_launches}")
+    bf_lat = _step_latency()
+    if bf.sequences.shape != (B, T + 1) or not bool(torch.isfinite(bf.logits).all()):
+        raise AssertionError(f"serve bf16: tokens {bf.sequences.shape} or non-finite logits")
+    if tuple(bf.logits.shape) != (B, cfg.vocab) or not (bf.sequences < cfg.vocab).all():
+        raise AssertionError(f"serve bf16: logits {tuple(bf.logits.shape)}, or a token outside the vocabulary")
+    consumed = torch.from_numpy(bf.sequences[:, :T]).cuda()  # the last token was never fed back
+    with ls.float32_bf16_reductions(), torch.no_grad():
+        pre = models.prefill_logits(params, {"tokens": consumed}, cfg, plan)
+    pre_err = float((pre - bf.logits).abs().max())
+    logit_scale = float(bf.logits.abs().max())
+    if not pre_err <= SERVE_PREFILL_RTOL * logit_scale:
+        raise AssertionError(f"serve: prefill differs from the last decode step by {pre_err}, over "
+                             f"{SERVE_PREFILL_RTOL} of the largest |logit| {logit_scale}")
+    pre_logprob = float((torch.log_softmax(pre, -1) - torch.log_softmax(bf.logits, -1)).abs().max())
+
+    # 2. the bf16 cache through offload_cache: chunked, strict verify
+    telemetry.reset_metrics()
+    n_in, n_out, t_off, streams, off_launches = _offload_recorded(
+        lambda c: ls.offload_cache(c, eb=1e-3, device="cuda"), bf.cache)
+    conf = tc.CompressionConfig(mode=tc.ErrorBoundMode.REL, eb=1e-3)
+    leaves, picks_all = [], []
+    for (arr, frames), name in zip(streams, ("k", "v")):
+        blob = chunking.frames_to_blob(frames)
+        chunks = tc.parse_header(blob)[0]["chunks"]
+        picks = [(c["pipeline"], c["n0"] * arr.shape[1]) for c in chunks]
+        picks_all += picks
+        nbytes = arr.numel() * 2  # bf16 at rest
+        leaves.append({
+            "leaf": name, "shape": list(arr.shape), "chunks": len(chunks), "ratio": nbytes / len(blob),
+            "picks": dict(collections.Counter(p for p, _ in picks)),
+        })
+    if len(streams) != 2 or n_in != sum(a.numel() * 2 for a, _ in streams):
+        raise AssertionError(f"serve offload: {len(streams)} leaves, {n_in} bytes in")
+    expected = _expected_chunk_launches(picks_all, 2)
+    for name in _CHUNK_KERNEL_NAMES:
+        if off_launches[name] != expected[name]:
+            raise AssertionError(f"serve offload: kernel {name} launched {off_launches[name]} times, "
+                                 f"expected {expected[name]} for the chunks routed to it")
+        launches_total[name] += off_launches[name]
+    arr0, frames0 = streams[0]
+    t_plain = time.perf_counter()
+    plain = tc.sz3_chunked(chunk_bytes=1 << 20, device="cpu", route="force").compress(arr0.cpu(), conf).blob
+    t_plain = time.perf_counter() - t_plain
+    if chunking.frames_to_blob(frames0) != plain:
+        raise AssertionError("serve offload: the k leaf's blob differs from the plain route's on the host")
+    back = tc.decompress(plain, device="cpu")
+    abs_eb = tc.parse_header(_chunk_blobs(plain)[0])[0]["abs_eb"]
+    off_err = float((back.double() - arr0.cpu().double()).abs().max())
+    if not off_err <= abs_eb:
+        raise AssertionError(f"serve offload: k leaf error {off_err} breaks the bound {abs_eb}")
+    verify_s = telemetry.METRICS.snapshot()["histograms"]["sz3_offload_verify_seconds"]["sum"]
+    # where the offload's time goes: the same offload again under a trace
+    # (a traced blob carries decision entries, so it is not compared)
+    with telemetry.trace("kv_offload") as tr:
+        ls.offload_cache(bf.cache, eb=1e-3, device="cuda")
+    torch.cuda.synchronize()
+    stages = {k: v["seconds"] for k, v in tr.stage_totals().items()}
+    host_coding_share = (stages.get("huffman", 0.0) + stages.get("lossless", 0.0)) / tr.seconds
+
+    # 3. int8: 16 greedy steps through the kvquant kernels
+    telemetry.reset_metrics()
+    torch.cuda.synchronize()
+    reset_all_launches()
+    i8 = ls.serve(cfg, plan8, B, T, arch=SERVE_ARCH, seed=seed, params=params)
+    torch.cuda.synchronize()
+    i8_launches = all_launches()
+    i8_lat = _step_latency()
+    want = 2 * cfg.n_layers * T
+    for name in ("absmax", "quantize_with_scale"):
+        if i8_launches[name] != want:
+            raise AssertionError(f"serve int8: kernel {name} launched {i8_launches[name]} times, expected {want}")
+        launches_total[name] += i8_launches[name]
+    others = {k: v for k, v in i8_launches.items() if v and k not in ("absmax", "quantize_with_scale")}
+    if others or not bool(torch.isfinite(i8.logits).all()):
+        raise AssertionError(f"serve int8: other kernels {others}, or non-finite logits")
+    # drift from bf16 on the bf16 run's tokens (teacher-forced, not counted)
+    step = make_serve_step(cfg, plan8)
+    cache8 = models.init_cache(params, cfg, plan8, B, T + 8)
+
+    with ls.float32_bf16_reductions():
+        for t in range(T):
+            forced_logits, cache8 = step(params, cache8, consumed[:, t : t + 1])
+    drift = float((torch.log_softmax(forced_logits, -1) - torch.log_softmax(bf.logits, -1)).abs().max())
+    if not drift < SERVE_INT8_DRIFT:
+        raise AssertionError(f"serve int8: log-probability drift {drift} from bf16, bound {SERVE_INT8_DRIFT}")
+    # _quantize_token on the bf16 cache's K and V (empty slots: the 1e-8
+    # floor): the card's codes and scales against the plain version's
+    same = {}
+    for name in ("k", "v"):
+        x = getattr(bf.cache, name)
+        q, scale = lm._quantize_token(x)
+        torch.cuda.synchronize()
+        pq, ps = lm._quantize_token(x.cpu())
+        same[name] = bool(torch.equal(q.cpu(), pq) and same_bits(scale.cpu(), ps))
+        if not same[name]:
+            raise AssertionError(f"serve: _quantize_token of the {name} cache differs on the card from its plain version")
+    # the int8 cache's offload: the codes are not float, only the scales go
+    telemetry.reset_metrics()
+    n8_in, n8_out, t8_off, streams8, off8_launches = _offload_recorded(
+        lambda c: ls.offload_cache(c, eb=1e-3, device="cuda"), i8.cache)
+    c8 = telemetry.METRICS.snapshot()["counters"]
+    scales = i8.cache.k_scale.numel()
+    if (c8["sz3_offload_leaves_total"], c8["sz3_offload_leaves_skipped_total"], n8_in) != (2, 4, 2 * 4 * scales):
+        raise AssertionError(f"serve int8 offload: {c8['sz3_offload_leaves_total']} leaves, "
+                             f"{c8['sz3_offload_leaves_skipped_total']} skipped, {n8_in} bytes in")
+    picks8 = [(c["pipeline"], c["n0"] * a.shape[1]) for a, f in streams8
+              for c in tc.parse_header(chunking.frames_to_blob(f))[0]["chunks"]]
+    expected8 = _expected_chunk_launches(picks8, 2)
+    for name in _CHUNK_KERNEL_NAMES:
+        if off8_launches[name] != expected8[name]:
+            raise AssertionError(f"serve int8 offload: kernel {name} launched {off8_launches[name]} times, "
+                                 f"expected {expected8[name]}")
+        launches_total[name] += off8_launches[name]
+
+    # the kvquant kernels at the decode shape: (hd, B * KV) per call
+    timer = Timer(reps=CHUNK_REPS, warmup=5)
+    shape = (cfg.hd, B * cfg.n_kv_heads)
+    x = bf.cache.k[0, :, 0].reshape(-1, cfg.hd).to(torch.float32).T.contiguous()  # layer 0, slot 0
+    n = x.numel()
+    amax = KK.absmax(x)
+    s8 = KR.scale_from_absmax(amax)
+    serve_cases = {
+        "absmax": {
+            "kernel_ms": timer(lambda: KK.absmax(x)), "plain_ms": timer(lambda: KR.absmax(x)),
+            "library_ms": timer(lambda: torch.amax(x.abs(), 0)), **bound(4 * n + 4 * shape[1], 2 * n, bw),
+            "bit_identical": same_bits(amax, KR.absmax(x)),
+        },
+        "quantize_with_scale": {
+            "kernel_ms": timer(lambda: KK.quantize_with_scale(x, s8)),
+            "plain_ms": timer(lambda: KR.quantize_with_scale(x, s8)),
+            "library_ms": None, **bound(5 * n + 4 * shape[1], 4 * n, bw),
+            "bit_identical": torch.equal(KK.quantize_with_scale(x, s8), KR.quantize_with_scale(x, s8)),
+        },
+    }
+    for name, c in serve_cases.items():
+        emit(f"kernel {name} serve {shape[0]}x{shape[1]}", name=name, shape=list(shape), **c)
+        if not c["bit_identical"]:
+            raise AssertionError(f"{name} at the decode shape {shape} differs from its plain version")
+        cases[name].update({
+            "serve_shape": list(shape), "serve_launches": i8_launches[name], "serve_ms": c["kernel_ms"],
+            "serve_plain_ms": c["plain_ms"], "serve_library_ms": c["library_ms"], "serve_bound_ms": c["bound_ms"],
+        })
+    emit(
+        "serve granite-3-8b",
+        config={"layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                "head_dim": cfg.hd, "d_ff": cfg.d_ff, "vocab": cfg.vocab, "padded_vocab": cfg.padded_vocab,
+                "dtype": cfg.dtype},
+        params=n_params,
+        n_flop_params=cfg.n_flop_params(),
+        weight_bytes=weight_bytes,
+        init_s=t_init,
+        batch=B,
+        tokens=T,
+        bf16={"tok_per_s": bf.tok_per_s, "seconds": bf.seconds, **bf_lat,
+              "weight_read_bound_step_ms": weight_bytes / bw * 1e3,
+              "sample": bf.sequences[0].tolist()},
+        prefill_max_abs_err=pre_err,
+        prefill_rtol=pre_err / logit_scale,
+        prefill_tolerance=SERVE_PREFILL_RTOL,
+        prefill_logprob_diff=pre_logprob,
+        prefill_argmax_equal=bool((pre.argmax(-1) == bf.logits.argmax(-1)).all()),
+        offload={"leaves": leaves, "n_in": n_in, "n_out": n_out, "ratio": n_in / n_out, "seconds": t_off,
+                 "MBps": n_in / 1e6 / t_off, "verify_seconds": verify_s,
+                 "verify_share": verify_s / t_off, "frames": sum(len(f) - 1 for _, f in streams),
+                 "launches": {k: v for k, v in off_launches.items() if v},
+                 "expected_launches": {k: v for k, v in expected.items() if v},
+                 "k_leaf_same_bytes_as_plain_route": True, "k_leaf_max_abs_err": off_err, "abs_eb": abs_eb,
+                 "plain_cpu_compress_s": t_plain, "traced_seconds": tr.seconds, "traced_stage_seconds": stages,
+                 "host_coding_share": host_coding_share},
+        int8={"tok_per_s": i8.tok_per_s, "seconds": i8.seconds, **i8_lat,
+              "launches": {k: v for k, v in i8_launches.items() if v},
+              "greedy_tokens_equal_bf16": bool((i8.sequences == bf.sequences).all()),
+              "logprob_drift_from_bf16": drift, "drift_bound": SERVE_INT8_DRIFT},
+        quantize_token_bit_identical=same,
+        int8_offload={"n_in": n8_in, "n_out": n8_out, "ratio": n8_in / n8_out, "seconds": t8_off,
+                      "leaves": 2, "skipped": 4,
+                      "launches": {k: v for k, v in off8_launches.items() if v}},
+        peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
+    )
+    del params, bf, i8, cache8
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2840,6 +3176,8 @@ def main() -> int:
     phase_dp_step(args.seed)
     t_dp = time.perf_counter()
     phase_kv_path(args.seed, launches)
+    t_kv = time.perf_counter()
+    phase_serve(args.seed, launches, cases, bw)
     RESULTS["phase_seconds"] = {
         "environment, build, kernels": t_kernels - t0,
         "v1/v3/v6 and bitplane main paths": t_v1 - t_kernels,
@@ -2855,7 +3193,8 @@ def main() -> int:
         "checkpoint": t_checkpoint - t_telemetry,
         "offload": t_offload - t_checkpoint,
         "dp step": t_dp - t_offload,
-        "kv path": time.perf_counter() - t_dp,
+        "kv path": t_kv - t_dp,
+        "serve": time.perf_counter() - t_kv,
     }
     summary = {
         "kernels": [
@@ -2871,7 +3210,7 @@ def main() -> int:
                 "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"],
-                **{k: v for k, v in c.items() if k.startswith("chunk_")},
+                **{k: v for k, v in c.items() if k.startswith(("chunk_", "row_chunk_", "serve_"))},
             }
             for name, c in cases.items()
         ]

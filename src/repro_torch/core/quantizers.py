@@ -40,8 +40,9 @@ def true_div(x: torch.Tensor, s: float) -> torch.Tensor:
     On CUDA, dividing by a Python or CPU scalar is rewritten to a multiply by
     its reciprocal, which can differ from numpy's divide in the last bit and
     so change a rounded quantization index.  A 0-dim divisor on ``x``'s own
-    device keeps the true divide."""
-    return x / torch.tensor(s, dtype=x.dtype, device=x.device)
+    device keeps the true divide; it is filled there (``torch.full``), since
+    a tensor copied from the host would wait for the stream."""
+    return x / torch.full((), s, dtype=x.dtype, device=x.device)
 
 
 def pairwise_rowsum(v: torch.Tensor) -> torch.Tensor:

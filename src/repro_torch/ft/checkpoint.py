@@ -111,7 +111,10 @@ def torch_dtype(s: str, like: Optional[torch.dtype] = None) -> torch.dtype:
     return torch.from_numpy(np.empty(0, dt)).dtype
 
 
-def _as_tensor(leaf) -> torch.Tensor:
+def as_tensor(leaf) -> torch.Tensor:
+    """A host leaf as a tensor: a tensor as is (detached), a numpy array
+    (or anything ``np.asarray`` takes) through ``torch.from_numpy``; a
+    2-byte void dtype (``ml_dtypes.bfloat16`` through numpy) as bfloat16."""
     if isinstance(leaf, torch.Tensor):
         return leaf.detach()
     a = np.asarray(leaf)
@@ -190,7 +193,7 @@ def encode_leaf(
 ) -> Tuple[bytes, Dict[str, Any]]:
     """One leaf's blob and manifest entry (shape, dtype, mode, codec).  The
     leaf's own device runs the lossy codecs."""
-    t = _as_tensor(arr)
+    t = as_tensor(arr)
     meta: Dict[str, Any] = {
         "shape": list(t.shape),
         "dtype": dtype_str(t.dtype),
@@ -364,7 +367,7 @@ class CheckpointManager:
         total_in = total_out = 0
         for pstr, leaf in flat:
             pol = self.policy.for_path(pstr)
-            t = _as_tensor(leaf)
+            t = as_tensor(leaf)
             nbytes = t.numel() * t.element_size()
             t_leaf = time.perf_counter()
             with telemetry.span("leaf", path=pstr, bytes=nbytes):
@@ -574,6 +577,6 @@ def _template_fill(leaf, dev: torch.device) -> torch.Tensor:
     if isinstance(leaf, torch.Tensor) and leaf.device.type != "meta":
         return leaf.detach().clone()
     if not isinstance(leaf, torch.Tensor) and hasattr(leaf, "__array__"):
-        return _as_tensor(leaf).to(dev)
+        return as_tensor(leaf).to(dev)
     dtype = _template_dtype(leaf) or torch.from_numpy(np.empty(0, np.dtype(getattr(leaf, "dtype", "f4")))).dtype
     return torch.zeros(tuple(getattr(leaf, "shape", ())), dtype=dtype, device=dev)

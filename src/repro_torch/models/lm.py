@@ -1,0 +1,374 @@
+"""Decoder-only LM: the dense and VLM families of ``repro/models/lm.py``.
+
+One implementation, configured per arch (``repro_torch/configs``).  The
+parameters form the reference's tree (``embed``, ``final_norm``,
+``lm_head`` unless tied, and ``blocks`` with every leaf stacked over the
+layers), so a reference tree carries over leaf by leaf
+(:func:`repro_torch.models.params_from_numpy`) and checkpoints name the
+same paths.  :class:`DecoderLM` registers that tree as an ``nn.Module``.
+
+Serving uses a ring KV cache (:class:`DecodeCache`), optionally int8
+per token and head through the paper's linear-scaling quantizer.  The
+reference computes that quantizer in ``jnp``; here :func:`_quantize_token`
+sends it through the port's kvquant kernels (``absmax`` and
+``quantize_with_scale``) on a CUDA tensor and through their plain
+version on a CPU tensor, with a true divide for ``absmax / 127`` (the
+reference's jitted divide is XLA's multiply by ``f32(1/127)``, which can
+differ by one ulp).
+
+bf16 numerics follow the reference's: norms, RoPE and attention scores in
+float32; the int8 dequant product rounds once to bf16, and attention's two
+products accumulate in float32 (operands upcast, which is exact).  The
+bf16 weight products are plain ``@``; the launcher runs them inside
+``launch.serve.float32_bf16_reductions``, which turns off
+``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`` so
+that cuBLAS accumulates them in float32 as XLA does (the flag is
+process-wide, so this module does not set it).
+
+The ``moe``, ``ssm`` and ``hybrid`` families are slice 11c of the port, and
+the training loss (``chunked_xent``, ``lm_loss``) slice 11b
+(``ROADMAP.md``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from .. import tree as tree_util
+from ..kernels.kvquant.ops import kv_quantize
+from ..parallel.plan import ParallelPlan
+from .common import ModelConfig
+from .layers import (
+    apply_mlp,
+    apply_norm,
+    apply_rope,
+    attention_block,
+    attn_dims,
+    dense_init,
+    init_attention,
+    init_mlp,
+    init_norm,
+)
+
+#: the families of slice 11c
+_LATER = ("moe", "ssm", "hybrid", "encdec")
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.family in _LATER:
+        raise NotImplementedError(f"the {cfg.family} family ({cfg.name}) is slice 11c of the port (ROADMAP.md)")
+    if cfg.family not in ("dense", "vlm"):
+        raise ValueError(f"unknown model family {cfg.family!r}")
+
+
+def _stack_init(fn, gen: torch.Generator, n: int):
+    """``fn(gen)`` drawn ``n`` times, each leaf stacked along a new axis 0
+    (filled layer by layer: one layer's temporaries at a time)."""
+    first = fn(gen)
+    leaves, treedef = tree_util.flatten(first)
+    stacked = [torch.empty((n,) + tuple(t.shape), dtype=t.dtype, device=t.device) for t in leaves]
+    for s, t in zip(stacked, leaves):
+        s[0] = t
+    for i in range(1, n):
+        for s, t in zip(stacked, tree_util.flatten(fn(gen))[0]):
+            s[i] = t
+    return tree_util.unflatten(treedef, stacked)
+
+
+def _layer(stacked, i: int):
+    """Layer ``i``'s parameters: views into the stacked leaves."""
+    return tree_util.tree_map(lambda t: t[i], stacked)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def init_lm(gen: torch.Generator, cfg: ModelConfig, plan: ParallelPlan) -> Dict[str, Any]:
+    """The parameter tree, drawn from ``gen`` on its device: dense weights
+    normal times 1/sqrt(fan_in), the embedding normal times 0.02, norms
+    ones, biases zeros."""
+    _check_family(cfg)
+    Vp, d = cfg.padded_vocab, cfg.d_model
+    params: Dict[str, Any] = {
+        "embed": dense_init(gen, (Vp, d), cfg.param_dtype, scale=0.02),
+        "final_norm": init_norm(cfg, device=gen.device),
+    }
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init(gen, (d, Vp), cfg.param_dtype)
+    params["blocks"] = _stack_init(lambda g: _init_attn_block(g, cfg, plan, moe=False), gen, cfg.n_layers)
+    return params
+
+
+def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, plan: ParallelPlan, *, moe: bool):
+    if moe:
+        raise NotImplementedError("MoE blocks are slice 11c of the port (ROADMAP.md)")
+    return {
+        "ln1": init_norm(cfg, device=gen.device),
+        "attn": init_attention(gen, cfg, plan),
+        "ln2": init_norm(cfg, device=gen.device),
+        "mlp": init_mlp(gen, cfg),
+    }
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+
+def _attn_block(p, x, cfg, plan, attn_mode, moe: bool):
+    if moe:
+        raise NotImplementedError("MoE blocks are slice 11c of the port (ROADMAP.md)")
+    x = plan.grad_barrier(x)
+    h = apply_norm(p["ln1"], x)
+    x = x + attention_block(p["attn"], h, cfg, plan, causal=True, window=cfg.sliding_window, attn_mode=attn_mode)
+    h = apply_norm(p["ln2"], x)
+    return x + apply_mlp(p["mlp"], h, cfg, plan), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def lm_backbone(
+    params,
+    x: torch.Tensor,  # (B, S, d) embedded inputs
+    cfg: ModelConfig,
+    plan: ParallelPlan,
+    attn_mode: str = "blocked",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run the layer stack; returns (hidden, aux_loss).  The reference's
+    remat policy shapes only its backward pass, which comes with training."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(cfg.n_layers):
+        x, aux = _attn_block(_layer(params["blocks"], i), x, cfg, plan, attn_mode, moe=False)
+        aux_total = aux_total + aux
+    return apply_norm(params["final_norm"], x), aux_total
+
+
+# ---------------------------------------------------------------------------
+# embedding
+# ---------------------------------------------------------------------------
+
+def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan) -> torch.Tensor:
+    return plan.act_btd(params["embed"][tokens.long()])
+
+
+def unembed_matrix(params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# the model as an nn.Module
+# ---------------------------------------------------------------------------
+
+class _ParamTree(nn.Module):
+    """A nested dict of tensors registered as parameters under its keys;
+    :meth:`tree` gives the dict back (the parameters themselves)."""
+
+    def __init__(self, tree: Dict[str, Any]):
+        super().__init__()
+        self._keys = tuple(tree)
+        for key, value in tree.items():
+            if isinstance(value, dict):
+                self.add_module(key, _ParamTree(value))
+            else:
+                self.register_parameter(key, nn.Parameter(value, requires_grad=False))
+
+    def tree(self) -> Dict[str, Any]:
+        out = {}
+        for key in self._keys:
+            value = getattr(self, key)
+            out[key] = value.tree() if isinstance(value, _ParamTree) else value
+        return out
+
+
+class DecoderLM(_ParamTree):
+    """The dense/VLM decoder with its parameters registered under the
+    reference's paths (``blocks.attn.wq`` is the (L, d, n_q·hd) stack of
+    ``blocks/attn/wq``).  Parameters do not require grad; a trainer turns
+    that on with ``requires_grad_()``.  ``forward`` is
+    :func:`repro_torch.models.prefill_logits`."""
+
+    def __init__(self, cfg: ModelConfig, plan: ParallelPlan, tree: Dict[str, Any]):
+        _check_family(cfg)
+        super().__init__(tree)
+        self.cfg = cfg
+        self.plan = plan
+
+    def forward(self, batch: Dict[str, torch.Tensor], attn_mode: str = "blocked") -> torch.Tensor:
+        from . import prefill_logits
+
+        return prefill_logits(self, batch, self.cfg, self.plan, attn_mode)
+
+
+def param_tree(params) -> Dict[str, Any]:
+    """The parameter dict of a :class:`DecoderLM` or of a dict."""
+    return params.tree() if isinstance(params, _ParamTree) else params
+
+
+# ---------------------------------------------------------------------------
+# serving: KV cache + decode step
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class DecodeCache:
+    """Per-layer-stacked decode state.
+
+    Attention layers: k/v (L, B, W, KV, hd) (+ per-token scales if int8),
+    pos (B, W) absolute position per ring slot (-1: empty).  SSM layers:
+    (ssm, conv) states.  ``length`` counts tokens already absorbed.  The
+    fields are in the reference's order, which is the order of
+    :meth:`leaves`."""
+
+    k: Optional[torch.Tensor] = None
+    v: Optional[torch.Tensor] = None
+    k_scale: Optional[torch.Tensor] = None
+    v_scale: Optional[torch.Tensor] = None
+    pos: Optional[torch.Tensor] = None
+    ssm: Optional[Any] = None
+    conv: Optional[Any] = None
+    length: Optional[torch.Tensor] = None
+
+    def leaves(self) -> List[torch.Tensor]:
+        """The leaves in the reference's flattening order (``jax.tree.leaves``
+        of its registered dataclass): k, v, k_scale, v_scale, pos, ssm, conv,
+        length, with ``None`` fields left out."""
+        out: List[torch.Tensor] = []
+        for f in dataclasses.fields(self):
+            out.extend(tree_util.flatten(getattr(self, f.name))[0])
+        return out
+
+
+def _n_attn_layers(cfg: ModelConfig) -> int:
+    if cfg.family in ("dense", "vlm", "moe"):
+        return cfg.n_layers
+    if cfg.family == "hybrid":
+        return cfg.n_layers // (cfg.hybrid_attn_every or 6)
+    return 0
+
+
+def _n_ssm_layers(cfg: ModelConfig) -> int:
+    return cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+def cache_window(cfg: ModelConfig, max_len: int) -> int:
+    return min(max_len, cfg.sliding_window) if cfg.sliding_window else max_len
+
+
+def init_decode_cache(cfg: ModelConfig, plan: ParallelPlan, batch: int, max_len: int, device=None) -> DecodeCache:
+    _check_family(cfg)
+    La = _n_attn_layers(cfg)
+    W = cache_window(cfg, max_len)
+    dims = attn_dims(cfg, plan)
+    int8 = plan.kv_cache_dtype == "int8"
+    kv_dtype = torch.int8 if int8 else cfg.param_dtype
+    shp = (La, batch, W, dims.n_kv, dims.hd)
+    c = DecodeCache(
+        k=torch.zeros(shp, dtype=kv_dtype, device=device),
+        v=torch.zeros(shp, dtype=kv_dtype, device=device),
+        pos=torch.full((batch, W), -1, dtype=torch.int32, device=device),
+        length=torch.zeros((), dtype=torch.int32, device=device),
+    )
+    if int8:
+        c.k_scale = torch.zeros(shp[:-1], dtype=torch.float32, device=device)
+        c.v_scale = torch.zeros(shp[:-1], dtype=torch.float32, device=device)
+    return c
+
+
+def _quantize_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-token-per-head int8 (the paper's linear-scaling quantizer, radius
+    127): x (..., hd) -> (codes int8 (..., hd), scale float32 (...)).
+
+    ``kv_quantize`` on the transposed view (hd, tokens·heads): its per-column
+    absmax is the per-token-and-head absmax, ``scale = max(absmax / 127,
+    1e-8)`` and ``q = clip(rint(x / scale), ±127)``.  On a CUDA tensor that
+    launches ``absmax`` and ``quantize_with_scale`` once each."""
+    hd = x.shape[-1]
+    cols = x.reshape(-1, hd).to(torch.float32).T.contiguous()
+    q, scale = kv_quantize(cols)
+    return q.T.reshape(x.shape), scale.reshape(x.shape[:-1])
+
+
+def _decode_attn(p, x, layer_cache, length, pos_slot, cfg: ModelConfig, plan: ParallelPlan):
+    """Single-token attention against the (possibly int8) ring cache.
+
+    ``layer_cache`` is (k, v, k_scale, v_scale, pos) of one layer; the new
+    token is written into its k/v (and scale) tensors in place at ring slot
+    ``pos_slot`` (a 1-element int64 tensor).  Returns the output and
+    (k, v, k_scale, v_scale, new_pos)."""
+    B = x.shape[0]
+    dims = attn_dims(cfg, plan)
+    k_c, v_c, ks_c, vs_c, pos_c = layer_cache
+    q = (x @ p["wq"]).reshape(B, 1, dims.n_q, dims.hd)
+    k = (x @ p["wk"]).reshape(B, 1, dims.n_kv, dims.hd)
+    v = (x @ p["wv"]).reshape(B, 1, dims.n_kv, dims.hd)
+    if "bq" in p:
+        q = q + p["bq"].reshape(1, 1, dims.n_q, dims.hd)
+        k = k + p["bk"].reshape(1, 1, dims.n_kv, dims.hd)
+        v = v + p["bv"].reshape(1, 1, dims.n_kv, dims.hd)
+    posv = length.reshape(1, 1)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k = apply_rope(k, posv, cfg.rope_theta)
+    if plan.kv_cache_dtype == "int8":
+        kq, ks = _quantize_token(k)
+        vq, vs = _quantize_token(v)
+        k_c.index_copy_(1, pos_slot, kq)
+        v_c.index_copy_(1, pos_slot, vq)
+        ks_c.index_copy_(1, pos_slot, ks)
+        vs_c.index_copy_(1, pos_slot, vs)
+        # dequantize to bf16 (one rounding of the product), accumulate the
+        # attention products in float32 below
+        kf = k_c.to(torch.bfloat16) * ks_c[..., None].to(torch.bfloat16)
+        vf = v_c.to(torch.bfloat16) * vs_c[..., None].to(torch.bfloat16)
+    else:
+        k_c.index_copy_(1, pos_slot, k.to(k_c.dtype))
+        v_c.index_copy_(1, pos_slot, v.to(v_c.dtype))
+        kf, vf = k_c, v_c
+    # mask: valid slots only (pos >= 0 and within the window of the new pos)
+    new_pos = pos_c.index_copy(1, pos_slot, length.reshape(1, 1).expand(B, 1).to(torch.int32))
+    valid = new_pos >= 0
+    if cfg.sliding_window:
+        valid &= (length - new_pos) < cfg.sliding_window
+    G = dims.group
+    qg = (q.reshape(B, dims.n_kv, G, dims.hd).to(torch.float32) / math.sqrt(dims.hd)).to(kf.dtype)
+    s = torch.einsum("bkgh,bwkh->bkgw", qg.to(torch.float32), kf.to(torch.float32))
+    s = s.masked_fill(~valid[:, None, None, :], -1e30)
+    w = torch.softmax(s, dim=-1)
+    o = torch.einsum("bkgw,bwkh->bkgh", w.to(kf.dtype).to(torch.float32), vf.to(torch.float32))
+    o = o.reshape(B, 1, dims.n_q * dims.hd).to(x.dtype)
+    return o @ p["wo"], (k_c, v_c, ks_c, vs_c, new_pos)
+
+
+def lm_decode_step(
+    params,
+    cache: DecodeCache,
+    tokens: torch.Tensor,  # (B, 1) int
+    cfg: ModelConfig,
+    plan: ParallelPlan,
+) -> Tuple[torch.Tensor, DecodeCache]:
+    """One serve step: consume one token per sequence, emit next-token
+    logits (B, vocab) float32.  The cache is donated, as the reference's
+    launcher donates it: its tensors are updated in place and the same
+    object comes back with ``pos`` and ``length`` advanced."""
+    params = param_tree(params)
+    x = embed_tokens(params, tokens, cfg, plan)
+    length = cache.length
+    W = cache.k.shape[2]
+    slot = torch.remainder(length, W).reshape(1).to(torch.int64)
+    h = x
+    new_pos = cache.pos
+    int8 = cache.k_scale is not None
+    for i in range(cfg.n_layers):
+        lp = _layer(params["blocks"], i)
+        lc = (cache.k[i], cache.v[i], cache.k_scale[i] if int8 else None,
+              cache.v_scale[i] if int8 else None, cache.pos)
+        hn = apply_norm(lp["ln1"], h)
+        o, (_, _, _, _, new_pos) = _decode_attn(lp["attn"], hn, lc, length, slot, cfg, plan)
+        h = h + o
+        hn = apply_norm(lp["ln2"], h)
+        h = h + apply_mlp(lp["mlp"], hn, cfg, plan)
+    cache.pos = new_pos
+    cache.length = length + 1
+    h = apply_norm(params["final_norm"], h)
+    logits = (h @ unembed_matrix(params, cfg)).to(torch.float32)
+    return logits[:, 0, : cfg.vocab], cache

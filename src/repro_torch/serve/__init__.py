@@ -1,5 +1,8 @@
-"""Serving layer: the async multi-tenant KV-offload service
-(:mod:`.offload`).  The decode steps are not ported yet."""
+"""Serving layer: the single-device decode step (:mod:`.step`) and the
+async multi-tenant KV-offload service (:mod:`.offload`).
+
+Only the offload service is imported eagerly — ``step`` pulls the model
+stack and is imported by the launcher that needs it."""
 from .offload import (  # noqa: F401
     DecodeStateCache,
     OffloadError,

@@ -169,7 +169,29 @@ Phases, one JSON line each:
    and V on the card equal bit for bit to its plain version on the host,
    and the int8 cache's offload (the scales only: the codes are not
    float); tokens/s and step p50/p99 from ``sz3_decode_step_seconds``;
-   both kernels timed at the decode shape (128, 32).
+   both kernels timed at the decode shape (128, 32);
+18. training (``train``): the launcher's ``train`` (``launch/train.py``)
+   at Qwen1.5-0.5B's full width and depth (24 layers, d_model 1024, 16/16
+   heads, d_ff 2816, vocab 151936 padded to 152064, tied embedding, QKV
+   bias, bf16: 464,118,784 parameters drawn on the card) at the
+   ``train_4k`` cell's sequence of 4096, the global batch cut from 256 to
+   8, in ``launch/plans.py``'s 2 microbatches, remat ``full``: 6 plain
+   steps, then 6 with ``--mesh data=1 --compress-grads int8 --compress-opt
+   int8:bs=256`` on a one-rank NCCL mesh; losses and grad norms, step
+   p50/p99 (host clock, each step ending in a sync), tokens/s, the
+   model-FLOPs share (6 N tokens a step, N = ``n_flop_params``, over the
+   step and 989 TFLOP/s), peak memory, one more step under
+   ``torch.profiler`` (device time by kernel and kind, the busy share); no
+   kernel launched in a step, the first loss within 0.5 of ln(vocab), and
+   a ``microbatches=1`` step on the first batch within 1e-3 of its loss;
+   then on the smoke config in float32: 3 steps on the card against the
+   CPU from one state (losses within 1e-5 relative, parameters within
+   Adam's sign bound), the loss falling more than 1.0 in 25 steps on one
+   repeated batch, and save and resume through the launcher (the default
+   policy: ``encode_2d``/``decode_2d`` launches equal to the lossy leaves
+   routed to them, each within its recorded bound; a lossless policy: the
+   resumed step bit for bit against the same step from the saved state in
+   memory).
 
 Each main path must launch its kernels (the launch counters are zeroed just
 before the path and read just after; the chunked engine exactly once per
@@ -2921,6 +2943,7 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
     from repro_torch.kernels.kvquant import ref as KR
     from repro_torch.launch import serve as ls
     from repro_torch.models import lm
+    from repro_torch.models.common import float32_bf16_reductions
     from repro_torch.parallel import ParallelPlan
     from repro_torch.serve.step import make_serve_step
 
@@ -2951,7 +2974,7 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
     if tuple(bf.logits.shape) != (B, cfg.vocab) or not (bf.sequences < cfg.vocab).all():
         raise AssertionError(f"serve bf16: logits {tuple(bf.logits.shape)}, or a token outside the vocabulary")
     consumed = torch.from_numpy(bf.sequences[:, :T]).cuda()  # the last token was never fed back
-    with ls.float32_bf16_reductions(), torch.no_grad():
+    with float32_bf16_reductions(), torch.no_grad():
         pre = models.prefill_logits(params, {"tokens": consumed}, cfg, plan)
     pre_err = float((pre - bf.logits).abs().max())
     logit_scale = float(bf.logits.abs().max())
@@ -3024,7 +3047,7 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
     step = make_serve_step(cfg, plan8)
     cache8 = models.init_cache(params, cfg, plan8, B, T + 8)
 
-    with ls.float32_bf16_reductions():
+    with float32_bf16_reductions():
         for t in range(T):
             forced_logits, cache8 = step(params, cache8, consumed[:, t : t + 1])
     drift = float((torch.log_softmax(forced_logits, -1) - torch.log_softmax(bf.logits, -1)).abs().max())
@@ -3128,6 +3151,358 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
     torch.cuda.empty_cache()
 
 
+#: the train phase: the reference launcher's default architecture at full
+#: width and depth (24 layers, d_model 1024, 16/16 heads, d_ff 2816, vocab
+#: 151936, tied embedding, QKV bias, bf16), at ``configs/shapes.py``'s
+#: ``train_4k`` sequence of 4096 with the global batch cut from 256 to 8, in
+#: the reference's ``TRAIN_MICROBATCHES`` for it (2, ``launch/plans.py``),
+#: remat ``full``; 6 steps a run, at the launcher's learning rate
+TRAIN_ARCH, TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS, TRAIN_LR = "qwen1.5-0.5b", 4096, 8, 6, 3e-3
+#: its parameters: 463,987,712 with the vocabulary unpadded (``QWEN``'s
+#: tree), plus 128 embedding rows of padding to 152,064 (a multiple of 256)
+TRAIN_PARAMS = 463_987_712 + 128 * 1024
+#: the first loss of a random model sits near ln(vocab)
+TRAIN_FIRST_LOSS_SLACK = 0.5
+#: tests/test_system.py::test_microbatched_step_matches_unbatched's bound
+#: on the first loss at microbatches 1 and 2
+TRAIN_MICRO_TOL = 1e-3
+#: and, between the same two steps, the grad norm's relative difference and
+#: the first moment's (the clipped gradient itself) relative L2 difference:
+#: on an H100 (700 W) at seeds 0 and 1 they read 1.0e-4 and 1.9e-4, and
+#: 2.60e-3 and 2.59e-3 (bf16 gradients rounded once or twice).  A missing
+#: 1/n doubles the grad norm (0.5); one microbatch alone reads 0.2 and 0.67
+#: on the bf16 smoke config on the CPU
+TRAIN_MICRO_GNORM_RTOL, TRAIN_MICRO_MOMENT_RTOL = 2e-3, 1e-2
+#: (b) the card against the CPU: each step's loss, relative
+TRAIN_CPU_RTOL = 1e-5
+#: (c) the loss drop over 25 steps on one repeated batch (smoke config,
+#: float32, the launcher's seq 64 and batch 4, lr 3e-3, no weight decay),
+#: written before the first chip run; the CPU drops 1.754
+TRAIN_LEARN_STEPS, TRAIN_LEARN_DROP = 25, 1.0
+
+
+def _adam_bound(lr: float, steps: int, total: int) -> float:
+    """The most Adam's first steps can move an element whose gradient's sign
+    differs between two runs: twice ``lr * lr_scale`` summed over the steps."""
+    from repro_torch.optim import warmup_cosine
+
+    return 2 * lr * sum(float(warmup_cosine(torch.tensor(k), total=total)) for k in range(steps))
+
+
+def _train_run(label, cfg, plan, opt, state, ckpt_dir, n_params) -> dict:
+    """``launch.train.train`` for ``TRAIN_STEPS`` steps from ``state`` (no
+    checkpoint written): losses, grad norms, step times, model-FLOPs share,
+    peak memory; the losses must be finite, the first within
+    ``TRAIN_FIRST_LOSS_SLACK`` of ln(vocab); no kernel launches."""
+    from repro_torch.launch import train as lt
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    res = lt.train(cfg, plan, opt, steps=TRAIN_STEPS, seq=TRAIN_SEQ, batch=TRAIN_BATCH, ckpt_dir=ckpt_dir,
+                   ckpt_every=TRAIN_STEPS + 1, device="cuda", state=state)
+    launched = {k: v for k, v in all_launches().items() if v}
+    if launched:
+        raise AssertionError(f"train {label}: a train step launched kernels {launched}")
+    if not all(math.isfinite(x) for x in res.losses + res.grad_norms):
+        raise AssertionError(f"train {label}: non-finite loss or grad norm {res.losses} {res.grad_norms}")
+    first = math.log(cfg.vocab)
+    if not abs(res.losses[0] - first) <= TRAIN_FIRST_LOSS_SLACK:
+        raise AssertionError(f"train {label}: first loss {res.losses[0]}, ln(vocab) {first}")
+    secs = res.step_seconds
+    p50 = statistics.median(secs)
+    flops = 6 * cfg.n_flop_params() * res.tokens_per_step
+    return {
+        "losses": res.losses, "grad_norms": res.grad_norms, "step_seconds": secs,
+        "step_p50_s": p50, "step_p99_s": float(np.percentile(secs, 99)),
+        "steady_p50_s": statistics.median(secs[1:]),
+        "tok_per_s_p50": res.tokens_per_step / p50, "tok_per_s_all": res.tokens_per_step * len(secs) / sum(secs),
+        "model_flops_per_step": flops, "model_flops_share_p50": flops / p50 / _BF16_TC_RATE,
+        "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9, "params": n_params,
+    }, res.state
+
+
+def _train_micro_check(cfg, micro: int, opt, state, batch) -> dict:
+    """One full-size step at ``microbatches=1`` and one at ``micro`` from
+    clones of ``state`` on one batch: their losses, grad norms and first
+    moments after the step.  The first step's learning-rate scale is 0, so
+    it moves no parameter; its first moment is ``(1 - b1)`` times the
+    clipped gradient, which is where the microbatched accumulation shows
+    (a missing ``1 / n`` doubles the grad norm, one microbatch alone turns
+    the moment)."""
+    from repro_torch import tree as tree_util
+    from repro_torch.models.common import float32_bf16_reductions
+    from repro_torch.parallel import ParallelPlan
+    from repro_torch.train.step import make_train_step
+
+    out, moments = {}, {}
+    for n in (1, micro):
+        run = tree_util.tree_map(lambda t: t.clone(), state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        with float32_bf16_reductions():
+            run, m = make_train_step(cfg, ParallelPlan(microbatches=n, remat="full"), opt,
+                                     total_steps=TRAIN_STEPS)(run, batch)
+        out[n] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                  "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9}
+        moments[n] = tree_util.flatten(run["opt"]["m"])[0]
+        del run, m
+        torch.cuda.empty_cache()
+    one, many = moments[1], moments[micro]
+    diff_sq = sum(float((a.double() - b.double()).square().sum()) for a, b in zip(one, many))
+    ref_sq = sum(float(b.double().square().sum()) for b in many)
+    m_max = max(float(b.abs().max()) for b in many)
+    return {
+        "microbatches_1": out[1], f"microbatches_{micro}": out[micro],
+        "loss_diff": abs(out[1]["loss"] - out[micro]["loss"]),
+        "grad_norm_rel": abs(out[1]["grad_norm"] - out[micro]["grad_norm"]) / out[micro]["grad_norm"],
+        "moment_rel_l2": math.sqrt(diff_sq / ref_sq),
+        "moment_max_abs_over_max": max(float((a - b).abs().max()) for a, b in zip(one, many)) / m_max,
+    }
+
+
+#: kernel-name fragments of the matrix products (cuBLAS, cuBLASLt, CUTLASS)
+_MATMUL_NAMES = ("gemm", "xmma", "nvjet", "cutlass")
+
+
+def _train_profile(cfg, plan, opt, state, batch) -> dict:
+    """One more step of ``state`` under ``torch.profiler`` (CUDA activity
+    only): device time by kernel (the top 12) and by kind (matrix products,
+    elementwise, reductions, the rest), and the device's busy share of the
+    step's wall time (kernel time summed over the wall, which the profiler
+    itself slows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.common import float32_bf16_reductions
+    from repro_torch.train.step import make_train_step
+
+    step = make_train_step(cfg, plan, opt, total_steps=TRAIN_STEPS)
+    with float32_bf16_reductions():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:  # kernels only: fewer events to sort
+            t0 = time.perf_counter()
+            step(state, batch)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(e, "self_device_time_total", 0) / 1e3
+        if ms > 0:
+            rows.append((e.key, ms, e.count))
+    if not rows:
+        return {"wall_s": wall, "device_ms": "not measured (the profiler recorded no device time)"}
+    total = sum(ms for _, ms, _ in rows)
+    kinds = collections.Counter()
+    for name, ms, _ in rows:
+        low = name.lower()
+        kind = ("matmul" if any(k in low for k in _MATMUL_NAMES) else "elementwise"
+                if "elementwise" in low or "vectorized" in low else "reduce" if "reduce" in low else "other")
+        kinds[kind] += ms
+    rows.sort(key=lambda r: -r[1])
+    return {
+        "wall_s": wall, "device_ms": total, "device_busy_share": total / 1e3 / wall,
+        "kernel_launches": sum(n for _, _, n in rows),
+        "by_kind_ms": dict(kinds), "top": [{"kernel": n[:120], "ms": ms, "calls": k} for n, ms, k in rows[:12]],
+    }
+
+
+def _train_resume(cfg, plan, opt, tmp, launches_total, seed: int) -> dict:
+    """(d) save and resume through the launcher on the smoke config: under
+    the default policy, launches of a save and a restore equal the chunks
+    routed to each kernel and every lossy leaf restores within its bound;
+    under a lossless policy, the step after the resume equals the
+    uninterrupted run's bit for bit."""
+    from repro_torch import tree as tree_util
+    from repro_torch.data import make_pipeline
+    from repro_torch.ft import CheckpointPolicy, LeafPolicy
+    from repro_torch.launch import train as lt
+    from repro_torch.train.step import make_train_step
+
+    kw = dict(seq=64, batch=4, ckpt_every=2, device="cuda", seed=seed)
+    torch.cuda.synchronize()
+    reset_all_launches()
+    first = lt.train(cfg, plan, opt, steps=2, ckpt_dir=str(tmp / "lossy"), **kw)
+    saved = tree_util.tree_map(lambda t: t.clone(), first.state)
+    back = lt.train(cfg, plan, opt, steps=2, ckpt_dir=str(tmp / "lossy"), **kw)  # resumes; nothing left to run
+    torch.cuda.synchronize()
+    launches = all_launches()
+    d = tmp / "lossy" / "step_2"
+    manifest = json.loads((d / "manifest.json").read_text())
+    files = {m["file"]: (d / m["file"]).read_bytes() for m in manifest["leaves"].values()}
+    expected, picks = _ckpt_expected_launches(manifest, files)
+    for name in _CHUNK_KERNEL_NAMES:
+        if launches[name] != expected[name]:
+            raise AssertionError(f"train resume: kernel {name} launched {launches[name]} times in a save and a "
+                                 f"restore, expected {expected[name]} for the leaves routed to it")
+        launches_total[name] += launches[name]
+    if back.start != 2 or not sum(expected.values()):
+        raise AssertionError(f"train resume: started at {back.start}; expected launches {expected}")
+    worst = 0.0
+    for (path, want), (_, got) in zip(tree_util.flatten_with_path(saved)[0],
+                                      tree_util.flatten_with_path(back.state)[0]):
+        meta = manifest["leaves"][path]
+        if meta["codec"].startswith("sz3_"):
+            bound_ = _leaf_blob_abs_eb(files[meta["file"]])
+            err = float((got.double() - want.double()).abs().max())
+            if not err <= bound_:
+                raise AssertionError(f"train resume: {path}'s error {err} breaks its bound {bound_}")
+            worst = max(worst, err / bound_)
+        elif not torch.equal(got, want):
+            raise AssertionError(f"train resume: lossless leaf {path} did not restore bit for bit")
+    # lossless: 2 steps saved, then the third step from the saved state in
+    # memory against the third step of a run resumed from the checkpoint
+    lossless = CheckpointPolicy(rules=(("", LeafPolicy("lossless")),))
+    two = lt.train(cfg, plan, opt, steps=3 - 1, ckpt_dir=str(tmp / "split"), ckpt_policy=lossless, **kw)
+    cont = tree_util.tree_map(lambda t: t.clone(), two.state)
+    b2 = {k: torch.from_numpy(v).cuda() for k, v in make_pipeline(cfg, seq=64, global_batch=4).batch_at(2).items()}
+    cont, m2 = make_train_step(cfg, plan, opt, total_steps=3)(cont, b2)
+    resumed = lt.train(cfg, plan, opt, steps=3, ckpt_dir=str(tmp / "split"), ckpt_policy=lossless, **kw)
+    same = all(torch.equal(a, b) for a, b in zip(tree_util.flatten(cont)[0], tree_util.flatten(resumed.state)[0]))
+    if resumed.start != 2 or resumed.losses != [float(m2["loss"])] or not same:
+        raise AssertionError(f"train resume: the resumed step differs from the uninterrupted one "
+                             f"({resumed.losses} against {float(m2['loss'])}, state equal: {same})")
+    # two runs from the seed, 3 steps each: is the whole run deterministic?
+    whole = lt.train(cfg, plan, opt, steps=3, ckpt_dir=str(tmp / "whole"), ckpt_policy=lossless, **kw)
+    rerun_equal = all(torch.equal(a, b) for a, b in zip(tree_util.flatten(whole.state)[0],
+                                                        tree_util.flatten(resumed.state)[0]))
+    return {
+        "codecs": dict(collections.Counter(m["codec"] for m in manifest["leaves"].values())),
+        "chunk_picks": dict(collections.Counter(p for p, _ in picks)),
+        "launches": {k: v for k, v in launches.items() if v},
+        "expected_launches": {k: v for k, v in expected.items() if v},
+        "lossy_worst_error_over_bound": worst, "lossless_resume_bit_exact": True,
+        "resumed_step_loss": resumed.losses[0], "uninterrupted_run_bit_equal": rerun_equal,
+    }
+
+
+def phase_train(seed: int, launches_total: dict) -> None:
+    """The train launcher (``repro_torch.launch.train.train``): (a)
+    Qwen1.5-0.5B at full size, plain and with the compressed DP reduction
+    and compressed moments on a one-rank NCCL mesh, and one full-size step
+    at ``microbatches`` 1 and 2 from one state (loss, grad norm and first
+    moment, :func:`_train_micro_check`); (b) the smoke
+    config in float32 on the card against the CPU; (c) the loss falling on
+    one repeated batch; (d) save and resume through the launcher."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import tree as tree_util
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch import train as lt
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.plans import TRAIN_MICROBATCHES
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import ParallelPlan
+    from repro_torch.train.step import init_train_state, make_train_step
+
+    torch.cuda.empty_cache()
+    cfg = configs.get(TRAIN_ARCH)
+    if configs.SHAPES["train_4k"].seq != TRAIN_SEQ:
+        raise AssertionError(f"the train_4k cell's sequence is {configs.SHAPES['train_4k'].seq}, not {TRAIN_SEQ}")
+    micro = TRAIN_MICROBATCHES[TRAIN_ARCH]
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    tmp = pathlib.Path(tempfile.mkdtemp(dir=ROOT / "chiprun_out"))
+    try:
+        # (a) full size: microbatches 1 and 2 on the first batch, then the plain run
+        plan = ParallelPlan(microbatches=micro, remat="full")
+        opt = AdamWConfig(lr=TRAIN_LR)
+        t0 = time.perf_counter()
+        state = init_train_state(seed, cfg, plan, opt, device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_util.flatten(state["params"])[0])
+        if n_params != TRAIN_PARAMS:
+            raise AssertionError(f"train: Qwen1.5-0.5B holds {n_params} parameters, not {TRAIN_PARAMS}")
+        pipe = make_pipeline(cfg, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+        batch0 = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(0).items()}
+        micro_check = _train_micro_check(cfg, micro, opt, state, batch0)
+        del batch0
+        if not (micro_check["loss_diff"] <= TRAIN_MICRO_TOL and micro_check["grad_norm_rel"] <= TRAIN_MICRO_GNORM_RTOL
+                and micro_check["moment_rel_l2"] <= TRAIN_MICRO_MOMENT_RTOL):
+            raise AssertionError(f"train: the step at microbatches={micro} differs from microbatches=1: {micro_check} "
+                                 f"(bounds {TRAIN_MICRO_TOL}, {TRAIN_MICRO_GNORM_RTOL}, {TRAIN_MICRO_MOMENT_RTOL})")
+        plain, state = _train_run("plain", cfg, plan, opt, state, str(tmp / "plain"), n_params)
+        batch_next = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(TRAIN_STEPS).items()}
+        plain["profile"] = _train_profile(cfg, plan, opt, state, batch_next)
+        del batch_next
+        micro_check["plain_run_first_loss"] = plain["losses"][0]
+        del state
+        torch.cuda.empty_cache()
+        # (a) compressed: --mesh data=1 --compress-grads int8 --compress-opt int8:bs=256
+        mesh = make_debug_mesh((1,), ("data",), device="cuda")
+        try:
+            cplan = ParallelPlan(mesh=mesh, microbatches=micro, remat="full", grad_policy="int8")
+            copt = AdamWConfig(lr=TRAIN_LR, compress_moments=True, moment_policy="int8:bs=256")
+            state = init_train_state(seed, cfg, cplan, copt, device="cuda")
+            comp, state = _train_run("compressed", cfg, cplan, copt, state, str(tmp / "compressed"), n_params)
+            comp["moment_bytes"] = sum(c.nbytes() for k in ("m", "v") for c in tree_util.flatten(state["opt"][k])[0])
+            comp["feedback_elements"] = state["feedback"].numel()
+            del state
+        finally:
+            dist.destroy_process_group()
+        torch.cuda.empty_cache()
+
+        # (b) the smoke config in float32: 3 steps on the card and on the CPU
+        scfg = configs.get_smoke(TRAIN_ARCH)
+        splan, sopt = ParallelPlan(), AdamWConfig(lr=TRAIN_LR)
+
+        host = init_train_state(seed, scfg, splan, sopt, device="cpu")
+        card = tree_util.tree_map(lambda t: t.to("cuda", copy=True), host)
+        kw = dict(steps=3, seq=64, batch=4, ckpt_every=10)
+        on_cpu = lt.train(scfg, splan, sopt, ckpt_dir=str(tmp / "cpu"), device="cpu", state=host, **kw)
+        on_card = lt.train(scfg, splan, sopt, ckpt_dir=str(tmp / "card"), device="cuda", state=card, **kw)
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(on_card.losses, on_cpu.losses))
+        if not loss_rel <= TRAIN_CPU_RTOL:
+            raise AssertionError(f"train: card losses {on_card.losses}, CPU {on_cpu.losses}")
+        diffs = torch.cat([(c.cpu() - h).abs().reshape(-1) for c, h in
+                           zip(tree_util.flatten(on_card.state["params"])[0], tree_util.flatten(on_cpu.state["params"])[0])])
+        param_bound = _adam_bound(TRAIN_LR, 3, 3)
+        loose = float((diffs > 1e-5).double().mean())
+        if not (float(diffs.max()) <= param_bound and loose <= 1e-3):
+            raise AssertionError(f"train: card params differ from the CPU's by {float(diffs.max())} "
+                                 f"(bound {param_bound}), {loose} of them beyond 1e-5")
+
+        # (c) learning: one repeated batch
+        lopt = AdamWConfig(lr=TRAIN_LR, weight_decay=0.0)
+        lstate = init_train_state(seed, scfg, splan, lopt, device="cuda")
+        lstep = make_train_step(scfg, splan, lopt, total_steps=60)
+        lb = {k: torch.from_numpy(v).cuda() for k, v in make_pipeline(scfg, seq=64, global_batch=4).batch_at(0).items()}
+        learn = []
+        for _ in range(TRAIN_LEARN_STEPS):
+            lstate, lm = lstep(lstate, lb)
+            learn.append(float(lm["loss"]))
+        if not learn[0] - learn[-1] > TRAIN_LEARN_DROP:
+            raise AssertionError(f"train: the loss fell {learn[0] - learn[-1]} on one repeated batch, "
+                                 f"expected more than {TRAIN_LEARN_DROP}")
+
+        # (d) save and resume through the launcher
+        resume = _train_resume(scfg, splan, sopt, tmp, launches_total, seed)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    emit(
+        "train qwen1.5-0.5b",
+        config={"layers": cfg.n_layers, "d_model": cfg.d_model, "heads": cfg.n_heads, "kv_heads": cfg.n_kv_heads,
+                "d_ff": cfg.d_ff, "vocab": cfg.vocab, "padded_vocab": cfg.padded_vocab, "dtype": cfg.dtype,
+                "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH, "microbatches": micro, "remat": "full",
+                "steps": TRAIN_STEPS, "lr": TRAIN_LR},
+        params=n_params, n_flop_params=cfg.n_flop_params(), init_s=t_init,
+        plain=plain, compressed=comp,
+        microbatch_check={**micro_check, "loss_tolerance": TRAIN_MICRO_TOL, "grad_norm_rtol": TRAIN_MICRO_GNORM_RTOL,
+                          "moment_rtol": TRAIN_MICRO_MOMENT_RTOL},
+        card_vs_cpu={"card_losses": on_card.losses, "cpu_losses": on_cpu.losses, "loss_max_rel": loss_rel,
+                     "param_max_abs": float(diffs.max()), "param_bound": param_bound,
+                     "param_share_over_1e-5": loose},
+        learning={"losses": learn, "drop": learn[0] - learn[-1], "required_drop": TRAIN_LEARN_DROP},
+        resume=resume,
+    )
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3178,6 +3553,8 @@ def main() -> int:
     phase_kv_path(args.seed, launches)
     t_kv = time.perf_counter()
     phase_serve(args.seed, launches, cases, bw)
+    t_serve = time.perf_counter()
+    phase_train(args.seed, launches)
     RESULTS["phase_seconds"] = {
         "environment, build, kernels": t_kernels - t0,
         "v1/v3/v6 and bitplane main paths": t_v1 - t_kernels,
@@ -3194,7 +3571,8 @@ def main() -> int:
         "offload": t_offload - t_checkpoint,
         "dp step": t_dp - t_offload,
         "kv path": t_kv - t_dp,
-        "serve": time.perf_counter() - t_kv,
+        "serve": t_serve - t_kv,
+        "train": time.perf_counter() - t_serve,
     }
     summary = {
         "kernels": [

@@ -14,7 +14,10 @@ manifest's ``treedef`` (JAX's proto; the port writes ``null``, which no
   * arbitrary per-path policy overrides (the composability thesis: choosing
     a pipeline per tensor is a config change, paper §3.3).
 
-Leaves are torch tensors on any device (numpy arrays are accepted too).
+Leaves are torch tensors on any device (numpy arrays are accepted too); a
+compressed AdamW moment is a node whose ``codes``, ``scale``, ``tags`` and
+``base`` are leaves under its path, as in the reference
+(:func:`repro_torch.tree.flatten_with_path`).
 :meth:`CheckpointManager.save` snapshots every leaf before it returns — a
 clone on the leaf's own device — because torch optimizers update tensors in
 place.  The lossy leaves then compress from that copy, so on the card the
@@ -283,7 +286,7 @@ def _snapshot(leaf):
 def _clones_done(snap) -> List["torch.cuda.Event"]:
     """One event per CUDA device of ``snap``, recorded on that device's
     current stream after the snapshot's clones were queued there."""
-    devices = {t.device for t in tree_util.flatten(snap)[0]
+    devices = {t.device for _, t in tree_util.flatten_with_path(snap)[0]
                if isinstance(t, torch.Tensor) and t.device.type == "cuda"}
     events = []
     for dev in sorted(devices, key=str):
@@ -335,7 +338,8 @@ class CheckpointManager:
         """Snapshot every leaf, then (optionally async) compress + atomic
         write.  Once this returns, in-place updates of ``state`` do not
         reach the checkpoint."""
-        snap = tree_util.tree_map(_snapshot, state)
+        flat, treedef = tree_util.flatten_with_path(state)
+        snap = tree_util.unflatten(treedef, [_snapshot(leaf) for _, leaf in flat])
         if self._pool is None:
             self._write(step, snap, extra)
             return None

@@ -13,7 +13,6 @@ heavy traffic.  The command line is the JAX package's
 from __future__ import annotations
 
 import argparse
-import contextlib
 import dataclasses
 import time
 from typing import Iterator, Optional, Tuple
@@ -25,7 +24,7 @@ from .. import configs, models
 from .. import tree as tree_util
 from ..core import telemetry
 from ..core.pipeline import resolve_device
-from ..models.common import ModelConfig
+from ..models.common import ModelConfig, float32_bf16_reductions
 from ..parallel import ParallelPlan
 from ..serve.step import make_serve_step
 
@@ -206,19 +205,6 @@ def serve(
         if tr is not None:
             print(telemetry.trace_summary(tr))
     return ServeResult(params, cache, seqs, logits, dt, tok_per_s, offload)
-
-
-@contextlib.contextmanager
-def float32_bf16_reductions():
-    """cuBLAS's reduced-precision reductions of bf16 products off for the
-    block, then restored: the bf16 weight products accumulate in float32,
-    as XLA's do (the flag is process-wide)."""
-    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
-    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved
 
 
 def _model_device(params) -> torch.device:

@@ -1,10 +1,11 @@
-"""Model zoo facade: family dispatch for init / prefill / decode.
+"""Model zoo facade: family dispatch for init / loss / prefill / decode.
 
 The dense and VLM families (``repro/models``) run here; the ``moe``,
-``ssm``, ``hybrid`` and ``encdec`` families are slice 11c of the port and
-the training loss slice 11b (``ROADMAP.md``): they raise
-``NotImplementedError``.  Entry points run on the card unless given
-``device="cpu"``.
+``ssm``, ``hybrid`` and ``encdec`` families are slice 11c of the port
+(``ROADMAP.md``): they raise ``NotImplementedError``.  Entry points run on
+the card unless given ``device="cpu"``.  Parameters are made under
+``torch.no_grad()`` and do not require grad; the trainer
+(``repro_torch.train.step``) turns gradients on for what it trains.
 """
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ import torch
 
 from ..parallel.plan import ParallelPlan
 from . import lm as _lm
-from .carry import cache_from_numpy, params_from_numpy
+from .carry import cache_from_numpy, params_from_numpy, train_state_from_numpy, train_state_to_numpy
 from .common import ModelConfig
 from .lm import DecodeCache, DecoderLM
 
@@ -36,8 +37,12 @@ def init_params(key: Key, cfg: ModelConfig, plan: ParallelPlan, device=None) -> 
         return DecoderLM(cfg, plan, _lm.init_lm(gen, cfg, plan))
 
 
-def loss_fn(params, batch, cfg: ModelConfig, plan: ParallelPlan, attn_mode="blocked"):
-    raise NotImplementedError("the training loss is slice 11b of the port (ROADMAP.md)")
+def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, plan: ParallelPlan,
+            attn_mode: str = "blocked") -> torch.Tensor:
+    """The training loss (float32 scalar) of ``batch`` (``tokens`` or
+    ``embeds``, and ``labels``)."""
+    _lm._check_family(cfg)
+    return _lm.lm_loss(params, batch, cfg, plan, attn_mode)
 
 
 def prefill_logits(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, plan: ParallelPlan,
@@ -77,4 +82,6 @@ __all__ = [
     "decode_step",
     "params_from_numpy",
     "cache_from_numpy",
+    "train_state_from_numpy",
+    "train_state_to_numpy",
 ]

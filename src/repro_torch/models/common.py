@@ -4,10 +4,12 @@ One frozen dataclass describes dense / MoE / SSM / hybrid / enc-dec / VLM
 backbones; family-specific fields are simply unused elsewhere.  Exact
 per-arch values live in ``repro_torch/configs/<id>.py``.  The fields and
 properties are the JAX package's (``repro/models/common.py``);
-:attr:`ModelConfig.param_dtype` is a torch dtype.
+:attr:`ModelConfig.param_dtype` is a torch dtype.  :func:`float32_bf16_reductions`
+is the bf16 product precision that the serve and train launchers share.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional, Tuple
 
@@ -130,3 +132,16 @@ class ModelConfig:
             total += self.n_enc_layers * (attn + dense_mlp)
         total += 2 * d * self.padded_vocab  # embed + unembed
         return float(total)
+
+
+@contextlib.contextmanager
+def float32_bf16_reductions():
+    """cuBLAS's reduced-precision reductions of bf16 products off for the
+    block, then restored: the bf16 weight products accumulate in float32,
+    as XLA's do (the flag is process-wide)."""
+    saved = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = saved

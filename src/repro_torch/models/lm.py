@@ -20,23 +20,29 @@ bf16 numerics follow the reference's: norms, RoPE and attention scores in
 float32; the int8 dequant product rounds once to bf16, and attention's two
 products accumulate in float32 (operands upcast, which is exact).  The
 bf16 weight products are plain ``@``; the launcher runs them inside
-``launch.serve.float32_bf16_reductions``, which turns off
+``models.common.float32_bf16_reductions``, which turns off
 ``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction`` so
 that cuBLAS accumulates them in float32 as XLA does (the flag is
 process-wide, so this module does not set it).
 
-The ``moe``, ``ssm`` and ``hybrid`` families are slice 11c of the port, and
-the training loss (``chunked_xent``, ``lm_loss``) slice 11b
+Training: :func:`lm_loss` runs the layer stack under the plan's remat
+policy (``torch.utils.checkpoint`` per block) and :func:`chunked_xent`, the
+cross-entropy over sequence chunks of at most 512 positions, whose logits
+are the parameter-dtype product cast to float32, as the reference's are.
+
+The ``moe``, ``ssm`` and ``hybrid`` families are slice 11c of the port
 (``ROADMAP.md``).
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from .. import tree as tree_util
 from ..kernels.kvquant.ops import kv_quantize
@@ -129,6 +135,48 @@ def _attn_block(p, x, cfg, plan, attn_mode, moe: bool):
     return x + apply_mlp(p["mlp"], h, cfg, plan), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+#: the products without batch dims, whose outputs remat "dots" saves (the
+#: reference's ``dots_with_no_batch_dims_saveable``): a weight product
+#: ``(B, S, d) @ (d, f)`` runs as one ``mm`` or ``addmm``, while attention's
+#: einsums run as ``bmm``, which is recomputed
+_SAVEABLE_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _SAVEABLE_DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _maybe_remat(fn, plan: ParallelPlan):
+    """``fn`` under the plan's remat policy when autograd records: "none"
+    saves everything, "full" recomputes the whole block in the backward
+    pass, "dots" saves only the outputs of products without batch dims.
+    Remat changes memory, never numbers."""
+    if plan.remat == "none":
+        return fn
+    context_fn = (functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+                  if plan.remat == "dots" else None)
+
+    def wrapped(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        if context_fn is None:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+    return wrapped
+
+
+def _scan_blocks(x, stacked, n: int, block_fn, plan: ParallelPlan):
+    """The reference's ``lax.scan`` over stacked layers, as a loop: layer
+    ``i`` sees views of the stacked leaves."""
+    fn = _maybe_remat(block_fn, plan)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n):
+        x, aux_i = fn(_layer(stacked, i), x)
+        aux = aux + aux_i
+    return x, aux
+
+
 def lm_backbone(
     params,
     x: torch.Tensor,  # (B, S, d) embedded inputs
@@ -136,12 +184,11 @@ def lm_backbone(
     plan: ParallelPlan,
     attn_mode: str = "blocked",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Run the layer stack; returns (hidden, aux_loss).  The reference's
-    remat policy shapes only its backward pass, which comes with training."""
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(cfg.n_layers):
-        x, aux = _attn_block(_layer(params["blocks"], i), x, cfg, plan, attn_mode, moe=False)
-        aux_total = aux_total + aux
+    """Run the layer stack; returns (hidden, aux_loss)."""
+    x, aux_total = _scan_blocks(
+        x, params["blocks"], cfg.n_layers,
+        lambda p, h: _attn_block(p, h, cfg, plan, attn_mode, moe=False), plan,
+    )
     return apply_norm(params["final_norm"], x), aux_total
 
 
@@ -150,11 +197,70 @@ def lm_backbone(
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan) -> torch.Tensor:
-    return plan.act_btd(params["embed"][tokens.long()])
+    """The embedding rows of ``tokens``.  ``F.embedding``, not indexing: the
+    backward of ``embed[tokens]`` accumulates repeated tokens' rows in an
+    order that changes from call to call on the CPU, while the embedding's
+    backward sums them in a fixed order, so a step is reproducible."""
+    return plan.act_btd(torch.nn.functional.embedding(tokens.long(), params["embed"]))
 
 
 def unembed_matrix(params, cfg: ModelConfig) -> torch.Tensor:
     return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def chunked_xent(
+    hidden: torch.Tensor,  # (B, S, d)
+    w_unembed: torch.Tensor,  # (d, Vp)
+    labels: torch.Tensor,  # (B, S) int; < 0 = ignore
+    cfg: ModelConfig,
+    plan: ParallelPlan,
+    chunk: int = 512,
+) -> torch.Tensor:
+    """Mean softmax cross-entropy over the positions whose label lies in
+    ``[0, cfg.vocab)``, in sequence chunks of ``min(chunk, S)``: one
+    chunk's (B, c, Vp) logits at a time in the forward pass.  The logits
+    are ``h @ w`` in the parameter dtype, then float32; the log-sum-exp
+    runs over the padded vocabulary, as the reference's does."""
+    B, S, d = hidden.shape
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError(f"sequence length {S} is not a multiple of the loss chunk {c}")
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
+    for i in range(S // c):
+        h = hidden[:, i * c : (i + 1) * c]
+        y = labels[:, i * c : (i + 1) * c]
+        logits = (h @ w_unembed).to(torch.float32)
+        logits = plan.constrain(logits, plan.ps(plan.b, None, plan.model_axis))
+        mask = (y >= 0) & (y < cfg.vocab)
+        ysafe = torch.where(mask, y, 0).long()
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, ysafe[..., None])[..., 0]
+        nll = torch.where(mask, lse - gold, 0.0)
+        tot = tot + nll.sum()
+        cnt = cnt + mask.sum(dtype=torch.int32)
+    return tot / torch.clamp_min(cnt, 1)
+
+
+def lm_loss(
+    params,
+    batch: Dict[str, torch.Tensor],
+    cfg: ModelConfig,
+    plan: ParallelPlan,
+    attn_mode: str = "blocked",
+    aux_coeff: float = 0.01,
+) -> torch.Tensor:
+    """The training loss: embed (or take the VLM's ``embeds``), run the
+    stack, :func:`chunked_xent` against ``labels``, plus ``aux_coeff``
+    times the blocks' auxiliary loss."""
+    params = param_tree(params)
+    if "embeds" in batch:  # vlm / stubbed-frontend path
+        x = plan.act_btd(batch["embeds"].to(cfg.param_dtype))
+    else:
+        x = embed_tokens(params, batch["tokens"], cfg, plan)
+    hidden, aux = lm_backbone(params, x, cfg, plan, attn_mode)
+    loss = chunked_xent(hidden, unembed_matrix(params, cfg), batch["labels"], cfg, plan)
+    return loss + aux_coeff * aux
 
 
 # ---------------------------------------------------------------------------

@@ -73,8 +73,9 @@ def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
-def update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
-    """Returns (new_params, new_state, metrics)."""
+def _leaf_update(grads, state, cfg: AdamWConfig, lr_scale):
+    """The step's shared scalars and the per-leaf update
+    ``upd(p, g, m, v) -> (p_new, m_new, v_new)``."""
     step = state["step"] + 1
     gnorm = _global_norm(grads)
     # tensor / tensor: torch computes ``float / tensor`` as a reciprocal
@@ -105,15 +106,50 @@ def update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
             v_new = oc.compress_nonneg(v_new, pol)
         return p_new, m_new, v_new
 
+    return step, gnorm, upd
+
+
+def _flat(params, grads, state):
     flat_p, treedef = tree_util.flatten(params)
-    flat_g = tree_util.flatten_up_to(treedef, grads)
-    flat_m = tree_util.flatten_up_to(treedef, state["m"])
-    flat_v = tree_util.flatten_up_to(treedef, state["v"])
+    rest = [tree_util.flatten_up_to(treedef, t) for t in (grads, state["m"], state["v"])]
+    return flat_p, treedef, rest
+
+
+def update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+    """Returns (new_params, new_state, metrics)."""
+    step, gnorm, upd = _leaf_update(grads, state, cfg, lr_scale)
+    flat_p, treedef, (flat_g, flat_m, flat_v) = _flat(params, grads, state)
     out = [upd(p, g, m, v) for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]
     new_params = tree_util.unflatten(treedef, [o[0] for o in out])
     new_m = tree_util.unflatten(treedef, [o[1] for o in out])
     new_v = tree_util.unflatten(treedef, [o[2] for o in out])
     return new_params, {"m": new_m, "v": new_v, "step": step}, {"grad_norm": gnorm}
+
+
+def _write_(dst, src) -> None:
+    if isinstance(dst, oc.Compressed):
+        for name in dst.ARRAYS:
+            getattr(dst, name).copy_(getattr(src, name))
+    else:
+        dst.copy_(src)
+
+
+@torch.no_grad()
+def update_(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
+    """:func:`update` in place: each parameter and moment is overwritten by
+    its new value leaf by leaf (so one leaf's temporaries live at a time,
+    not a second copy of the state), and ``state["step"]`` advances.  The
+    values are :func:`update`'s bit for bit.  Returns the metrics."""
+    step, gnorm, upd = _leaf_update(grads, state, cfg, lr_scale)
+    flat_p, _, (flat_g, flat_m, flat_v) = _flat(params, grads, state)
+    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
+        p_new, m_new, v_new = upd(p, g, m, v)
+        p.copy_(p_new)
+        _write_(m, m_new)
+        _write_(v, v_new)
+        del p_new, m_new, v_new
+    state["step"].copy_(step)
+    return {"grad_norm": gnorm}
 
 
 # ---------------------------------------------------------------------------

@@ -3,13 +3,23 @@
 The JAX package's plan (``repro/parallel/plan.py``) places every tensor on
 a ``jax.sharding.Mesh`` with three axes (``pod``, ``data``, ``model``) and
 threads through the model code, where each sharding decision goes through
-:meth:`ParallelPlan.ps` and :meth:`ParallelPlan.constrain`.  This port has
-the single-device plan only (``mesh=None``): every constraint is the
-identity, every axis has size 1, and :meth:`ParallelPlan.tp_project` is the
-plain product.  The fields are all the reference's, so a plan is built and
-``dataclasses.replace``-d as there (``kv_cache_dtype="int8"`` turns on the
-quantized KV cache).  A plan on a ``torch.distributed`` ``DeviceMesh`` is
-slice 11b of the port (``ROADMAP.md``).
+:meth:`ParallelPlan.ps` and :meth:`ParallelPlan.constrain`.  Here ``mesh``
+is ``None`` (one device) or a ``torch.distributed`` ``DeviceMesh`` for data
+parallelism: every rank holds the whole model and its rows of the batch,
+and the train step reduces the gradients over the group of the batch axis
+(:meth:`ParallelPlan.dp_group`).  On such a mesh every constraint is the
+identity, as it is without one, and :meth:`ParallelPlan.tp_project` is the
+plain product.
+
+Tensor parallelism (a ``model`` axis above 1), FSDP (``fsdp_axes``),
+sequence parallelism (``seq_axes``), ``manual_tp_psum`` and
+``decode_feature_shard`` on a mesh are slice 11d of the port
+(``ROADMAP.md``) and raise ``NotImplementedError``.  Without a mesh those
+fields change nothing, as in the reference.
+
+``bwd_cast_bf16`` rounds the cotangent flowing backward through each block
+entry and each ``act_btd`` constraint to bf16 (:class:`_Bf16GradBarrier`),
+with or without a mesh, as the reference's ``custom_vjp`` does.
 """
 from __future__ import annotations
 
@@ -22,7 +32,7 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
-    mesh: Optional[Any] = None
+    mesh: Optional[Any] = None  # a torch.distributed DeviceMesh
     batch_axes: Tuple[str, ...] = ("data",)  # batch dim sharding
     model_axis: Optional[str] = "model"  # TP/EP axis
     fsdp_axes: Tuple[str, ...] = ()  # ZeRO-3 param sharding axes
@@ -43,14 +53,26 @@ class ParallelPlan:
     # axis at decode (mesh only)
 
     def __post_init__(self):
-        if self.mesh is not None or self.bwd_cast_bf16:
-            raise NotImplementedError(
-                "a ParallelPlan with a mesh, or with bwd_cast_bf16 (a backward-pass "
-                "lever), is slice 11b of the port (ROADMAP.md): this slice runs "
-                "forward passes on one device (mesh=None)"
-            )
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {self.kv_cache_dtype!r}")
+        if self.remat not in ("none", "full", "dots"):
+            raise ValueError(f"remat must be 'none', 'full' or 'dots', got {self.remat!r}")
+        if self.mesh is None:
+            return
+        sharded = [f"a '{self.model_axis}' axis of {self.tp}"] if self.tp > 1 else []
+        sharded += [name for name in ("fsdp_axes", "seq_axes", "manual_tp_psum", "decode_feature_shard")
+                    if getattr(self, name)]
+        present = [a for a in self.batch_axes if a in self.mesh.mesh_dim_names and self.axis_size(a) > 1]
+        if len(present) > 1:
+            sharded.append(f"data parallelism over {len(present)} axes {tuple(present)}")
+        others = [a for a in self.mesh.mesh_dim_names
+                  if a not in self.batch_axes and a != self.model_axis and self.axis_size(a) > 1]
+        sharded += [f"a mesh axis '{a}' of {self.axis_size(a)} outside the batch axes" for a in others]
+        if sharded:
+            raise NotImplementedError(
+                "sharded training (" + ", ".join(sharded) + ") is slice 11d of the port (ROADMAP.md): "
+                "this port runs data parallelism on a DeviceMesh whose model axis has size 1"
+            )
 
     def grad_compression(self):
         """The resolved gradient-compression JitPolicy, or None when off."""
@@ -60,9 +82,11 @@ class ParallelPlan:
             return as_policy(self.grad_policy or self.grad_compress_bits)
         return None
 
-    # -- mesh facts (one device: every axis has size 1) ----------------------
+    # -- mesh facts ----------------------------------------------------------
     def axis_size(self, name: Optional[str]) -> int:
-        return 1  # no mesh
+        if self.mesh is None or name is None or name not in self.mesh.mesh_dim_names:
+            return 1
+        return int(self.mesh.size(self.mesh.mesh_dim_names.index(name)))
 
     @property
     def tp(self) -> int:
@@ -71,6 +95,30 @@ class ParallelPlan:
     @property
     def dp(self) -> int:
         return math.prod(self.axis_size(a) for a in self.batch_axes)
+
+    def _dp_axis(self) -> Optional[str]:
+        """The mesh axis the batch is split over (one at most, see
+        ``__post_init__``), or None without one."""
+        if self.mesh is None:
+            return None
+        axes = [a for a in self.batch_axes if a in self.mesh.mesh_dim_names]
+        big = [a for a in axes if self.axis_size(a) > 1]
+        return (big or axes or [None])[0]
+
+    def dp_group(self):
+        """The ``torch.distributed`` process group of the batch axis (its
+        collectives run the DP reduction)."""
+        axis = self._dp_axis()
+        if axis is None:
+            raise ValueError("the data-parallel reduction needs a ParallelPlan with a mesh that has a batch axis")
+        return self.mesh.get_group(axis)
+
+    @property
+    def dp_rank(self) -> int:
+        """This process's coordinate on the batch axis: it takes rows
+        ``[dp_rank * B / dp, (dp_rank + 1) * B / dp)`` of a global batch."""
+        axis = self._dp_axis()
+        return 0 if axis is None else int(self.mesh.get_local_rank(axis))
 
     def kv_repeat(self, n_kv: int, n_q: Optional[int] = None) -> int:
         """Virtual KV-head duplication so kv-heads shard evenly over TP; 1
@@ -90,30 +138,58 @@ class ParallelPlan:
             return None
         return self.batch_axes if len(self.batch_axes) > 1 else self.batch_axes[0]
 
-    # -- spec builders (no mesh: the empty spec, no sharding) ---------------
+    # -- spec builders: a spec is the tuple of axis entries (no mesh: empty) --
     def ps(self, *axes) -> Tuple:
-        return ()
+        if self.mesh is None:
+            return ()
+        return tuple(axes)
 
     def constrain(self, x: torch.Tensor, spec) -> torch.Tensor:
+        """The identity: without a mesh, and on a data-parallel mesh, where
+        every rank holds its activations whole."""
         return x
 
     # -- common activation constraints ---------------------------------------
     def act_btd(self, x: torch.Tensor) -> torch.Tensor:
         """(batch, seq, d_model) activations."""
+        x = self.constrain(x, self.ps(self.b, None, None))
+        if self.bwd_cast_bf16:
+            x = _bf16_grad_barrier(x)
         return x
 
     def grad_barrier(self, x: torch.Tensor) -> torch.Tensor:
+        """Cast the cotangent flowing backward through this point to bf16
+        (placed at layer-block entry)."""
+        if self.bwd_cast_bf16:
+            return _bf16_grad_barrier(x)
         return x
 
     def tp_project(self, h: torch.Tensor, w: torch.Tensor, shardable: bool = True) -> torch.Tensor:
-        """Output projection ``h @ w`` (the reference's explicit TP psum
-        needs a mesh)."""
+        """Output projection ``h @ w`` (the reference's explicit TP psum is
+        slice 11d)."""
         return h @ w
 
     def act_heads(self, x: torch.Tensor, shardable: bool = True) -> torch.Tensor:
-        return x
+        return self.constrain(x, self.ps(self.b, None, self.model_axis if shardable else None, None))
 
 
 def single_device_plan(**kw) -> ParallelPlan:
     return ParallelPlan(mesh=None, **kw)
 
+
+class _Bf16GradBarrier(torch.autograd.Function):
+    """The identity forward; backward rounds the cotangent through bf16 and
+    back to the input's dtype (the reference's ``custom_vjp`` barrier)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.dtype = x.dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, ct):
+        return ct.to(torch.bfloat16).to(ctx.dtype)
+
+
+def _bf16_grad_barrier(x: torch.Tensor) -> torch.Tensor:
+    return _Bf16GradBarrier.apply(x)

@@ -1,8 +1,9 @@
 """Head shardability of a model under a plan (``repro/parallel/specs.py``).
 
 The reference's ``param_specs`` and ``batch_specs`` build PartitionSpec
-trees over a mesh; they come with the port's ``DeviceMesh`` plan in slice
-11b (``ROADMAP.md``).
+trees for tensor, FSDP and sequence parallelism over a mesh; those are
+slice 11d of the port (``ROADMAP.md``).  Data parallelism needs none: every
+rank holds the whole model and its rows of the batch.
 """
 from __future__ import annotations
 
@@ -18,3 +19,11 @@ def heads_shardable(cfg: ModelConfig, plan: ParallelPlan) -> bool:
     dims = attn_dims(cfg, plan)
     tp = plan.tp
     return dims.n_q % tp == 0 and dims.n_kv % tp == 0
+
+
+def param_specs(*args, **kwargs):
+    raise NotImplementedError("parameter placements for sharded training are slice 11d of the port (ROADMAP.md)")
+
+
+def batch_specs(*args, **kwargs):
+    raise NotImplementedError("batch placements for sharded training are slice 11d of the port (ROADMAP.md)")

@@ -13,11 +13,17 @@ other object (a namedtuple included) is a leaf.
 package's checkpoint manager names it (``ft/checkpoint.py``'s ``_path_str``
 over ``jax.tree_util.tree_flatten_with_path``): keys joined with ``/``,
 sequence indices as numbers, namedtuple fields by name.  There, as in JAX,
-a namedtuple is a node, not a leaf.  The strings pick a leaf's checkpoint
-policy and name its file, so a checkpoint crosses between the packages only
-if both build the same strings.
+a namedtuple is a node, not a leaf, and so is a codes dataclass with an
+``ARRAYS`` tuple (``core.jitmode.ArrayState``, such as a compressed AdamW
+moment, which the reference registers with ``register_dataclass``): its
+array fields are its children, in ``ARRAYS`` order, and its other fields
+travel in the structure.  The strings pick a leaf's checkpoint policy and
+name its file, so a checkpoint crosses between the packages only if both
+build the same strings.
 """
 from __future__ import annotations
+
+import dataclasses
 
 from typing import Any, Callable, List, Tuple
 
@@ -62,6 +68,11 @@ def _flatten_path(tree, path: Tuple[str, ...], out: List[Tuple[str, Any]]) -> Tr
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         children = tuple(_flatten_path(v, path + (f,), out) for f, v in zip(tree._fields, tree))
         return ("namedtuple", type(tree), children)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type) and getattr(tree, "ARRAYS", ()):
+        arrays = tuple(tree.ARRAYS)
+        meta = {f.name: getattr(tree, f.name) for f in dataclasses.fields(tree) if f.name not in arrays}
+        children = tuple(_flatten_path(getattr(tree, f), path + (f,), out) for f in arrays)
+        return ("arrays", type(tree), arrays, meta, children)
     if isinstance(tree, (list, tuple)):
         kind = "list" if isinstance(tree, list) else "tuple"
         return (kind, tuple(_flatten_path(t, path + (str(i),), out) for i, t in enumerate(tree)))
@@ -94,6 +105,9 @@ def _unflatten(treedef: TreeDef, it) -> Any:
         return {k: _unflatten(c, it) for k, c in zip(treedef[1], treedef[2])}
     if kind == "namedtuple":
         return treedef[1](*[_unflatten(c, it) for c in treedef[2]])
+    if kind == "arrays":
+        _, cls, arrays, meta, children = treedef
+        return cls(**meta, **{f: _unflatten(c, it) for f, c in zip(arrays, children)})
     children = [_unflatten(c, it) for c in treedef[1]]
     return children if kind == "list" else tuple(children)
 

@@ -18,8 +18,8 @@ package's on the CPU.
 * configs and parameter paths: all ten architectures' values, shape cells
   and input specs equal the reference's; the model's leaf paths and shapes
   equal the reference tree's;
-* the families of later slices raise ``NotImplementedError`` naming their
-  slice, and without a card the default device raises.
+* the families and plans of later slices raise ``NotImplementedError``
+  naming their slice, and without a card the default device raises.
 
 Tolerances, float32 smoke configs: logits within 1e-4 absolute (XLA and
 torch sum, divide and take transcendentals in different orders and
@@ -438,14 +438,31 @@ def test_later_families_raise_naming_their_slice(arch):
         t_models.init_cache({"embed": torch.zeros(1)}, cfg, PLAN, 1, 4)
 
 
+class _Mesh:
+    """A stand-in for a ``DeviceMesh``: the plan reads only its axis names
+    and sizes."""
+
+    def __init__(self, **axes):
+        self.mesh_dim_names = tuple(axes)
+        self._sizes = tuple(axes.values())
+
+    def size(self, i):
+        return self._sizes[i]
+
+
 def test_training_and_meshes_raise_naming_their_slice():
-    cfg = t_configs.get_smoke("granite-3-8b")
-    with pytest.raises(NotImplementedError, match="slice 11b"):
-        t_models.loss_fn({}, {}, cfg, PLAN)
-    with pytest.raises(NotImplementedError, match="slice 11b"):
-        TPlan(mesh=object())
-    with pytest.raises(NotImplementedError, match="slice 11b"):
-        TPlan(bwd_cast_bf16=True)
+    # dense training and data parallelism came with slice 11b; the
+    # encoder-decoder loss is slice 11c, sharded training slice 11d
+    with pytest.raises(NotImplementedError, match="slice 11c"):
+        t_models.loss_fn({}, {}, t_configs.get_smoke("whisper-small"), PLAN)
+    with pytest.raises(NotImplementedError, match="slice 11d"):
+        TPlan(mesh=_Mesh(data=2, model=2))
+    with pytest.raises(NotImplementedError, match="slice 11d"):
+        TPlan(mesh=_Mesh(data=2, model=1), fsdp_axes=("data",))
+    with pytest.raises(NotImplementedError, match="slice 11d"):
+        TPlan(mesh=_Mesh(data=2), seq_axes=("data",))
+    plan = TPlan(mesh=_Mesh(data=2, model=1), bwd_cast_bf16=True)
+    assert (plan.dp, plan.tp, plan.ps("data", None)) == (2, 1, ("data", None))
 
 
 # ---------------------------------------------------------------------------

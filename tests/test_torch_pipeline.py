@@ -424,6 +424,9 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.kernels.kvquant.ops, repro_torch.core.chunking\n"
         "import repro_torch.kernels.bitplane.ops\n"
         "import repro_torch.codec, repro_torch.ft, repro_torch.serve, repro_torch.core.faults\n"
+        "import repro_torch.models, repro_torch.parallel, repro_torch.configs, repro_torch.data\n"
+        "import repro_torch.train.step, repro_torch.launch.serve, repro_torch.launch.train\n"
+        "import repro_torch.launch.mesh\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

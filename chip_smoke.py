@@ -191,7 +191,38 @@ Phases, one JSON line each:
    policy: ``encode_2d``/``decode_2d`` launches equal to the lossy leaves
    routed to them, each within its recorded bound; a lossless policy: the
    resumed step bit for bit against the same step from the saved state in
-   memory).
+   memory);
+19. model families (``families``): the launcher's ``serve`` at the full
+   configs of deepseek-moe-16b (16.4 B bf16 parameters: 64 routed experts
+   at top-6, 2 shared, layer 0 dense), qwen3-moe-30b-a3b (GQA, 128 experts
+   at top-8, no shared expert; depth cut from 48 layers to 8),
+   mamba2-2.7b (64 Mamba2 layers), zamba2-7b (81 Mamba2 layers and one
+   shared attention block applied 13 times) and whisper-small (12 encoder
+   layers over 1500 frames, 12 decoder layers), batch 4 and 16 greedy
+   tokens each, drawn on the card from the seed: at ``--kv bf16`` no
+   kernel launched, tokens/s, step p50/p99 and peak memory; prefill over
+   the consumed tokens against the last step within 10% of the largest
+   |logit| (not MoE: the reference drops different assignments at prefill
+   and at decode); for MoE the share of assignments dropped at each step,
+   one step from one cache run twice to the same bits, and, at full width
+   in float32 with 2 layers, 4 steps and a 16-token prefill on the card
+   and on the CPU from one set of weights with every call's top-k ids and
+   kept slots identical; at ``--kv int8`` ``absmax`` and
+   ``quantize_with_scale`` launched exactly 2 x (attention layers) x 16
+   times each (896, 256, 0, 416, 384), the drift from bf16 under 0.3
+   (MoE: the reference itself drifts past 0.3 at full width as tokens'
+   top-k sets flip under the int8 noise, so the full-depth drift and the
+   flipped assignments are reported, and the drift is held against the
+   reference's own reading from ``tools/moe_int8_drift.py``: the same
+   weights, tokens and depth on the card, the reference's top-k ids
+   pinned, within a stated tolerance of the reference's drift),
+   ``_quantize_token`` on the bf16 cache bit for bit against its plain
+   version, both kernels timed at each family's append shape, and
+   mamba2-2.7b's int8 run equal to its bf16 run; the bf16 cache's first
+   64 MB in the reference's leaf order (the leaf that does not fit cut to
+   its leading layers) through ``offload_cache`` (chunked, strict verify),
+   launches equal to the chunks routed to each kernel, every leaf decoded
+   on the card within its bound.
 
 Each main path must launch its kernels (the launch counters are zeroed just
 before the path and read just after; the chunked engine exactly once per
@@ -202,7 +233,8 @@ on the CPU within the bound.
 The last three lines are the ``{"kernels": [...]}`` summary (with
 ``chunk_*`` and ``row_chunk_*`` fields where a kernel was also timed at a
 chunk shape, ``serve_*`` fields for the kvquant kernels at the decode
-shape, whose ``launches`` include the serve phase's), the card's name
+shape, whose ``launches`` include the serve phase's, and ``families_*``
+fields with their launches and times per family), the card's name
 and power limit as ``nvidia-smi`` prints them, and
 ``{"ok": true, "device": {...}}``.  Any failure exits non-zero before them.
 Without a CUDA device, or without the repository's ``src/`` beside it, the
@@ -213,6 +245,8 @@ from __future__ import annotations
 import argparse
 import collections
 import concurrent.futures
+import contextlib
+import dataclasses
 import importlib
 import json
 import math
@@ -439,7 +473,7 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
         return False
     if not a.is_floating_point():
         return torch.equal(a, b)
-    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    ints = {torch.bfloat16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
     both_nan = torch.isnan(a) & torch.isnan(b)
     return bool((both_nan | (a.view(ints) == b.view(ints))).all())
 
@@ -3151,6 +3185,475 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
     torch.cuda.empty_cache()
 
 
+#: the families phase: the other model families through the serve launcher
+#: at their full configs with the launcher's defaults (batch 4, 16 greedy
+#: tokens); qwen3-moe-30b-a3b's depth cut from 48 layers to 8 (the cut that
+#: keeps the script's time; its width, GQA and 128 experts at top-8 stay)
+FAMILY_ARCHS = (("deepseek-moe-16b", None), ("qwen3-moe-30b-a3b", 8), ("mamba2-2.7b", None), ("zamba2-7b", None),
+                ("whisper-small", None))
+#: bytes at rest of the cache leaves offloaded a family: the first leaves in
+#: the reference's order, the one that does not fit cut to its leading
+#: layers (the float32 SSM states and whisper's cross K/V run to 221-671 MB,
+#: 10-30 s each of host coding)
+FAMILY_OFFLOAD_BYTES = 64 << 20
+#: the MoE card-against-CPU check: full width, float32, the dense prefix
+#: layer and one MoE layer (two MoE layers without a dense prefix), 4 decode
+#: steps and a prefill over 16 tokens from one set of weights
+MOE_CHECK_LAYERS, MOE_CHECK_STEPS, MOE_CHECK_PREFILL = 2, 4, 16
+#: the MoE int8 drift: the reference itself drifts past its 0.3 at full
+#: width, and at its deepseek smoke config in bf16, as a token's top-k set
+#: flips under the int8 noise and it takes other experts' outputs
+#: (``ROADMAP.md`` queue 3).  So each MoE arch is held against the
+#: reference's own reading in ``MOE_DRIFT_READINGS`` (``tools/moe_int8_drift.py``
+#: on the CPU) at full width, the depth and seed of ``MOE_DRIFT_HELD``
+#: (deepseek-moe-16b at 8 layers, the deepest the reference was read at;
+#: qwen3-moe-30b-a3b at 3, whose 8 would add 55 s of CPU draw): the same
+#: weights (the port's CPU draw from the seed, its fingerprint checked),
+#: tokens and depth on the card, with the reference's top-k ids pinned,
+#: within ``MOE_DRIFT_RTOL`` of the reference's drift plus ``MOE_DRIFT_ATOL``
+MOE_DRIFT_READINGS = ROOT / "tools" / "moe_int8_drift.json"
+MOE_DRIFT_HELD = {"deepseek-moe-16b": (8, 0), "qwen3-moe-30b-a3b": (3, 0)}
+#: Set from the port on the CPU against the reference with the same routing
+#: (the tool's ``with_reference_routing``), written before the first card
+#: reading: at 3 full-width layers over 8 readings the two differ by at most
+#: 0.033 (drift 0.20-4.33) and 0.038 (routing held, 0.16-0.23); bf16 logits
+#: of scale 4-5 round to 0.016-0.031, so the card, whose GEMMs sum in yet
+#: another order, is allowed 5% of the reference's drift plus 0.1.  The
+#: first card readings (H100 80GB HBM3, 700 W) differed by 0.094 and 0.0005
+#: (deepseek-moe-16b, 8 layers) and 0.024 and 0.008 (qwen3-moe-30b-a3b, 3)
+MOE_DRIFT_RTOL, MOE_DRIFT_ATOL = 0.05, 0.1
+#: its logits, card against CPU, relative to the largest |logit|: float32
+#: GEMMs summed in other orders (cuBLAS against the CPU's BLAS); the first
+#: readings were 2.27e-6 (deepseek-moe-16b) and 2.69e-6 (qwen3-moe-30b-a3b)
+#: on an H100 80GB HBM3 at 700 W, and the bound is about 7 times those
+MOE_CHECK_RTOL = 2e-5
+
+
+@contextlib.contextmanager
+def recording_routing():
+    """``models.moe._dispatch`` wrapped for the block: each call's top-k ids,
+    slot map and kept flags are kept (no sync, no launch)."""
+    from repro_torch.models import moe
+
+    real = moe._dispatch
+    calls = []
+
+    def recording(idx, gates, n_experts, C):
+        out = real(idx, gates, n_experts, C)
+        calls.append((idx, out[0], out[2]))
+        return out
+
+    moe._dispatch = recording
+    try:
+        yield calls
+    finally:
+        moe._dispatch = real
+
+
+def _cache_fields(cache) -> list:
+    """(name, leaf) in the reference's leaf order (an ``EncDecCache``'s self
+    cache first)."""
+    out = []
+    for f in dataclasses.fields(cache):
+        value = getattr(cache, f.name)
+        if dataclasses.is_dataclass(value):
+            out += [(f"{f.name}.{n}", t) for n, t in _cache_fields(value)]
+        elif value is not None:
+            out.append((f.name, value))
+    return out
+
+
+def _offload_cut(cache, budget: int):
+    """The float leaves of at least 1024 elements, in the reference's order,
+    whole while their bytes at rest fit ``budget``; the first that does not,
+    cut to the leading layers that fit (one layer if nothing went before);
+    nothing after it.  Returns (leaves, names, bytes, cut)."""
+    leaves, names, used, cut = [], [], 0, None
+    fields = [(n, t) for n, t in _cache_fields(cache) if t.is_floating_point() and t.numel() >= 1024]
+    for i, (name, t) in enumerate(fields):
+        nbytes = t.numel() * t.element_size()
+        if used + nbytes <= budget:
+            leaves.append(t)
+            names.append(name)
+            used += nbytes
+            continue
+        per_layer = nbytes // t.shape[0]
+        n = (budget - used) // per_layer or (0 if leaves else 1)  # at least one layer of something
+        if n:
+            leaves.append(t[:n])
+            names.append(f"{name}[:{n}]")
+            used += n * per_layer
+        cut = {"leaf": name, "layers_kept": int(n), "layers": int(t.shape[0]),
+               "left_out": [m for m, _ in fields[i + 1 :]],
+               "bytes_left_out": sum(u.numel() * u.element_size() for _, u in fields[i:]) - int(n) * per_layer}
+        break
+    return leaves, names, used, cut
+
+
+def _family_offload(cache, launches_total: dict) -> dict:
+    """The bf16 cache's first ``FAMILY_OFFLOAD_BYTES`` through
+    ``offload_cache`` (chunked, REL 1e-3, strict verify): launches equal to
+    the chunks routed to each kernel, each leaf decoded on the card within
+    its blob's bound."""
+    import repro_torch.core as tc
+    from repro_torch.core import chunking, telemetry
+    from repro_torch.launch import serve as ls
+
+    leaves, names, used, cut = _offload_cut(cache, FAMILY_OFFLOAD_BYTES)
+    telemetry.reset_metrics()
+    n_in, n_out, seconds, streams, launches = _offload_recorded(
+        lambda c: ls.offload_cache(c, eb=1e-3, device="cuda"), leaves)
+    if len(streams) != len(leaves) or n_in != used:
+        raise AssertionError(f"families offload: {len(streams)} streams for {len(leaves)} leaves, {n_in} bytes in "
+                             f"for {used}")
+    picks_all, per_leaf = [], []
+    for (arr, frames), name in zip(streams, names):
+        blob = chunking.frames_to_blob(frames)
+        chunks = tc.parse_header(blob)[0]["chunks"]
+        picks = [(c["pipeline"], c["n0"] * arr.shape[1]) for c in chunks]
+        picks_all += picks
+        abs_eb = min(tc.parse_header(b)[0]["abs_eb"] for b in _chunk_blobs(blob))
+        back = tc.decompress(blob, device="cuda")
+        err = float((back.double() - arr.double()).abs().max())
+        if not err <= abs_eb:
+            raise AssertionError(f"families offload: leaf {name} error {err} breaks its bound {abs_eb}")
+        per_leaf.append({"leaf": name, "shape": list(arr.shape), "chunks": len(chunks), "max_abs_err": err,
+                         "abs_eb": abs_eb, "picks": dict(collections.Counter(p for p, _ in picks))})
+    expected = _expected_chunk_launches(picks_all, 2)
+    for name in _CHUNK_KERNEL_NAMES:
+        if launches[name] != expected[name]:
+            raise AssertionError(f"families offload: kernel {name} launched {launches[name]} times, expected "
+                                 f"{expected[name]} for the chunks routed to it")
+        launches_total[name] += launches[name]
+    return {"leaves": per_leaf, "n_in": n_in, "n_out": n_out, "ratio": n_in / n_out, "seconds": seconds,
+            "MBps": n_in / 1e6 / seconds, "cut": cut,
+            "launches": {k: v for k, v in launches.items() if v}}
+
+
+def _moe_card_against_cpu(cfg, seed: int) -> dict:
+    """``MOE_CHECK_LAYERS`` layers of ``cfg`` at full width in float32 from
+    one set of weights, on the card and on the CPU: every call's top-k ids,
+    slot map and kept flags identical, the logits within
+    ``MOE_CHECK_RTOL`` of the largest |logit|."""
+    from repro_torch import models
+    from repro_torch import tree as tree_util
+    from repro_torch.models import moe
+    from repro_torch.parallel import ParallelPlan
+
+    plan = ParallelPlan()
+    cfg2 = dataclasses.replace(cfg, n_layers=MOE_CHECK_LAYERS, dtype="float32")
+    card = models.init_params(seed, cfg2, plan, device="cuda")
+    host = models.DecoderLM(cfg2, plan, tree_util.tree_map(lambda t: t.cpu(), card.tree()))
+    gen = torch.Generator(device="cuda").manual_seed(seed + 3)
+    toks = torch.randint(0, cfg.vocab, (SERVE_BATCH, MOE_CHECK_PREFILL), generator=gen, device="cuda",
+                         dtype=torch.int32)
+
+    def run(model, dev):
+        tk = toks.to(dev)
+        with recording_routing() as calls, torch.no_grad():
+            cache = models.init_cache(model, cfg2, plan, SERVE_BATCH, MOE_CHECK_PREFILL)
+            outs = []
+            for t in range(MOE_CHECK_STEPS):
+                logits, cache = models.decode_step(model, cache, tk[:, t : t + 1], cfg2, plan)
+                outs.append(logits)
+            outs.append(models.prefill_logits(model, {"tokens": tk}, cfg2, plan))
+        return [o.cpu() for o in outs], [tuple(a.cpu() for a in c) for c in calls]
+
+    t0 = time.perf_counter()
+    card_logits, card_calls = run(card, "cuda")
+    host_logits, host_calls = run(host, "cpu")
+    seconds = time.perf_counter() - t0
+    if len(card_calls) != len(host_calls) or not all(
+            all(torch.equal(a, b) for a, b in zip(c, h)) for c, h in zip(card_calls, host_calls)):
+        raise AssertionError(f"families {cfg.name}: the card's routing differs from the CPU's")
+    err = max(float((c - h).abs().max()) for c, h in zip(card_logits, host_logits))
+    scale = max(float(h.abs().max()) for h in host_logits)
+    if not err <= MOE_CHECK_RTOL * scale:
+        raise AssertionError(f"families {cfg.name}: card and CPU logits differ by {err}, over {MOE_CHECK_RTOL} of "
+                             f"the largest |logit| {scale}")
+    kept = [int(k.sum()) for _, _, k in card_calls]
+    return {"layers": MOE_CHECK_LAYERS, "dtype": "float32", "calls": len(card_calls), "routing_identical": True,
+            "max_abs_err": err, "rel_err": err / scale, "tolerance": MOE_CHECK_RTOL, "seconds": seconds,
+            "prefill_dropped_share": 1 - kept[-1] / (SERVE_BATCH * MOE_CHECK_PREFILL * cfg.top_k),
+            "prefill_capacity": moe.capacity(SERVE_BATCH * MOE_CHECK_PREFILL, cfg.top_k, cfg.n_experts)}
+
+
+def _forced_int8_drift(params, cfg, tokens: torch.Tensor, ref_logits: torch.Tensor, frames=None):
+    """int8 steps fed ``tokens`` (B, T) one column at a time: the
+    log-probability drift of the last step's logits from ``ref_logits``,
+    and the routing recorded (MoE)."""
+    from repro_torch import models
+    from repro_torch.models.common import float32_bf16_reductions
+    from repro_torch.parallel import ParallelPlan
+    from repro_torch.serve.step import make_serve_step
+
+    plan8 = ParallelPlan(kv_cache_dtype="int8")
+    step = make_serve_step(cfg, plan8)
+    B, T = tokens.shape
+    cache = models.init_cache(params, cfg, plan8, B, T + 8, enc_frames=frames)
+    with recording_routing() as routing, float32_bf16_reductions():
+        for t in range(T):
+            logits, cache = step(params, cache, tokens[:, t : t + 1])
+    return float((torch.log_softmax(logits, -1) - torch.log_softmax(ref_logits, -1)).abs().max()), routing
+
+
+def _drift_tool():
+    """``tools/moe_int8_drift.py`` (its port side imports no JAX)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("moe_int8_drift", ROOT / "tools" / "moe_int8_drift.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def _moe_drift_against_reference(arch: str) -> dict:
+    """The int8 drift of ``arch`` on the card at the weights, tokens and
+    depth of the reference's reading in ``MOE_DRIFT_READINGS``: the port's
+    CPU draw from the reading's seed (its fingerprint checked) moved to the
+    card and read by the tool's ``port_readings``.  With the reference's
+    top-k ids pinned, the drift and the drift with the routing held at the
+    bf16 run's must each be within ``MOE_DRIFT_RTOL`` of the reference's
+    plus ``MOE_DRIFT_ATOL``; the card's free-running readings are
+    reported beside the reference's and the port's on the CPU."""
+    from repro_torch import configs
+
+    tool = _drift_tool()
+    layers, seed = MOE_DRIFT_HELD[arch]
+    line = next(r for r in json.loads(MOE_DRIFT_READINGS.read_text())
+                if (r["arch"], r["layers"], r["seed"]) == (arch, layers, seed))
+    cfg = dataclasses.replace(configs.get(arch), n_layers=line["layers"])
+    t0 = time.perf_counter()
+    model, _ = tool.draw(cfg, line["seed"])
+    if tool.fingerprint(model.tree()) != line["weights_sha256"]:
+        raise AssertionError(f"families {arch}: the CPU draw from seed {line['seed']} differs from the weights of "
+                             f"the reference's reading")
+    model.to("cuda")
+    t_draw = time.perf_counter() - t0
+    ref = line["reference"]
+    t0 = time.perf_counter()
+    card = tool.port_readings(model, cfg, np.asarray(line["token_ids"], dtype=np.int32), ref)
+    seconds = time.perf_counter() - t0
+    for key in ("drift", "drift_routing_pinned"):
+        got, want = card["with_reference_routing"][key], ref[key]
+        if not abs(got - want) <= MOE_DRIFT_RTOL * want + MOE_DRIFT_ATOL:
+            raise AssertionError(f"families {arch} int8 at {line['layers']} layers with the reference's routing: "
+                                 f"{key} {got} on the card, the reference's {want}, tolerance {MOE_DRIFT_RTOL} "
+                                 f"relative plus {MOE_DRIFT_ATOL}")
+    del model
+    torch.cuda.empty_cache()
+    return {"layers": line["layers"], "seed": line["seed"], "weights_sha256": line["weights_sha256"],
+            "reference": {k: v for k, v in ref.items() if not k.startswith("routing")}, "port_cpu": line["port"],
+            "card": card, "rtol": MOE_DRIFT_RTOL, "atol": MOE_DRIFT_ATOL, "draw_s": t_draw, "seconds": seconds}
+
+
+def _moe_decode_checks(cfg, params, bf, routing, plan) -> dict:
+    """The share of assignments dropped at each bf16 step (from the
+    recorded routing), and one decode step from one cache run twice: the
+    same bits."""
+    from repro_torch import models
+    from repro_torch.models import moe
+    from repro_torch.models.common import float32_bf16_reductions
+
+    n_moe = cfg.n_layers - cfg.dense_prefix_layers
+    per_call = SERVE_BATCH * cfg.top_k
+    kept = torch.stack([k.sum() for _, _, k in routing]).cpu().reshape(SERVE_TOKENS, n_moe)
+    dropped = (1 - kept.sum(1).double() / (n_moe * per_call)).tolist()
+    tok = torch.from_numpy(bf.sequences[:, SERVE_TOKENS:]).cuda()  # the last token, never fed back
+    runs = []
+    for _ in range(2):
+        cache = dataclasses.replace(bf.cache, **{n: t.clone() for n, t in _cache_fields(bf.cache)})
+        with float32_bf16_reductions(), torch.no_grad():
+            logits, cache = models.decode_step(params, cache, tok, cfg, plan)
+        runs.append([logits] + [t for _, t in _cache_fields(cache)])
+    torch.cuda.synchronize()
+    same = all(same_bits(a, b) for a, b in zip(*runs))
+    if not same:
+        raise AssertionError(f"families {cfg.name}: one decode step from one cache gave different bits twice")
+    return {"capacity_decode": moe.capacity(SERVE_BATCH, cfg.top_k, cfg.n_experts),
+            "capacity_prefill_64": moe.capacity(64, cfg.top_k, cfg.n_experts),
+            "dropped_share_per_step": dropped, "second_step_bit_identical": True}
+
+
+def _family_kernel_cases(cfg, k_cache, timer, bw: float) -> dict:
+    """``absmax`` and ``quantize_with_scale`` at the family's int8 append
+    shape (hd, B·KV): layer 0's slot 0 of the bf16 cache's K."""
+    from repro_torch.kernels.kvquant import kernel as KK
+    from repro_torch.kernels.kvquant import ref as KR
+
+    x = k_cache[0, :, 0].reshape(-1, cfg.hd).to(torch.float32).T.contiguous()
+    n, cols = x.numel(), x.shape[1]
+    amax = KK.absmax(x)
+    s8 = KR.scale_from_absmax(amax)
+    out = {
+        "absmax": {"kernel_ms": timer(lambda: KK.absmax(x)), "plain_ms": timer(lambda: KR.absmax(x)),
+                   "library_ms": timer(lambda: torch.amax(x.abs(), 0)), **bound(4 * n + 4 * cols, 2 * n, bw),
+                   "bit_identical": same_bits(amax, KR.absmax(x))},
+        "quantize_with_scale": {"kernel_ms": timer(lambda: KK.quantize_with_scale(x, s8)),
+                                "plain_ms": timer(lambda: KR.quantize_with_scale(x, s8)), "library_ms": None,
+                                **bound(5 * n + 4 * cols, 4 * n, bw),
+                                "bit_identical": torch.equal(KK.quantize_with_scale(x, s8),
+                                                             KR.quantize_with_scale(x, s8))},
+    }
+    for name, c in out.items():
+        if not c["bit_identical"]:
+            raise AssertionError(f"{name} at the {cfg.name} append shape {tuple(x.shape)} differs from its plain "
+                                 f"version")
+        c["shape"] = list(x.shape)
+    return out
+
+
+def phase_families(seed: int, launches_total: dict, cases: dict, bw: float) -> None:
+    """The MoE, SSM, hybrid and encoder-decoder families through
+    ``repro_torch.launch.serve.serve`` at full width (``FAMILY_ARCHS``):
+    size and speed of 16 greedy bf16 steps (no kernel launched); fidelity
+    (prefill against the last step within ``SERVE_PREFILL_RTOL``; for MoE,
+    whose prefill and decode drop different assignments by design, the
+    share dropped at each step, a step from one cache twice to the same
+    bits and ``_moe_card_against_cpu``); 16 int8 steps (``absmax`` and
+    ``quantize_with_scale`` 2 x attention layers x 16 times each, the
+    drift from bf16 under ``SERVE_INT8_DRIFT``, for MoE reported and held
+    against the reference's own reading (``_moe_drift_against_reference``),
+    ``_quantize_token`` on the card against its plain version; mamba2-2.7b's int8 run equal to its
+    bf16 run); the bf16 cache's first 64 MB through ``offload_cache``."""
+    from repro_torch import configs, models
+    from repro_torch.core import telemetry
+    from repro_torch.launch import serve as ls
+    from repro_torch.models import lm
+    from repro_torch.models.common import float32_bf16_reductions
+    from repro_torch.parallel import ParallelPlan
+
+    plan, plan8 = ParallelPlan(), ParallelPlan(kv_cache_dtype="int8")
+    B, T = SERVE_BATCH, SERVE_TOKENS
+    timer = Timer(reps=CHUNK_REPS, warmup=5)
+    for name in ("absmax", "quantize_with_scale"):
+        cases[name].update({"families_launches": {}, "families_shapes": {}})
+    for arch, depth in FAMILY_ARCHS:
+        t_family = time.perf_counter()
+        cfg = configs.get(arch)
+        if depth:
+            cfg = dataclasses.replace(cfg, n_layers=depth)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        params = models.init_params(seed, cfg, plan, device="cuda")
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in params.parameters())
+        weight_bytes = sum(t.numel() * t.element_size() for t in params.parameters())
+        frames = ls.stub_frames(cfg, B, seed, "cuda") if cfg.family == "encdec" else None
+        La = cfg.n_layers if cfg.family == "encdec" else lm._n_attn_layers(cfg)  # the int8 appends a step
+        out = {"config": {f: getattr(cfg, f) for f in ("family", "n_layers", "d_model", "n_heads", "n_kv_heads",
+                                                       "d_ff", "vocab", "n_experts", "top_k", "moe_d_ff",
+                                                       "n_shared_experts", "dense_prefix_layers", "ssm_state",
+                                                       "ssm_head_dim", "hybrid_attn_every", "n_enc_layers",
+                                                       "enc_seq", "dtype")},
+               "reduced": {"n_layers": [configs.get(arch).n_layers, depth]} if depth else {},
+               "params": n_params, "weight_bytes": weight_bytes, "init_s": t_init, "batch": B, "tokens": T,
+               "attention_layers": La}
+
+        # 1. bf16: 16 greedy steps, the routing recorded
+        telemetry.reset_metrics()
+        torch.cuda.synchronize()
+        with recording_routing() as routing:
+            reset_all_launches()
+            bf = ls.serve(cfg, plan, B, T, arch=arch, seed=seed, params=params)
+            torch.cuda.synchronize()
+            bf_launches = {k: v for k, v in all_launches().items() if v}
+        if bf_launches:
+            raise AssertionError(f"families {arch}: a bf16 decode launched kernels {bf_launches}")
+        if bf.sequences.shape != (B, T + 1) or tuple(bf.logits.shape) != (B, cfg.vocab) \
+                or not bool(torch.isfinite(bf.logits).all()) or not (bf.sequences < cfg.vocab).all():
+            raise AssertionError(f"families {arch}: tokens {bf.sequences.shape}, logits {tuple(bf.logits.shape)}, "
+                                 f"or non-finite logits")
+        out["bf16"] = {"tok_per_s": bf.tok_per_s, "seconds": bf.seconds, **_step_latency(),
+                       "weight_read_bound_step_ms": weight_bytes / bw * 1e3, "sample": bf.sequences[0].tolist()}
+        consumed = torch.from_numpy(bf.sequences[:, :T]).cuda()  # the last token was never fed back
+
+        # 2. fidelity
+        if cfg.family == "moe":
+            out["moe"] = _moe_decode_checks(cfg, params, bf, routing, plan)
+        else:
+            batch = {"tokens": consumed}
+            if frames is not None:
+                batch["enc_frames"] = frames
+            with float32_bf16_reductions(), torch.no_grad():
+                pre = models.prefill_logits(params, batch, cfg, plan)
+            pre_err = float((pre - bf.logits).abs().max())
+            scale = float(bf.logits.abs().max())
+            if not pre_err <= SERVE_PREFILL_RTOL * scale:
+                raise AssertionError(f"families {arch}: prefill differs from the last decode step by {pre_err}, "
+                                     f"over {SERVE_PREFILL_RTOL} of the largest |logit| {scale}")
+            out["prefill"] = {"max_abs_err": pre_err, "rtol": pre_err / scale, "tolerance": SERVE_PREFILL_RTOL,
+                              "argmax_equal": bool((pre.argmax(-1) == bf.logits.argmax(-1)).all())}
+            del pre
+
+        # 3. int8: 16 greedy steps through the kvquant kernels
+        telemetry.reset_metrics()
+        torch.cuda.synchronize()
+        reset_all_launches()
+        i8 = ls.serve(cfg, plan8, B, T, arch=arch, seed=seed, params=params)
+        torch.cuda.synchronize()
+        i8_launches = all_launches()
+        i8_lat = _step_latency()
+        want = 2 * La * T
+        for name in ("absmax", "quantize_with_scale"):
+            if i8_launches[name] != want:
+                raise AssertionError(f"families {arch} int8: kernel {name} launched {i8_launches[name]} times, "
+                                     f"expected {want}")
+            launches_total[name] += i8_launches[name]
+            cases[name]["families_launches"][arch] = i8_launches[name]
+        others = {k: v for k, v in i8_launches.items() if v and k not in ("absmax", "quantize_with_scale")}
+        if others or not bool(torch.isfinite(i8.logits).all()):
+            raise AssertionError(f"families {arch} int8: other kernels {others}, or non-finite logits")
+        if La == 0 and not (np.array_equal(i8.sequences, bf.sequences) and same_bits(i8.logits, bf.logits)):
+            raise AssertionError(f"families {arch}: without attention the int8 run must equal the bf16 run")
+        drift, routing8 = _forced_int8_drift(params, cfg, consumed, bf.logits, frames)
+        out["int8"] = {"tok_per_s": i8.tok_per_s, "seconds": i8.seconds, **i8_lat,
+                       "launches": {k: v for k, v in i8_launches.items() if v}, "expected_launches_each": want,
+                       "greedy_tokens_equal_bf16": bool((i8.sequences == bf.sequences).all()),
+                       "logprob_drift_from_bf16": drift, "drift_bound": SERVE_INT8_DRIFT}
+        if cfg.family == "moe":
+            # the reference has no reading at this depth: reported, and held
+            # at the depth of its reading (_moe_drift_against_reference)
+            ids, ids8 = ([c[0].cpu().numpy() for c in r] for r in (routing, routing8))
+            out["int8"].update(assignments=sum(a.shape[0] for a in ids),
+                               topk_set_changed=_drift_tool().set_changes(ids, ids8))
+        elif not drift < SERVE_INT8_DRIFT:
+            raise AssertionError(f"families {arch} int8: log-probability drift {drift} from bf16, bound "
+                                 f"{SERVE_INT8_DRIFT}")
+        del i8, routing8
+        self_cache = bf.cache.self_cache if cfg.family == "encdec" else bf.cache
+        if La:
+            same = {}
+            for name in ("k", "v"):
+                x = getattr(self_cache, name)
+                q, scale8 = lm._quantize_token(x)
+                torch.cuda.synchronize()
+                pq, ps = lm._quantize_token(x.cpu())
+                same[name] = bool(torch.equal(q.cpu(), pq) and same_bits(scale8.cpu(), ps))
+                if not same[name]:
+                    raise AssertionError(f"families {arch}: _quantize_token of the {name} cache differs on the "
+                                         f"card from its plain version")
+            out["quantize_token_bit_identical"] = same
+            for name, c in _family_kernel_cases(cfg, self_cache.k, timer, bw).items():
+                cases[name]["families_shapes"][arch] = c
+                out.setdefault("kernels", {})[name] = c
+        out["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9
+
+        # 4. the bf16 cache's first 64 MB through the offload
+        out["offload"] = _family_offload(bf.cache, launches_total)
+        del params, bf, routing
+        torch.cuda.empty_cache()
+        if cfg.family == "moe":
+            out["moe"]["card_against_cpu"] = _moe_card_against_cpu(cfg, seed)
+            torch.cuda.empty_cache()
+            out["moe"]["int8_drift_against_reference"] = _moe_drift_against_reference(arch)
+        out["seconds"] = time.perf_counter() - t_family
+        emit(f"families {arch}", **out)
+
+
 #: the train phase: the reference launcher's default architecture at full
 #: width and depth (24 layers, d_model 1024, 16/16 heads, d_ff 2816, vocab
 #: 151936, tied embedding, QKV bias, bf16), at ``configs/shapes.py``'s
@@ -3554,6 +4057,8 @@ def main() -> int:
     t_kv = time.perf_counter()
     phase_serve(args.seed, launches, cases, bw)
     t_serve = time.perf_counter()
+    phase_families(args.seed, launches, cases, bw)
+    t_families = time.perf_counter()
     phase_train(args.seed, launches)
     RESULTS["phase_seconds"] = {
         "environment, build, kernels": t_kernels - t0,
@@ -3572,7 +4077,8 @@ def main() -> int:
         "dp step": t_dp - t_offload,
         "kv path": t_kv - t_dp,
         "serve": t_serve - t_kv,
-        "train": time.perf_counter() - t_serve,
+        "families": t_families - t_serve,
+        "train": time.perf_counter() - t_families,
     }
     summary = {
         "kernels": [
@@ -3588,7 +4094,7 @@ def main() -> int:
                 "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"],
-                **{k: v for k, v in c.items() if k.startswith(("chunk_", "row_chunk_", "serve_"))},
+                **{k: v for k, v in c.items() if k.startswith(("chunk_", "row_chunk_", "serve_", "families_"))},
             }
             for name, c in cases.items()
         ]

@@ -15,7 +15,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import time
-from typing import Iterator, Optional, Tuple
+from typing import Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -110,8 +110,8 @@ class ServeResult:
     logits, the decode seconds, and the offload's ``(n_in, n_out)`` (None
     without an offload)."""
 
-    params: models.DecoderLM
-    cache: models.DecodeCache
+    params: models.Model
+    cache: Union[models.DecodeCache, models.EncDecCache]
     sequences: np.ndarray
     logits: torch.Tensor
     seconds: float
@@ -128,7 +128,7 @@ def serve(
     arch: Optional[str] = None,
     device=None,
     seed: int = 0,
-    params: Optional[models.DecoderLM] = None,
+    params: Optional[models.Model] = None,
     offload_kv: str = "none",
     offload_eb: float = 1e-3,
     offload_psnr: float = 60.0,
@@ -142,8 +142,10 @@ def serve(
     random prompt token each, then the optional KV offload.
 
     The model is drawn from ``seed`` on ``device`` (default ``"cuda"``)
-    unless ``params`` brings one; the prompt tokens come from ``seed + 2``
-    (the reference draws its params from key 0 and its tokens from key 2).
+    unless ``params`` brings one; an encoder-decoder's frame embeddings
+    (B, enc_seq, d) are normal draws from ``seed + 1`` and the prompt tokens
+    come from ``seed + 2`` (the reference draws its params from key 0, its
+    frames from key 1 and its tokens from key 2).
     The cache holds ``tokens + 8`` positions.  Each step's host seconds,
     ending in a device sync, go to ``sz3_decode_step_seconds``.  bf16 weight
     products accumulate in float32 for the run (cuBLAS's reduced-precision
@@ -154,7 +156,8 @@ def serve(
     with float32_bf16_reductions():
         if params is None:
             params = models.init_params(seed, cfg, plan, device=dev)
-        cache = models.init_cache(params, cfg, plan, batch, tokens + 8)
+        enc_frames = stub_frames(cfg, batch, seed, dev) if cfg.family == "encdec" else None
+        cache = models.init_cache(params, cfg, plan, batch, tokens + 8, enc_frames=enc_frames)
         step = make_serve_step(cfg, plan)
         gen = torch.Generator(device=dev).manual_seed(seed + 2)
         tok = torch.randint(0, cfg.vocab, (batch, 1), generator=gen, device=dev, dtype=torch.int32)
@@ -207,6 +210,15 @@ def serve(
     return ServeResult(params, cache, seqs, logits, dt, tok_per_s, offload)
 
 
+def stub_frames(cfg: ModelConfig, batch: int, seed: int, device) -> torch.Tensor:
+    """The stubbed audio frontend's output that :func:`serve` feeds an
+    encoder-decoder: normal frame embeddings (batch, enc_seq, d_model) drawn
+    from ``seed + 1`` in float32, cast to the model's dtype."""
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    x = torch.randn((batch, cfg.enc_seq, cfg.d_model), generator=gen, device=device, dtype=torch.float32)
+    return x.to(cfg.param_dtype)
+
+
 def _model_device(params) -> torch.device:
     return models.lm.param_tree(params)["embed"].device
 
@@ -222,8 +234,9 @@ class _NullScope:
 def _iter_kv_leaves(cache) -> Iterator[Tuple[Optional[torch.Tensor], Optional[str], int]]:
     """Yield ``(arr, src_dtype_name, src_itemsize)`` per cache leaf.
 
-    Leaves come in the reference's order (:meth:`DecodeCache.leaves`, or a
-    tree's leaves with dict keys sorted).  ``arr`` is the 2-D float32
+    Leaves come in the reference's order (:meth:`DecodeCache.leaves` and
+    :meth:`EncDecCache.leaves`: k, v, the int8 scales, pos, the SSM states,
+    length, then the cross K/V; or a tree's leaves with dict keys sorted).  ``arr`` is the 2-D float32
     working copy the compressor consumes, on the leaf's device, or ``None``
     for leaves rejected by the size/dtype filter (not floating point, or
     under 1024 elements; callers count those as skipped).
@@ -231,7 +244,8 @@ def _iter_kv_leaves(cache) -> Iterator[Tuple[Optional[torch.Tensor], Optional[st
     are 2 B/elem at rest, and offload accounting must charge what eviction
     actually frees, not the float32 working copy.
     """
-    leaves = cache.leaves() if isinstance(cache, models.DecodeCache) else tree_util.flatten(cache)[0]
+    is_cache = isinstance(cache, (models.DecodeCache, models.EncDecCache))
+    leaves = cache.leaves() if is_cache else tree_util.flatten(cache)[0]
     for leaf in leaves:
         if not isinstance(leaf, torch.Tensor) or not leaf.is_floating_point() or leaf.numel() < 1024:
             yield None, None, 0

@@ -4,8 +4,9 @@ the port, and train states back.
 JAX and torch draw different numbers from the same seed, so parity between
 the packages goes through the reference's own arrays: a parameter tree from
 ``jax.device_get`` (nested dicts of numpy arrays, bf16 leaves as
-``ml_dtypes.bfloat16``) becomes a :class:`DecoderLM`, a reference
-``DecodeCache`` a :class:`DecodeCache`, and a reference train state
+``ml_dtypes.bfloat16``) becomes a :class:`DecoderLM` or an
+:class:`EncoderDecoder`, a reference ``DecodeCache`` or ``EncDecCache`` the
+port's, and a reference train state
 (``init_train_state``'s ``{params, opt{m, v, step}, feedback?}``, moments
 plain or compressed) the port's (:func:`train_state_from_numpy`).  bf16
 crosses through the checkpoint manager's
@@ -23,27 +24,40 @@ from .. import tree as tree_util
 from ..ft.checkpoint import as_tensor
 from ..parallel.plan import single_device_plan
 from .common import ModelConfig
+from .encdec import EncDecCache, EncoderDecoder
 from .lm import DecodeCache, DecoderLM
 
 
-def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig, device=None) -> DecoderLM:
-    """The reference's parameter tree as a :class:`DecoderLM` on ``device``
-    (default ``"cuda"``); every leaf must already have ``cfg``'s dtype."""
+#: the leaves the reference keeps in float32 whatever the model's dtype:
+#: the MoE router and the Mamba2 decay, skip and step-bias vectors
+FLOAT32_LEAVES = ("router", "A_log", "D", "dt_bias")
+
+
+def params_from_numpy(tree: Mapping[str, Any], cfg: ModelConfig, device=None):
+    """The reference's parameter tree as a :class:`DecoderLM` (an
+    :class:`EncoderDecoder` for the ``encdec`` family) on ``device``
+    (default ``"cuda"``); every leaf must already have ``cfg``'s dtype, or
+    float32 where the reference keeps it so (:data:`FLOAT32_LEAVES`)."""
     from ..core.pipeline import resolve_device
 
     dev = resolve_device(device)
-    leaves, treedef = tree_util.flatten(dict(tree))
-    tensors = [_leaf(leaf, dev) for leaf in leaves]
-    for t in tensors:
-        if t.dtype != cfg.param_dtype:
-            raise ValueError(f"a parameter leaf is {t.dtype}, the config's dtype is {cfg.param_dtype}")
-    return DecoderLM(cfg, single_device_plan(), tree_util.unflatten(treedef, tensors))
+    pairs, treedef = tree_util.flatten_with_path(dict(tree))
+    tensors = []
+    for path, leaf in pairs:
+        t = _leaf(leaf, dev)
+        want = torch.float32 if path.rsplit("/", 1)[-1] in FLOAT32_LEAVES else cfg.param_dtype
+        if t.dtype != want:
+            raise ValueError(f"parameter {path} is {t.dtype}, expected {want}")
+        tensors.append(t)
+    cls = EncoderDecoder if cfg.family == "encdec" else DecoderLM
+    return cls(cfg, single_device_plan(), tree_util.unflatten(treedef, tensors))
 
 
-def cache_from_numpy(cache: Any, device=None) -> DecodeCache:
-    """A reference ``DecodeCache`` (or a mapping of its field names) with
-    numpy or JAX leaves, as the port's :class:`DecodeCache` on ``device``
-    (default ``"cuda"``)."""
+def cache_from_numpy(cache: Any, device=None):
+    """A reference ``DecodeCache`` or ``EncDecCache`` (or a mapping of its
+    field names) with numpy or JAX leaves, as the port's
+    :class:`DecodeCache` or :class:`EncDecCache` on ``device`` (default
+    ``"cuda"``)."""
     from ..core.pipeline import resolve_device
 
     dev = resolve_device(device)
@@ -52,6 +66,10 @@ def cache_from_numpy(cache: Any, device=None) -> DecodeCache:
         value = cache.get(name) if isinstance(cache, Mapping) else getattr(cache, name, None)
         return None if value is None else tree_util.tree_map(lambda a: _leaf(a, dev), value)
 
+    sc = cache.get("self_cache") if isinstance(cache, Mapping) else getattr(cache, "self_cache", None)
+    if sc is not None:
+        return EncDecCache(self_cache=cache_from_numpy(sc, device=dev), cross_k=field("cross_k"),
+                           cross_v=field("cross_v"))
     return DecodeCache(**{f.name: field(f.name) for f in dataclasses.fields(DecodeCache)})
 
 

@@ -30,8 +30,14 @@ policy (``torch.utils.checkpoint`` per block) and :func:`chunked_xent`, the
 cross-entropy over sequence chunks of at most 512 positions, whose logits
 are the parameter-dtype product cast to float32, as the reference's are.
 
-The ``moe``, ``ssm`` and ``hybrid`` families are slice 11c of the port
-(``ROADMAP.md``).
+Families: ``dense`` and ``vlm`` stack attention blocks; ``moe`` stacks
+``dense_prefix_layers`` dense blocks (``dense_blocks``) and then MoE blocks
+(``models/moe.py``), whose aux load-balance loss joins the training loss;
+``ssm`` stacks Mamba2 blocks (``models/mamba2.py``), whose decode state is
+the (ssm, conv) pair per layer; ``hybrid`` stacks Mamba2 blocks and applies
+the one ``shared_attn`` block after every ``hybrid_attn_every`` of them,
+with a KV cache per application.  The encoder-decoder family is
+``models/encdec.py``.
 """
 from __future__ import annotations
 
@@ -59,16 +65,16 @@ from .layers import (
     init_mlp,
     init_norm,
 )
+from .mamba2 import apply_mamba2, init_mamba2, init_ssm_state, mamba2_decode_step
+from .moe import apply_moe, init_moe
 
-#: the families of slice 11c
-_LATER = ("moe", "ssm", "hybrid", "encdec")
+#: the families of this module; ``encdec`` is ``models/encdec.py``'s
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid")
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.family in _LATER:
-        raise NotImplementedError(f"the {cfg.family} family ({cfg.name}) is slice 11c of the port (ROADMAP.md)")
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"unknown model family {cfg.family!r}")
+def _check_family(cfg: ModelConfig, families=FAMILIES) -> None:
+    if cfg.family not in families:
+        raise ValueError(f"model family {cfg.family!r} is not one of {families}")
 
 
 def _stack_init(fn, gen: torch.Generator, n: int):
@@ -97,7 +103,8 @@ def _layer(stacked, i: int):
 def init_lm(gen: torch.Generator, cfg: ModelConfig, plan: ParallelPlan) -> Dict[str, Any]:
     """The parameter tree, drawn from ``gen`` on its device: dense weights
     normal times 1/sqrt(fan_in), the embedding normal times 0.02, norms
-    ones, biases zeros."""
+    ones, biases zeros (the Mamba2 and router leaves as ``init_mamba2`` and
+    ``init_moe`` draw them)."""
     _check_family(cfg)
     Vp, d = cfg.padded_vocab, cfg.d_model
     params: Dict[str, Any] = {
@@ -106,19 +113,35 @@ def init_lm(gen: torch.Generator, cfg: ModelConfig, plan: ParallelPlan) -> Dict[
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = dense_init(gen, (d, Vp), cfg.param_dtype)
-    params["blocks"] = _stack_init(lambda g: _init_attn_block(g, cfg, plan, moe=False), gen, cfg.n_layers)
+    if cfg.family in ("dense", "vlm"):
+        params["blocks"] = _stack_init(lambda g: _init_attn_block(g, cfg, plan, moe=False), gen, cfg.n_layers)
+    elif cfg.family == "moe":
+        pre = cfg.dense_prefix_layers
+        if pre:
+            params["dense_blocks"] = _stack_init(lambda g: _init_attn_block(g, cfg, plan, moe=False), gen, pre)
+        params["blocks"] = _stack_init(lambda g: _init_attn_block(g, cfg, plan, moe=True), gen, cfg.n_layers - pre)
+    else:  # ssm, hybrid
+        params["blocks"] = _stack_init(lambda g: _init_ssm_block(g, cfg), gen, cfg.n_layers)
+        if cfg.family == "hybrid":
+            params["shared_attn"] = _init_attn_block(gen, cfg, plan, moe=False)
     return params
 
 
 def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, plan: ParallelPlan, *, moe: bool):
-    if moe:
-        raise NotImplementedError("MoE blocks are slice 11c of the port (ROADMAP.md)")
-    return {
+    p = {
         "ln1": init_norm(cfg, device=gen.device),
         "attn": init_attention(gen, cfg, plan),
         "ln2": init_norm(cfg, device=gen.device),
-        "mlp": init_mlp(gen, cfg),
     }
+    if moe:
+        p["moe"] = init_moe(gen, cfg)
+    else:
+        p["mlp"] = init_mlp(gen, cfg)
+    return p
+
+
+def _init_ssm_block(gen: torch.Generator, cfg: ModelConfig):
+    return {"ln": init_norm(cfg, device=gen.device), "ssm": init_mamba2(gen, cfg)}
 
 
 # ---------------------------------------------------------------------------
@@ -126,13 +149,20 @@ def _init_attn_block(gen: torch.Generator, cfg: ModelConfig, plan: ParallelPlan,
 # ---------------------------------------------------------------------------
 
 def _attn_block(p, x, cfg, plan, attn_mode, moe: bool):
-    if moe:
-        raise NotImplementedError("MoE blocks are slice 11c of the port (ROADMAP.md)")
     x = plan.grad_barrier(x)
     h = apply_norm(p["ln1"], x)
     x = x + attention_block(p["attn"], h, cfg, plan, causal=True, window=cfg.sliding_window, attn_mode=attn_mode)
     h = apply_norm(p["ln2"], x)
+    if moe:
+        y, aux = apply_moe(p["moe"], h, cfg, plan)
+        return x + y, aux
     return x + apply_mlp(p["mlp"], h, cfg, plan), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _ssm_block(p, x, cfg, plan):
+    x = plan.grad_barrier(x)
+    h = apply_norm(p["ln"], x)
+    return x + apply_mamba2(p["ssm"], h, cfg, plan), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 #: the products without batch dims, whose outputs remat "dots" saves (the
@@ -166,12 +196,12 @@ def _maybe_remat(fn, plan: ParallelPlan):
     return wrapped
 
 
-def _scan_blocks(x, stacked, n: int, block_fn, plan: ParallelPlan):
-    """The reference's ``lax.scan`` over stacked layers, as a loop: layer
-    ``i`` sees views of the stacked leaves."""
+def _scan_blocks(x, stacked, layers, block_fn, plan: ParallelPlan):
+    """The reference's ``lax.scan`` over stacked layers, as a loop over the
+    indices ``layers``: layer ``i`` sees views of the stacked leaves."""
     fn = _maybe_remat(block_fn, plan)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for i in range(n):
+    for i in layers:
         x, aux_i = fn(_layer(stacked, i), x)
         aux = aux + aux_i
     return x, aux
@@ -185,10 +215,40 @@ def lm_backbone(
     attn_mode: str = "blocked",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Run the layer stack; returns (hidden, aux_loss)."""
-    x, aux_total = _scan_blocks(
-        x, params["blocks"], cfg.n_layers,
-        lambda p, h: _attn_block(p, h, cfg, plan, attn_mode, moe=False), plan,
-    )
+    def attn(moe):
+        return lambda p, h: _attn_block(p, h, cfg, plan, attn_mode, moe=moe)
+
+    def ssm(p, h):
+        return _ssm_block(p, h, cfg, plan)
+
+    if cfg.family in ("dense", "vlm"):
+        x, aux_total = _scan_blocks(x, params["blocks"], range(cfg.n_layers), attn(False), plan)
+    elif cfg.family == "moe":
+        pre = cfg.dense_prefix_layers
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        if pre:
+            x, aux = _scan_blocks(x, params["dense_blocks"], range(pre), attn(False), plan)
+            aux_total = aux_total + aux
+        x, aux = _scan_blocks(x, params["blocks"], range(cfg.n_layers - pre), attn(True), plan)
+        aux_total = aux_total + aux
+    elif cfg.family == "ssm":
+        x, aux_total = _scan_blocks(x, params["blocks"], range(cfg.n_layers), ssm, plan)
+    elif cfg.family == "hybrid":
+        # the one shared attention block after every k SSM layers, then the
+        # tail of L % k SSM layers
+        k = cfg.hybrid_attn_every or 6
+        n_groups, rem = divmod(cfg.n_layers, k)
+        shared_fn = _maybe_remat(attn(False), plan)
+        aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for g in range(n_groups):
+            x, aux = _scan_blocks(x, params["blocks"], range(g * k, (g + 1) * k), ssm, plan)
+            x, _ = shared_fn(params["shared_attn"], x)
+            aux_total = aux_total + aux
+        if rem:
+            x, aux = _scan_blocks(x, params["blocks"], range(n_groups * k, cfg.n_layers), ssm, plan)
+            aux_total = aux_total + aux
+    else:
+        raise ValueError(cfg.family)
     return apply_norm(params["final_norm"], x), aux_total
 
 
@@ -289,8 +349,8 @@ class _ParamTree(nn.Module):
 
 
 class DecoderLM(_ParamTree):
-    """The dense/VLM decoder with its parameters registered under the
-    reference's paths (``blocks.attn.wq`` is the (L, d, n_q·hd) stack of
+    """The decoder of the dense, VLM, MoE, SSM and hybrid families with its
+    parameters registered under the reference's paths (``blocks.attn.wq`` is the (L, d, n_q·hd) stack of
     ``blocks/attn/wq``).  Parameters do not require grad; a trainer turns
     that on with ``requires_grad_()``.  ``forward`` is
     :func:`repro_torch.models.prefill_logits`."""
@@ -362,22 +422,27 @@ def cache_window(cfg: ModelConfig, max_len: int) -> int:
 
 
 def init_decode_cache(cfg: ModelConfig, plan: ParallelPlan, batch: int, max_len: int, device=None) -> DecodeCache:
+    """An empty cache: ring K/V (and int8 scales) for the attention layers,
+    zero float32 (ssm, conv) states for the SSM layers, ``length`` 0."""
     _check_family(cfg)
-    La = _n_attn_layers(cfg)
+    La, Ls = _n_attn_layers(cfg), _n_ssm_layers(cfg)
     W = cache_window(cfg, max_len)
     dims = attn_dims(cfg, plan)
     int8 = plan.kv_cache_dtype == "int8"
     kv_dtype = torch.int8 if int8 else cfg.param_dtype
-    shp = (La, batch, W, dims.n_kv, dims.hd)
-    c = DecodeCache(
-        k=torch.zeros(shp, dtype=kv_dtype, device=device),
-        v=torch.zeros(shp, dtype=kv_dtype, device=device),
-        pos=torch.full((batch, W), -1, dtype=torch.int32, device=device),
-        length=torch.zeros((), dtype=torch.int32, device=device),
-    )
-    if int8:
-        c.k_scale = torch.zeros(shp[:-1], dtype=torch.float32, device=device)
-        c.v_scale = torch.zeros(shp[:-1], dtype=torch.float32, device=device)
+    c = DecodeCache(length=torch.zeros((), dtype=torch.int32, device=device))
+    if La:
+        shp = (La, batch, W, dims.n_kv, dims.hd)
+        c.k = torch.zeros(shp, dtype=kv_dtype, device=device)
+        c.v = torch.zeros(shp, dtype=kv_dtype, device=device)
+        if int8:
+            c.k_scale = torch.zeros(shp[:-1], dtype=torch.float32, device=device)
+            c.v_scale = torch.zeros(shp[:-1], dtype=torch.float32, device=device)
+        c.pos = torch.full((batch, W), -1, dtype=torch.int32, device=device)
+    if Ls:
+        ssm0, conv0 = init_ssm_state(cfg, batch, device=device)
+        c.ssm = torch.zeros((Ls,) + tuple(ssm0.shape), dtype=ssm0.dtype, device=device)
+        c.conv = torch.zeros((Ls,) + tuple(conv0.shape), dtype=conv0.dtype, device=device)
     return c
 
 
@@ -455,24 +520,55 @@ def lm_decode_step(
     """One serve step: consume one token per sequence, emit next-token
     logits (B, vocab) float32.  The cache is donated, as the reference's
     launcher donates it: its tensors are updated in place and the same
-    object comes back with ``pos`` and ``length`` advanced."""
+    object comes back with ``pos`` and ``length`` advanced.  The hybrid
+    family's shared block reads and writes attention cache ``g`` at its
+    ``g``-th application."""
     params = param_tree(params)
-    x = embed_tokens(params, tokens, cfg, plan)
+    h = embed_tokens(params, tokens, cfg, plan)
     length = cache.length
-    W = cache.k.shape[2]
-    slot = torch.remainder(length, W).reshape(1).to(torch.int64)
-    h = x
-    new_pos = cache.pos
     int8 = cache.k_scale is not None
-    for i in range(cfg.n_layers):
-        lp = _layer(params["blocks"], i)
+    if cache.k is not None:
+        slot = torch.remainder(length, cache.k.shape[2]).reshape(1).to(torch.int64)
+
+    def attn_layer(h, lp, i):
         lc = (cache.k[i], cache.v[i], cache.k_scale[i] if int8 else None,
               cache.v_scale[i] if int8 else None, cache.pos)
-        hn = apply_norm(lp["ln1"], h)
-        o, (_, _, _, _, new_pos) = _decode_attn(lp["attn"], hn, lc, length, slot, cfg, plan)
+        o, (_, _, _, _, new_pos) = _decode_attn(lp["attn"], apply_norm(lp["ln1"], h), lc, length, slot, cfg, plan)
         h = h + o
         hn = apply_norm(lp["ln2"], h)
-        h = h + apply_mlp(lp["mlp"], hn, cfg, plan)
+        if "moe" in lp:
+            y, _ = apply_moe(lp["moe"], hn, cfg, plan)
+            return h + y, new_pos
+        return h + apply_mlp(lp["mlp"], hn, cfg, plan), new_pos
+
+    def ssm_layer(h, i):
+        lp = _layer(params["blocks"], i)
+        o, (ssm, conv) = mamba2_decode_step(lp["ssm"], apply_norm(lp["ln"], h), (cache.ssm[i], cache.conv[i]),
+                                            cfg, plan)
+        cache.ssm[i].copy_(ssm)
+        cache.conv[i].copy_(conv)
+        return h + o
+
+    new_pos = cache.pos
+    if cfg.family in ("dense", "vlm", "moe"):
+        pre = cfg.dense_prefix_layers if cfg.family == "moe" else 0
+        for i in range(cfg.n_layers):
+            lp = _layer(params["dense_blocks"], i) if i < pre else _layer(params["blocks"], i - pre)
+            h, new_pos = attn_layer(h, lp, i)
+    elif cfg.family == "ssm":
+        for i in range(cfg.n_layers):
+            h = ssm_layer(h, i)
+    elif cfg.family == "hybrid":
+        k = cfg.hybrid_attn_every or 6
+        n_groups = cfg.n_layers // k
+        for g in range(n_groups):
+            for i in range(g * k, (g + 1) * k):
+                h = ssm_layer(h, i)
+            h, new_pos = attn_layer(h, params["shared_attn"], g)
+        for i in range(n_groups * k, cfg.n_layers):
+            h = ssm_layer(h, i)
+    else:
+        raise ValueError(cfg.family)
     cache.pos = new_pos
     cache.length = length + 1
     h = apply_norm(params["final_norm"], h)

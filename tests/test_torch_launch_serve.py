@@ -155,6 +155,58 @@ def test_offload_gives_the_references_bytes_in_and_out(kv):
 
 
 @needs_reference
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "zamba2-7b", "whisper-small"])
+def test_ssm_and_encdec_caches_offload_as_the_references(arch):
+    """SSM states and the encoder-decoder's cross K/V: the leaves walk in
+    the reference's order with its arrays, and ``offload_cache`` gives its
+    ``(n_in, n_out)``."""
+    rcfg = r_configs.get_smoke(arch)
+    plan = RPlan()
+    params = r_models.init_params(jax.random.PRNGKey(0), rcfg, plan)
+    frames = None
+    if rcfg.family == "encdec":
+        frames = jax.random.normal(jax.random.PRNGKey(1), (4, rcfg.enc_seq, rcfg.d_model), rcfg.param_dtype)
+    rcache = r_models.init_cache(params, rcfg, plan, 4, 9, enc_frames=frames)
+    step = jax.jit(lambda p, c, t: r_models.decode_step(p, c, t, rcfg, plan))
+    tok = jax.random.randint(jax.random.PRNGKey(2), (4, 1), 0, rcfg.vocab)
+    for _ in range(3):
+        logits, rcache = step(params, rcache, tok)
+        tok = jnp.argmax(logits, -1, keepdims=True).astype(jnp.int32)
+    tcache = t_models.cache_from_numpy(rcache, device=CPU)
+    want = list(r_serve._iter_kv_leaves(rcache))
+    got = list(t_serve._iter_kv_leaves(tcache))
+    assert len(got) == len(want) == len(jax.tree.leaves(rcache))
+    for (ta, tn, ti), (ra, rn, ri) in zip(got, want):
+        assert (tn, ti) == (rn, ri) and (ta is None) == (ra is None)
+        if ra is not None:
+            assert np.array_equal(ta.numpy(), ra)
+    kw = dict(eb=1e-3, chunk_bytes=1 << 13)
+    assert t_serve.offload_cache(tcache, device=CPU, **kw) == r_serve.offload_cache(rcache, **kw)
+
+
+#: the int8 cache's leaves: k, v, k_scale, v_scale, pos, [ssm, conv,] length
+#: [, cross_k, cross_v]
+INT8_LEAVES = {"deepseek-moe-16b": 6, "qwen3-moe-30b-a3b": 6, "mamba2-2.7b": 3, "zamba2-7b": 8, "whisper-small": 8}
+
+
+@pytest.mark.parametrize("arch", sorted(INT8_LEAVES))
+def test_main_serves_every_family(arch, capsys, caplog):
+    telemetry.reset_metrics()
+    with _captured(caplog, "repro_torch.telemetry"):
+        t_serve.main(["--arch", arch, "--batch", "2", "--tokens", "3", "--kv", "int8", "--offload-kv", "chunked",
+                      "--metrics", "--device", "cpu"])
+    out = capsys.readouterr().out
+    events = [r.getMessage().split()[0] for r in caplog.records]
+    assert [e for e in events if e in ("decode_done", "kv_offload")] == ["decode_done", "kv_offload"]
+    assert "sz3_decode_step_seconds" in out
+    counters = telemetry.METRICS.snapshot()["counters"]
+    seen = counters["sz3_offload_leaves_total"] + counters.get("sz3_offload_leaves_skipped_total", 0)
+    assert seen == INT8_LEAVES[arch]
+    if arch in ("mamba2-2.7b", "zamba2-7b", "whisper-small"):  # SSM states or cross K/V go
+        assert counters["sz3_offload_leaves_total"] >= 2
+
+
+@needs_reference
 def test_main_prints_the_references_metric_names_and_events(capsys, caplog):
     import sys
 

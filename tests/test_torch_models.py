@@ -18,8 +18,9 @@ package's on the CPU.
 * configs and parameter paths: all ten architectures' values, shape cells
   and input specs equal the reference's; the model's leaf paths and shapes
   equal the reference tree's;
-* the families and plans of later slices raise ``NotImplementedError``
-  naming their slice, and without a card the default device raises.
+* the plans of later slices raise ``NotImplementedError`` naming their
+  slice, and without a card the default device raises (the other families
+  are ``tests/test_torch_families.py``'s).
 
 Tolerances, float32 smoke configs: logits within 1e-4 absolute (XLA and
 torch sum, divide and take transcendentals in different orders and
@@ -66,7 +67,6 @@ except ImportError:  # pragma: no cover - a machine without JAX
 needs_reference = pytest.mark.skipif(jax is None, reason="the JAX package is not importable")
 CPU = "cpu"
 DENSE = ["granite-3-8b", "qwen1.5-0.5b", "h2o-danube-1.8b", "nemotron-4-340b", "pixtral-12b"]
-LATER = ["deepseek-moe-16b", "qwen3-moe-30b-a3b", "whisper-small", "zamba2-7b", "mamba2-2.7b"]
 ALL_ARCHS = list(t_configs.ARCHS)
 LOGIT_ATOL = 1e-4
 INT8_ATOL = 1e-2
@@ -429,15 +429,6 @@ def test_default_device_is_cuda_and_never_falls_back():
         serve(cfg, PLAN, 1, 1)
 
 
-@pytest.mark.parametrize("arch", LATER)
-def test_later_families_raise_naming_their_slice(arch):
-    cfg = t_configs.get_smoke(arch)
-    with pytest.raises(NotImplementedError, match="slice 11c"):
-        t_models.init_params(0, cfg, PLAN, device=CPU)
-    with pytest.raises(NotImplementedError, match="slice 11c"):
-        t_models.init_cache({"embed": torch.zeros(1)}, cfg, PLAN, 1, 4)
-
-
 class _Mesh:
     """A stand-in for a ``DeviceMesh``: the plan reads only its axis names
     and sizes."""
@@ -451,10 +442,8 @@ class _Mesh:
 
 
 def test_training_and_meshes_raise_naming_their_slice():
-    # dense training and data parallelism came with slice 11b; the
-    # encoder-decoder loss is slice 11c, sharded training slice 11d
-    with pytest.raises(NotImplementedError, match="slice 11c"):
-        t_models.loss_fn({}, {}, t_configs.get_smoke("whisper-small"), PLAN)
+    # dense training and data parallelism came with slice 11b, the other
+    # families with slice 11c; sharded training is slice 11d
     with pytest.raises(NotImplementedError, match="slice 11d"):
         TPlan(mesh=_Mesh(data=2, model=2))
     with pytest.raises(NotImplementedError, match="slice 11d"):

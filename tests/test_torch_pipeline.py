@@ -427,6 +427,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.models, repro_torch.parallel, repro_torch.configs, repro_torch.data\n"
         "import repro_torch.train.step, repro_torch.launch.serve, repro_torch.launch.train\n"
         "import repro_torch.launch.mesh\n"
+        "import repro_torch.models.moe, repro_torch.models.mamba2, repro_torch.models.encdec\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

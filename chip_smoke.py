@@ -23,7 +23,7 @@ Phases, one JSON line each:
    product on the host), the fast tier's ``block_stats`` (bs 128, 256;
    also at the throughput tier's chunk 4096x256, on 1 and 8003 blocks and
    on NaN and +-inf inside blocks and as whole blocks) and
-   the three KV-quantization kernels (``absmax`` and
+   the four KV-quantization kernels (``absmax`` and
    ``quantize_with_scale`` bit for bit, NaN and all-zero columns included;
    ``dequant_matmul`` within ``(K+2) * 2**-24 * (|a| @ |deq|)`` of a
    float64 product, as its plain version is, also on rows near 2^-100 and
@@ -35,7 +35,12 @@ Phases, one JSON line each:
    on; its bound counts three bf16
    products per multiply-add at the tensor cores' rate) at one layer's V
    cache of Qwen1.5-0.5B at a 32K-token prompt, (32768, 1024), and ragged
-   shapes;
+   shapes; the fused int8 decode append ``quantize_append`` timed at
+   granite-3-8b's append shape (B, 1, KV, hd) = (4, 1, 8, 128) in bf16,
+   and bit for bit with its plain version, untimed, on NaN, +-inf,
+   all-zero, subnormal, floored and rint-tie rows, float32 and bf16
+   inputs, hd 64, 112 and 128, slots 0 and W - 1, every other slot of the
+   caches left as it was;
    and the bitplane transpose (``encode``/``decode``) on the 6,480,000
    integers the v3 coder hands its host bitplane codec for the 1800x3600
    field, on 2^24+3 uniform uint32 and on n = 0, 5, 16385, with its planes
@@ -162,14 +167,20 @@ Phases, one JSON line each:
    verify): per-leaf ratio and picks, ``encode_2d``/``decode_2d``
    launches equal to the chunks routed to ``sz3_lorenzo``, the ``k``
    leaf's blob equal to the plain route's on the host, and the same
-   offload traced for its stage seconds; at ``--kv int8``: ``absmax`` and
-   ``quantize_with_scale`` launched exactly 2 x 40 x 16 times each (the
-   int8 append), the log-probability drift from bf16 on the same tokens
+   offload traced for its stage seconds; at ``--kv int8``:
+   ``quantize_append`` launched exactly 40 x 16 times (the int8 append,
+   one launch per layer a step) and ``absmax`` and ``quantize_with_scale``
+   never, the log-probability drift from bf16 on the same tokens
    under the reference's 0.3, ``_quantize_token`` of the bf16 cache's K
    and V on the card equal bit for bit to its plain version on the host,
-   and the int8 cache's offload (the scales only: the codes are not
-   float); tokens/s and step p50/p99 from ``sz3_decode_step_seconds``;
-   both kernels timed at the decode shape (128, 32);
+   the fused append of every layer's K and V into the int8 cache equal bit
+   for bit (whole caches and scales) to the sequence it replaced (two
+   ``_quantize_token`` calls and four ``index_copy_``), the host
+   microseconds of one layer's append both ways, and the int8 cache's
+   offload (the scales only: the codes are not float); tokens/s and step
+   p50/p99 from ``sz3_decode_step_seconds``; the fused append and the
+   standalone pair timed at the decode shape ((4, 1, 8, 128); the pair at
+   (128, 32));
 18. training (``train``): the launcher's ``train`` (``launch/train.py``)
    at Qwen1.5-0.5B's full width and depth (24 layers, d_model 1024, 16/16
    heads, d_ff 2816, vocab 151936 padded to 152064, tied embedding, QKV
@@ -207,9 +218,9 @@ Phases, one JSON line each:
    one step from one cache run twice to the same bits, and, at full width
    in float32 with 2 layers, 4 steps and a 16-token prefill on the card
    and on the CPU from one set of weights with every call's top-k ids and
-   kept slots identical; at ``--kv int8`` ``absmax`` and
-   ``quantize_with_scale`` launched exactly 2 x (attention layers) x 16
-   times each (896, 256, 0, 416, 384), the drift from bf16 under 0.3
+   kept slots identical; at ``--kv int8`` ``quantize_append`` launched
+   exactly (attention layers) x 16 times (448, 128, 0, 208, 192) and the
+   standalone pair never, the drift from bf16 under 0.3
    (MoE: the reference itself drifts past 0.3 at full width as tokens'
    top-k sets flip under the int8 noise, so the full-depth drift and the
    flipped assignments are reported, and the drift is held against the
@@ -217,7 +228,9 @@ Phases, one JSON line each:
    weights, tokens and depth on the card, the reference's top-k ids
    pinned, within a stated tolerance of the reference's drift),
    ``_quantize_token`` on the bf16 cache bit for bit against its plain
-   version, both kernels timed at each family's append shape, and
+   version, the fused append against the sequence it replaced as in
+   ``serve``, the fused append and the standalone pair timed at each
+   family's append shape and the append's host time both ways, and
    mamba2-2.7b's int8 run equal to its bf16 run; the bf16 cache's first
    64 MB in the reference's leaf order (the leaf that does not fit cut to
    its leading layers) through ``offload_cache`` (chunked, strict verify),
@@ -232,7 +245,7 @@ on the CPU within the bound.
 
 The last three lines are the ``{"kernels": [...]}`` summary (with
 ``chunk_*`` and ``row_chunk_*`` fields where a kernel was also timed at a
-chunk shape, ``serve_*`` fields for the kvquant kernels at the decode
+chunk shape, ``serve_*`` fields for the kvquant append kernels at the decode
 shape, whose ``launches`` include the serve phase's, and ``families_*``
 fields with their launches and times per family), the card's name
 and power limit as ``nvidia-smi`` prints them, and
@@ -290,6 +303,8 @@ _KERNELS = {
     "absmax": (_KVQUANT_SRC, "src/repro/kernels/kvquant/kernel.py:56"),
     "quantize_with_scale": (_KVQUANT_SRC, "src/repro/kernels/kvquant/kernel.py:70"),
     "dequant_matmul": (_KVQUANT_SRC, "src/repro/kernels/kvquant/kernel.py:106"),
+    "quantize_append": (_KVQUANT_SRC,
+                        "src/repro/kernels/kvquant/kernel.py:56 + :70 (fused for the int8 decode append)"),
     "bitplane_encode": (_BITPLANE_SRC, "src/repro/kernels/bitplane/kernel.py:36"),
     "bitplane_decode": (_BITPLANE_SRC, "src/repro/kernels/bitplane/kernel.py:49"),
 }
@@ -1034,7 +1049,177 @@ def kvquant_kernels(timer, bw: float, seed: int) -> dict:
         raise AssertionError("absmax/quantize_with_scale with nan, inf or zero columns differ from their plain versions")
     emit("kernel kvquant nan/inf/zero columns", shape=[4096, 256], bit_identical=True,
          nan_scale=bool(torch.isnan(scale[2]) and torch.isnan(scale[3])), zero_column_scale=float(scale[1]))
+    cases["quantize_append"] = append_kernels(bw, seed)
     return cases
+
+
+#: granite-3-8b's int8 append at the serve phase's batch: (B, KV, hd), and
+#: the ring of its 16 tokens + 8
+APPEND_MAIN, APPEND_W = (4, 8, 128), 24
+#: untimed shapes of the append: every head size the configs use (whisper
+#: 64, zamba2 112, the rest 128), odd ones, and 2 x 64 x 8 rows
+APPEND_EDGES = [(4, 12, 64), (4, 32, 112), (2, 4, 128), (1, 1, 128), (3, 5, 33), (64, 8, 128)]
+
+
+def append_bound(B: int, KV: int, hd: int, elem: int, bw: float) -> dict:
+    """K and V read once (``elem`` bytes a value) with the slot, codes and
+    scales written once; per value |x|, max, divide, rint and clamp."""
+    n, rows = 2 * B * KV * hd, 2 * B * KV
+    return bound(n * elem + 8 + n + 4 * rows, 5 * n + rows, bw)
+
+
+def append_edge_rows(x: torch.Tensor, g) -> None:
+    """Rows of x (..., hd), in place: NaN, all zero (with -0.0), rint ties
+    (scale 0.125 exactly), +inf, -inf, subnormal, floored at 1e-8."""
+    rows = x.view(-1, x.shape[-1])
+    hd = rows.shape[1]
+    n = torch.arange(hd, device=x.device) % 127
+    sign = 1 - 2 * (torch.arange(hd, device=x.device) % 2)
+    edges = {
+        0: lambda r: r.fill_(1.0).index_fill_(0, torch.tensor([hd // 2], device=x.device), float("nan")),
+        1: lambda r: r.fill_(0.0)[1::2].fill_(-0.0),
+        2: lambda r: r.copy_((2 * n + 1) / 16 * sign)[:1].fill_(254 / 16),
+        3: lambda r: r[hd // 3 : hd // 3 + 1].fill_(float("inf")),
+        4: lambda r: r[-1:].fill_(float("-inf")),
+        5: lambda r: r.copy_(torch.randint(-60, 60, (hd,), generator=g, device=x.device) * 2.0**-133),
+        6: lambda r: r.copy_(torch.randn(hd, generator=g, device=x.device) * 1e-7),
+    }
+    for i, fn in edges.items():
+        if i < rows.shape[0]:
+            fn(rows[i])
+
+
+def append_inputs(B: int, KV: int, hd: int, W: int, dtype, g, edges: bool = False):
+    """k, v (B, 1, KV, hd) over 16 octaves, and random prior int8 caches
+    (B, W, KV, hd) and scales (B, W, KV), on the card."""
+    k, v = (torch.randn((B, 1, KV, hd), generator=g, device="cuda")
+            * torch.exp2(torch.randint(-8, 8, (B, 1, KV, 1), generator=g, device="cuda").float()) for _ in range(2))
+    if edges:
+        append_edge_rows(k, g)
+        v.view(-1, hd)[-1, 3] = float("nan")
+    caches = [torch.randint(-127, 128, (B, W, KV, hd), generator=g, device="cuda", dtype=torch.int8)
+              for _ in range(2)]
+    scales = [torch.rand((B, W, KV), generator=g, device="cuda") + 0.1 for _ in range(2)]
+    return k.to(dtype), v.to(dtype), caches + scales
+
+
+def append_equal(got, want) -> bool:
+    return all(same_bits(a, b) for a, b in zip(got, want))
+
+
+def append_check(k, v, prior, slot: int, label: str) -> None:
+    """The kernel against the plain version on copies of ``prior`` (k_cache,
+    v_cache, k_scale, v_scale), bit for bit, every other slot untouched."""
+    from repro_torch.kernels.kvquant import kernel as KK
+    from repro_torch.kernels.kvquant import ref as KR
+
+    s = torch.tensor([slot], device="cuda")
+    got, want = [t.clone() for t in prior], [t.clone() for t in prior]
+    KK.quantize_append(k, v, *got, s)
+    torch.cuda.synchronize()
+    KR.quantize_append(k, v, *want, s)
+    keep = torch.ones(prior[0].shape[1], dtype=torch.bool, device="cuda")
+    keep[slot] = False
+    if not append_equal(got, want) or not append_equal([t[:, keep] for t in got], [t[:, keep] for t in prior]):
+        raise AssertionError(f"quantize_append {label} at slot {slot} differs from its plain version or wrote "
+                             f"outside its slot")
+
+
+def append_kernels(bw: float, seed: int) -> dict:
+    """``quantize_append`` timed at granite-3-8b's append shape in bf16 (as
+    served) against its plain version; bit for bit, untimed, on the edge
+    rows, float32 and bf16, every head size, slots 0 and W - 1."""
+    g = torch.Generator(device="cuda").manual_seed(seed + 25)
+    B, KV, hd = APPEND_MAIN
+    k, v, prior = append_inputs(B, KV, hd, APPEND_W, torch.bfloat16, g)
+    case = _check_case(f"quantize_append main {B}x1x{KV}x{hd}", {
+        "name": "quantize_append", "dtype": "bfloat16", "ring": APPEND_W,
+        **append_timings(k, v, prior, Timer(reps=CHUNK_REPS, warmup=5), bw)})
+    checked = 0
+    for B, KV, hd in [APPEND_MAIN] + APPEND_EDGES:
+        for dtype in (torch.float32, torch.bfloat16):
+            k, v, prior = append_inputs(B, KV, hd, APPEND_W, dtype, g, edges=True)
+            for slot in (0, APPEND_W - 1):
+                append_check(k, v, prior, slot, f"{B}x1x{KV}x{hd} {dtype}")
+                checked += 1
+    emit("kernel quantize_append edges", cases=checked, shapes=[list(e) for e in [APPEND_MAIN] + APPEND_EDGES],
+         rows="nan, zero, rint ties, +inf, -inf, subnormal, floored", dtypes=["float32", "bfloat16"],
+         slots=[0, APPEND_W - 1], bit_identical=True, other_slots_untouched=True)
+    return case
+
+
+def append_old_sequence(k, v, k_c, v_c, ks_c, vs_c, slot) -> None:
+    """The int8 append the fused kernel replaced: two ``_quantize_token``
+    calls and four ``index_copy_`` (``absmax`` and ``quantize_with_scale``
+    twice, and the host glue around them)."""
+    from repro_torch.models import lm
+
+    kq, ks = lm._quantize_token(k)
+    vq, vs = lm._quantize_token(v)
+    k_c.index_copy_(1, slot, kq)
+    v_c.index_copy_(1, slot, vq)
+    ks_c.index_copy_(1, slot, ks)
+    vs_c.index_copy_(1, slot, vs)
+
+
+def append_against_old_sequence(src, cache, label: str) -> dict:
+    """Every attention layer's token of the bf16 cache ``src`` appended into
+    copies of the int8 cache ``cache`` by the fused kernel and by the old
+    sequence, at slots 0 and W - 1: whole caches and scales bit for bit."""
+    from repro_torch.kernels.kvquant import ops as kvops
+
+    W = cache.k.shape[2]
+    for src_slot, slot in ((5, 0), (0, W - 1)):
+        s = torch.tensor([slot], device="cuda")
+        fused = [t.clone() for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)]
+        old = [t.clone() for t in fused]
+        for i in range(cache.k.shape[0]):
+            k = src.k[i][:, src_slot : src_slot + 1].contiguous()
+            v = src.v[i][:, src_slot : src_slot + 1].contiguous()
+            kvops.kv_quantize_append(k, v, *(t[i] for t in fused), s)
+            append_old_sequence(k, v, *(t[i] for t in old), s)
+        torch.cuda.synchronize()
+        if not append_equal(fused, old):
+            raise AssertionError(f"{label}: the fused int8 append into slot {slot} differs from two "
+                                 f"_quantize_token calls and four index_copy_")
+    return {"layers": cache.k.shape[0], "slots": [0, W - 1], "bit_identical": True}
+
+
+def append_host_us(k, v, caches, calls: int = 200) -> dict:
+    """Host microseconds of one layer's int8 append, old sequence and fused,
+    each over ``calls`` calls ending in one sync."""
+    from repro_torch.kernels.kvquant import ops as kvops
+
+    s = torch.tensor([0], device="cuda")
+    out = {}
+    for name, fn in (("old", append_old_sequence), ("fused", kvops.kv_quantize_append),
+                     ("old_again", append_old_sequence), ("fused_again", kvops.kv_quantize_append)):
+        fn(k, v, *caches, s)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(k, v, *caches, s)
+        torch.cuda.synchronize()
+        out[f"{name}_us"] = (time.perf_counter() - t0) / calls * 1e6
+    return out
+
+
+def append_timings(k, v, caches, timer, bw: float) -> dict:
+    """The fused append at slot 0 of copies of ``caches`` against its plain
+    version, bit for bit, timed, with the host time both ways."""
+    from repro_torch.kernels.kvquant import kernel as KK
+    from repro_torch.kernels.kvquant import ref as KR
+
+    s = torch.tensor([0], device="cuda")
+    got, want = [t.clone() for t in caches], [t.clone() for t in caches]
+    KK.quantize_append(k, v, *got, s)
+    torch.cuda.synchronize()
+    KR.quantize_append(k, v, *want, s)
+    B, _, KV, hd = k.shape
+    return {"shape": list(k.shape), "bit_identical": append_equal(got, want),
+            "max_abs_err": max_abs_diff(zip(got, want)), "kernel_ms": timer(lambda: KK.quantize_append(k, v, *got, s)),
+            "plain_ms": timer(lambda: KR.quantize_append(k, v, *want, s)), "library_ms": None,
+            **append_bound(B, KV, hd, k.element_size(), bw), "host": append_host_us(k, v, got)}
 
 
 def v3_coder_integers(x2d: torch.Tensor) -> torch.Tensor:
@@ -2966,10 +3151,11 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
     greedy bf16 steps, prefill against the last step, the bf16 cache through
     ``offload_cache`` (chunked, strict verify; launches equal to the chunks
     routed to ``sz3_lorenzo``, the first leaf's blob equal to the plain
-    route's), then 16 int8 steps (``absmax`` and ``quantize_with_scale``
-    2 x 40 x 16 times each), the int8 drift from bf16 on the same tokens,
+    route's), then 16 int8 steps (``quantize_append`` 40 x 16 times, the
+    standalone pair never), the int8 drift from bf16 on the same tokens,
     ``_quantize_token`` on the bf16 cache's K and V against its plain
-    version, and the int8 cache's offload (its scales only)."""
+    version, the fused append against the sequence it replaced, and the
+    int8 cache's offload (its scales only)."""
     import repro_torch.core as tc
     from repro_torch import configs, models
     from repro_torch.core import chunking, telemetry
@@ -3069,12 +3255,13 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
     torch.cuda.synchronize()
     i8_launches = all_launches()
     i8_lat = _step_latency()
-    want = 2 * cfg.n_layers * T
-    for name in ("absmax", "quantize_with_scale"):
-        if i8_launches[name] != want:
-            raise AssertionError(f"serve int8: kernel {name} launched {i8_launches[name]} times, expected {want}")
-        launches_total[name] += i8_launches[name]
-    others = {k: v for k, v in i8_launches.items() if v and k not in ("absmax", "quantize_with_scale")}
+    want = cfg.n_layers * T
+    if i8_launches["quantize_append"] != want or i8_launches["absmax"] or i8_launches["quantize_with_scale"]:
+        raise AssertionError(f"serve int8: quantize_append launched {i8_launches['quantize_append']} times, "
+                             f"expected {want}; absmax {i8_launches['absmax']} and quantize_with_scale "
+                             f"{i8_launches['quantize_with_scale']} times, expected 0")
+    launches_total["quantize_append"] += want
+    others = {k: v for k, v in i8_launches.items() if v and k != "quantize_append"}
     if others or not bool(torch.isfinite(i8.logits).all()):
         raise AssertionError(f"serve int8: other kernels {others}, or non-finite logits")
     # drift from bf16 on the bf16 run's tokens (teacher-forced, not counted)
@@ -3098,6 +3285,7 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
         same[name] = bool(torch.equal(q.cpu(), pq) and same_bits(scale.cpu(), ps))
         if not same[name]:
             raise AssertionError(f"serve: _quantize_token of the {name} cache differs on the card from its plain version")
+    fused_vs_old = append_against_old_sequence(bf.cache, i8.cache, "serve")
     # the int8 cache's offload: the codes are not float, only the scales go
     telemetry.reset_metrics()
     n8_in, n8_out, t8_off, streams8, off8_launches = _offload_recorded(
@@ -3116,8 +3304,13 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
                                  f"expected {expected8[name]}")
         launches_total[name] += off8_launches[name]
 
-    # the kvquant kernels at the decode shape: (hd, B * KV) per call
+    # the kvquant kernels at the decode shape: the fused append on layer 0's
+    # token at slot 0 (bf16, as served) into the int8 cache, and the
+    # standalone pair on (hd, B * KV) per call
     timer = Timer(reps=CHUNK_REPS, warmup=5)
+    k0, v0 = (t[0][:, 0:1].contiguous() for t in (bf.cache.k, bf.cache.v))
+    append = append_timings(k0, v0, [t[0].clone() for t in (i8.cache.k, i8.cache.v, i8.cache.k_scale,
+                                                               i8.cache.v_scale)], timer, bw)
     shape = (cfg.hd, B * cfg.n_kv_heads)
     x = bf.cache.k[0, :, 0].reshape(-1, cfg.hd).to(torch.float32).T.contiguous()  # layer 0, slot 0
     n = x.numel()
@@ -3135,13 +3328,15 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
             "library_ms": None, **bound(5 * n + 4 * shape[1], 4 * n, bw),
             "bit_identical": torch.equal(KK.quantize_with_scale(x, s8), KR.quantize_with_scale(x, s8)),
         },
+        "quantize_append": append,
     }
     for name, c in serve_cases.items():
-        emit(f"kernel {name} serve {shape[0]}x{shape[1]}", name=name, shape=list(shape), **c)
+        c.setdefault("shape", list(shape))
+        emit(f"kernel {name} serve {'x'.join(map(str, c['shape']))}", name=name, **c)
         if not c["bit_identical"]:
-            raise AssertionError(f"{name} at the decode shape {shape} differs from its plain version")
+            raise AssertionError(f"{name} at the decode shape {c['shape']} differs from its plain version")
         cases[name].update({
-            "serve_shape": list(shape), "serve_launches": i8_launches[name], "serve_ms": c["kernel_ms"],
+            "serve_shape": c["shape"], "serve_launches": i8_launches[name], "serve_ms": c["kernel_ms"],
             "serve_plain_ms": c["plain_ms"], "serve_library_ms": c["library_ms"], "serve_bound_ms": c["bound_ms"],
         })
     emit(
@@ -3176,6 +3371,8 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
               "greedy_tokens_equal_bf16": bool((i8.sequences == bf.sequences).all()),
               "logprob_drift_from_bf16": drift, "drift_bound": SERVE_INT8_DRIFT},
         quantize_token_bit_identical=same,
+        fused_append_against_old_sequence=fused_vs_old,
+        append_host_us_per_layer=append["host"],
         int8_offload={"n_in": n8_in, "n_out": n8_out, "ratio": n8_in / n8_out, "seconds": t8_off,
                       "leaves": 2, "skipped": 4,
                       "launches": {k: v for k, v in off8_launches.items() if v}},
@@ -3475,12 +3672,19 @@ def _moe_decode_checks(cfg, params, bf, routing, plan) -> dict:
             "dropped_share_per_step": dropped, "second_step_bit_identical": True}
 
 
-def _family_kernel_cases(cfg, k_cache, timer, bw: float) -> dict:
-    """``absmax`` and ``quantize_with_scale`` at the family's int8 append
-    shape (hd, B·KV): layer 0's slot 0 of the bf16 cache's K."""
+def _family_kernel_cases(cfg, self_cache, timer, bw: float) -> dict:
+    """The fused append at the family's int8 append shape (B, 1, KV, hd) in
+    bf16, and ``absmax`` and ``quantize_with_scale`` at (hd, B·KV): layer
+    0's slot 0 of the bf16 cache's K (and V)."""
     from repro_torch.kernels.kvquant import kernel as KK
     from repro_torch.kernels.kvquant import ref as KR
 
+    k_cache = self_cache.k
+    k0, v0 = (t[0][:, 0:1].contiguous() for t in (self_cache.k, self_cache.v))
+    g = torch.Generator(device="cuda").manual_seed(cfg.hd + k_cache.shape[3])
+    prior = [torch.randint(-127, 128, k_cache.shape[1:], generator=g, device="cuda", dtype=torch.int8)
+             for _ in range(2)] + [torch.rand(k_cache.shape[1:4], generator=g, device="cuda") for _ in range(2)]
+    append = append_timings(k0, v0, prior, timer, bw)
     x = k_cache[0, :, 0].reshape(-1, cfg.hd).to(torch.float32).T.contiguous()
     n, cols = x.numel(), x.shape[1]
     amax = KK.absmax(x)
@@ -3495,11 +3699,13 @@ def _family_kernel_cases(cfg, k_cache, timer, bw: float) -> dict:
                                 "bit_identical": torch.equal(KK.quantize_with_scale(x, s8),
                                                              KR.quantize_with_scale(x, s8))},
     }
+    for c in out.values():
+        c["shape"] = list(x.shape)
+    out["quantize_append"] = append
     for name, c in out.items():
         if not c["bit_identical"]:
-            raise AssertionError(f"{name} at the {cfg.name} append shape {tuple(x.shape)} differs from its plain "
+            raise AssertionError(f"{name} at the {cfg.name} append shape {c['shape']} differs from its plain "
                                  f"version")
-        c["shape"] = list(x.shape)
     return out
 
 
@@ -3510,12 +3716,14 @@ def phase_families(seed: int, launches_total: dict, cases: dict, bw: float) -> N
     (prefill against the last step within ``SERVE_PREFILL_RTOL``; for MoE,
     whose prefill and decode drop different assignments by design, the
     share dropped at each step, a step from one cache twice to the same
-    bits and ``_moe_card_against_cpu``); 16 int8 steps (``absmax`` and
-    ``quantize_with_scale`` 2 x attention layers x 16 times each, the
+    bits and ``_moe_card_against_cpu``); 16 int8 steps (``quantize_append``
+    attention layers x 16 times, the standalone pair never, the
     drift from bf16 under ``SERVE_INT8_DRIFT``, for MoE reported and held
     against the reference's own reading (``_moe_drift_against_reference``),
-    ``_quantize_token`` on the card against its plain version; mamba2-2.7b's int8 run equal to its
-    bf16 run); the bf16 cache's first 64 MB through ``offload_cache``."""
+    ``_quantize_token`` on the card against its plain version, the fused
+    append against the sequence it replaced; mamba2-2.7b's int8 run equal
+    to its bf16 run); the bf16 cache's first 64 MB through
+    ``offload_cache``."""
     from repro_torch import configs, models
     from repro_torch.core import telemetry
     from repro_torch.launch import serve as ls
@@ -3526,7 +3734,7 @@ def phase_families(seed: int, launches_total: dict, cases: dict, bw: float) -> N
     plan, plan8 = ParallelPlan(), ParallelPlan(kv_cache_dtype="int8")
     B, T = SERVE_BATCH, SERVE_TOKENS
     timer = Timer(reps=CHUNK_REPS, warmup=5)
-    for name in ("absmax", "quantize_with_scale"):
+    for name in ("absmax", "quantize_with_scale", "quantize_append"):
         cases[name].update({"families_launches": {}, "families_shapes": {}})
     for arch, depth in FAMILY_ARCHS:
         t_family = time.perf_counter()
@@ -3597,14 +3805,15 @@ def phase_families(seed: int, launches_total: dict, cases: dict, bw: float) -> N
         torch.cuda.synchronize()
         i8_launches = all_launches()
         i8_lat = _step_latency()
-        want = 2 * La * T
-        for name in ("absmax", "quantize_with_scale"):
-            if i8_launches[name] != want:
-                raise AssertionError(f"families {arch} int8: kernel {name} launched {i8_launches[name]} times, "
-                                     f"expected {want}")
-            launches_total[name] += i8_launches[name]
+        want = La * T
+        if i8_launches["quantize_append"] != want or i8_launches["absmax"] or i8_launches["quantize_with_scale"]:
+            raise AssertionError(f"families {arch} int8: quantize_append launched {i8_launches['quantize_append']} "
+                                 f"times, expected {want}; absmax {i8_launches['absmax']} and quantize_with_scale "
+                                 f"{i8_launches['quantize_with_scale']} times, expected 0")
+        launches_total["quantize_append"] += want
+        for name in ("absmax", "quantize_with_scale", "quantize_append"):
             cases[name]["families_launches"][arch] = i8_launches[name]
-        others = {k: v for k, v in i8_launches.items() if v and k not in ("absmax", "quantize_with_scale")}
+        others = {k: v for k, v in i8_launches.items() if v and k != "quantize_append"}
         if others or not bool(torch.isfinite(i8.logits).all()):
             raise AssertionError(f"families {arch} int8: other kernels {others}, or non-finite logits")
         if La == 0 and not (np.array_equal(i8.sequences, bf.sequences) and same_bits(i8.logits, bf.logits)):
@@ -3623,8 +3832,12 @@ def phase_families(seed: int, launches_total: dict, cases: dict, bw: float) -> N
         elif not drift < SERVE_INT8_DRIFT:
             raise AssertionError(f"families {arch} int8: log-probability drift {drift} from bf16, bound "
                                  f"{SERVE_INT8_DRIFT}")
-        del i8, routing8
         self_cache = bf.cache.self_cache if cfg.family == "encdec" else bf.cache
+        if La:
+            i8_self = i8.cache.self_cache if cfg.family == "encdec" else i8.cache
+            out["fused_append_against_old_sequence"] = append_against_old_sequence(self_cache, i8_self,
+                                                                                    f"families {arch}")
+        del i8, routing8
         if La:
             same = {}
             for name in ("k", "v"):
@@ -3637,7 +3850,7 @@ def phase_families(seed: int, launches_total: dict, cases: dict, bw: float) -> N
                     raise AssertionError(f"families {arch}: _quantize_token of the {name} cache differs on the "
                                          f"card from its plain version")
             out["quantize_token_bit_identical"] = same
-            for name, c in _family_kernel_cases(cfg, self_cache.k, timer, bw).items():
+            for name, c in _family_kernel_cases(cfg, self_cache, timer, bw).items():
                 cases[name]["families_shapes"][arch] = c
                 out.setdefault("kernels", {})[name] = c
         out["peak_memory_GB"] = torch.cuda.max_memory_allocated() / 1e9

@@ -5,6 +5,8 @@
 //   kvquant_absmax          <- absmax (:56, body _absmax_kernel :34)
 //   kvquant_quantize        <- quantize_with_scale (:70, body _quant_kernel :49)
 //   kvquant_dequant_matmul  <- dequant_matmul (:106, body :90)
+//   kvquant_append          <- absmax (:56) + quantize_with_scale (:70), fused
+//                              for the int8 decode append
 //
 // The TPU kernels carry the absmax and the matmul's partial sums in VMEM
 // scratch along a grid that runs in order.  Blocks on Hopper run in no
@@ -75,10 +77,26 @@
 //     |deq|) on every shape and fails above 1.
 //     Bound on the H100: 3 * 2 M N K bf16 operations at 989 TFLOP/s
 //     (0.02606 ms at 128 x 32768 x 1024; the bytes take 0.01518 ms).
+//   * append: the int8 KV append of one attention layer's decode step, K
+//     and V in one launch.  Per (tensor, b, h) row of hd values (the new
+//     token after rope, float32 or bf16, read as it is: bf16 -> float32 is
+//     exact): amax = max |x| (unsigned bit patterns, so NaN propagates),
+//     s = max(amax / 127, 1e-8) with an IEEE divide and a floor that keeps
+//     NaN, q = quant_one(x, s); codes go to cache[b, slot, h, :], s to
+//     scale[b, slot, h], slot read on the device from the 1-element int64
+//     tensor the decode step builds (no host sync).  Bit-identical to
+//     ref.quantize_append, the reference's _quantize_token plus
+//     dynamic_update_slice_in_dim.  At the decode shapes (at most 2 x 4 x
+//     32 rows of at most 128 values) the bound is nanoseconds and the time
+//     is the launch's, so the design serves one launch and no host glue:
+//     a warp per row, lanes striding over hd, __reduce_max_sync for the
+//     absmax, no memset, no atomics, no scratch.  Bound: bytes (k, v read,
+//     codes and scales written).
 //
 // Every entry point checks nothing itself (the Python wrapper does), launches
 // on the given stream, and returns cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -508,6 +526,40 @@ __global__ void splitk_epilogue_kernel(const float* __restrict__ ws, const float
   }
 }
 
+// ---------------------------------------------------------------------------
+// append: one warp per (tensor, b, h) row; rows [0, R) are K's, [R, 2R) V's,
+// R = B * KV, each row hd contiguous values of the (B, 1, KV, hd) input.
+constexpr int QA_WARPS = 4;  // rows per block
+
+__device__ __forceinline__ float as_f32(float x) { return x; }
+__device__ __forceinline__ float as_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__global__ void append_kernel(const T* __restrict__ k, const T* __restrict__ v, int8_t* __restrict__ kc,
+                              int8_t* __restrict__ vc, float* __restrict__ ks, float* __restrict__ vs,
+                              const int64_t* __restrict__ slot_p, int64_t R, int64_t KV, int64_t W, int hd) {
+  const int64_t row = (int64_t)blockIdx.x * QA_WARPS + threadIdx.y;
+  const int64_t slot = *slot_p;
+  // warp-uniform exits: every lane of a live warp reaches the shuffle
+  if (row >= 2 * R || slot < 0 || slot >= W) return;
+  const bool is_v = row >= R;
+  const int64_t r = is_v ? row - R : row;
+  const T* x = (is_v ? v : k) + r * hd;
+  unsigned m = 0u;  // +0.0f
+  for (int i = threadIdx.x; i < hd; i += 32) {
+    const unsigned b = __float_as_uint(fabsf(as_f32(x[i])));
+    m = b > m ? b : m;
+  }
+  m = __reduce_max_sync(0xffffffffu, m);
+  float s = __fdiv_rn(__uint_as_float(m), 127.0f);
+  s = s < 1e-8f ? 1e-8f : s;  // the floor; a NaN compares false and stays
+  const int64_t b = r / KV;
+  const int64_t dst = (b * W + slot) * KV + (r - b * KV);
+  int8_t* q = (is_v ? vc : kc) + dst * hd;
+  for (int i = threadIdx.x; i < hd; i += 32) q[i] = quant_one(as_f32(x[i]), s);
+  if (threadIdx.x == 0) (is_v ? vs : ks)[dst] = s;
+}
+
 int grid_for(int64_t work, int threads) {
   const int64_t blocks = (work + threads - 1) / threads;
   return (int)(blocks < 132 * 32 ? (blocks > 0 ? blocks : 1) : 132 * 32);
@@ -551,6 +603,25 @@ int kvquant_dequant_matmul(const float* a, const int8_t* q, const float* s, floa
   if (err != 0) return err;
   const int64_t items = evec ? (M * N + 3) / 4 : M * N;
   splitk_epilogue_kernel<<<grid_for(items, 256), 256, 0, st>>>(ws, s, out, M, N, splits, evec);
+  return (int)cudaGetLastError();
+}
+
+// k, v: (B, 1, KV, hd) float32 (bf16 = 0) or bf16 (bf16 = 1), contiguous;
+// kc, vc: (B, W, KV, hd) int8 and ks, vs: (B, W, KV) float32, contiguous;
+// slot: one int64 on the device.  A slot outside [0, W) writes nothing.
+int kvquant_append(const void* k, const void* v, int8_t* kc, int8_t* vc, float* ks, float* vs,
+                   const int64_t* slot, int64_t B, int64_t KV, int64_t W, int hd, int bf16, void* stream) {
+  const int64_t R = B * KV;
+  const dim3 block(32, QA_WARPS);
+  const unsigned grid = (unsigned)((2 * R + QA_WARPS - 1) / QA_WARPS);
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (bf16) {
+    append_kernel<__nv_bfloat16><<<grid, block, 0, st>>>(
+        (const __nv_bfloat16*)k, (const __nv_bfloat16*)v, kc, vc, ks, vs, slot, R, KV, W, hd);
+  } else {
+    append_kernel<float><<<grid, block, 0, st>>>((const float*)k, (const float*)v, kc, vc, ks, vs, slot, R,
+                                                 KV, W, hd);
+  }
   return (int)cudaGetLastError();
 }
 

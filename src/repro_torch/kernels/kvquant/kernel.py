@@ -11,8 +11,10 @@ Each wrapper takes CUDA tensors only, checks device, dtype, shape and
 contiguity, allocates its outputs (and the matmul's split-K workspace)
 with ``torch.empty``, launches on ``torch.cuda.current_stream()``, raises
 if the launch reports an error, and adds one to its entry in
-:data:`LAUNCHES`.  The choice between the kernels and their plain versions
-(``ref.py``) is made in ``ops.py``, by the tensors' device.
+:data:`LAUNCHES`.  :func:`quantize_append` allocates nothing: it writes
+into the cache tensors it is given.  The choice between the kernels and
+their plain versions (``ref.py``) is made in ``ops.py``, by the tensors'
+device.
 """
 from __future__ import annotations
 
@@ -27,7 +29,7 @@ from .._build import CudaLibrary, check_launch, count_launch, reset_counts, stre
 _SRC = pathlib.Path(__file__).parent / "csrc" / "kvquant.cu"
 
 #: kernel launches since the last :func:`reset_launches`
-LAUNCHES: Dict[str, int] = {"absmax": 0, "quantize_with_scale": 0, "dequant_matmul": 0}
+LAUNCHES: Dict[str, int] = {"absmax": 0, "quantize_with_scale": 0, "dequant_matmul": 0, "quantize_append": 0}
 
 #: the matmul's output tile and K step (``TC_BM``/``TC_BN``/``TC_BK``)
 _TILE, _BK = 128, 64
@@ -51,6 +53,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.kvquant_quantize.restype = i32
     lib.kvquant_dequant_matmul.argtypes = [p, p, p, p, p, i64, i64, i64, i64, i32, i32, i32, p]
     lib.kvquant_dequant_matmul.restype = i32
+    lib.kvquant_append.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32, i32, p]
+    lib.kvquant_append.restype = i32
 
 
 LIBRARY = CudaLibrary(_SRC, "kvquant", _declare)
@@ -148,3 +152,64 @@ def dequant_matmul(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> tor
     check_launch(err, "dequant_matmul")
     count_launch(LAUNCHES, "dequant_matmul")
     return out
+
+
+#: the input types the append kernel reads as they are
+_APPEND_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_append(k, v, k_cache, v_cache, k_scale, v_scale, slot) -> None:
+    """Types, shapes and placement first, the device type last, so that
+    each refusal is testable without a card."""
+    if k.dtype not in _APPEND_DTYPES or v.dtype != k.dtype:
+        raise ValueError(f"quantize_append: k and v must both be float32 or bf16, got {k.dtype} and {v.dtype}")
+    if k.ndim != 4 or k.shape[1] != 1 or 0 in k.shape or v.shape != k.shape:
+        raise ValueError(f"quantize_append: k and v must be (B, 1, KV, hd), got {tuple(k.shape)} and "
+                         f"{tuple(v.shape)}")
+    B, _, KV, hd = k.shape
+    for name, c in (("k_cache", k_cache), ("v_cache", v_cache)):
+        if c.dtype != torch.int8 or c.ndim != 4 or (c.shape[0], c.shape[2], c.shape[3]) != (B, KV, hd) \
+                or c.shape[1] == 0:
+            raise ValueError(f"quantize_append: {name} must be int8 (B, W, KV, hd) = ({B}, W, {KV}, {hd}), got "
+                             f"{c.dtype} {tuple(c.shape)}")
+    if v_cache.shape != k_cache.shape:
+        raise ValueError(f"quantize_append: k_cache {tuple(k_cache.shape)} and v_cache {tuple(v_cache.shape)} differ")
+    for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+        if sc.dtype != torch.float32 or tuple(sc.shape) != tuple(k_cache.shape[:3]):
+            raise ValueError(f"quantize_append: {name} must be float32 {tuple(k_cache.shape[:3])}, got "
+                             f"{sc.dtype} {tuple(sc.shape)}")
+    if slot.dtype != torch.int64 or slot.numel() != 1:
+        raise ValueError(f"quantize_append: slot must be one int64, got {slot.dtype} {tuple(slot.shape)}")
+    tensors = (k, v, k_cache, v_cache, k_scale, v_scale, slot)
+    if any(t.device != k_cache.device for t in tensors):
+        raise ValueError("quantize_append: every tensor, the slot included, must be on the cache's device, got "
+                         f"{sorted({str(t.device) for t in tensors})}")
+    for name, c in (("k_cache", k_cache), ("v_cache", v_cache), ("k_scale", k_scale), ("v_scale", v_scale)):
+        if not c.is_contiguous():
+            raise ValueError(f"quantize_append: {name} must be contiguous: it is written in place")
+    if k_cache.device.type != "cuda":
+        raise ValueError(f"quantize_append: the CUDA kernel needs CUDA tensors, got {k_cache.device}")
+
+
+def quantize_append(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_scale: torch.Tensor, v_scale: torch.Tensor, slot: torch.Tensor) -> None:
+    """The int8 decode append of one attention layer, in one launch: each
+    (b, h) row of the new token's k and v (B, 1, KV, hd), float32 or bf16,
+    quantized per row (``scale = max(absmax / 127, 1e-8)``, ``q =
+    clip(rint(x / scale), ±127)``, NaN -> 0) into ``k_cache[b, slot, h]``
+    and ``v_cache[b, slot, h]`` (int8 (B, W, KV, hd)), the scales into
+    ``k_scale[b, slot, h]`` and ``v_scale`` (float32 (B, W, KV)).  ``slot``
+    is a 1-element int64 tensor on the card, read there (no host sync);
+    a slot outside [0, W) writes nothing.  In place; bit-identical to
+    :func:`.ref.quantize_append`."""
+    _check_append(k, v, k_cache, v_cache, k_scale, v_scale, slot)
+    k, v = k.contiguous(), v.contiguous()
+    B, _, KV, hd = k.shape
+    lib = load()
+    with torch.cuda.device(k_cache.device):
+        err = lib.kvquant_append(
+            k.data_ptr(), v.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(),
+            v_scale.data_ptr(), slot.data_ptr(), B, KV, k_cache.shape[1], hd, _APPEND_DTYPES[k.dtype], stream(),
+        )
+    check_launch(err, "quantize_append")
+    count_launch(LAUNCHES, "quantize_append")

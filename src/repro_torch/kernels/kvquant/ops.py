@@ -27,6 +27,18 @@ def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return _k.quantize_with_scale(x, scale), scale
 
 
+def kv_quantize_append(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                       k_scale: torch.Tensor, v_scale: torch.Tensor, slot: torch.Tensor) -> None:
+    """The int8 decode append of one attention layer: k and v (B, 1, KV, hd)
+    quantized per (b, h) row into ring slot ``slot`` of the int8 caches
+    (B, W, KV, hd) and their scales (B, W, KV), in place.  One launch on
+    the card for K and V together; tensors on mixed devices go to the
+    kernel's wrapper, which refuses them."""
+    args = (k, v, k_cache, v_cache, k_scale, v_scale, slot)
+    fn = _ref.quantize_append if all(t.device.type == "cpu" for t in args) else _k.quantize_append
+    fn(*args)
+
+
 def kv_dequant_matmul(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ dequant(q (K, N), scale (N,)) -> (M, N) f32, on a's device."""
     fn = _ref.dequant_matmul if a.device.type == "cpu" else _k.dequant_matmul

@@ -10,6 +10,11 @@ Contract (the JAX package's oracle, ``repro/kernels/kvquant/ref.py``):
 * NaN: ``absmax`` propagates it (as ``jnp.max`` does), so a column holding
   a NaN gets a NaN scale; a NaN quotient becomes code 0 (the JAX package's
   float-to-int8 conversion gives 0 for NaN too).
+* quantize_append: the int8 decode append, the reference's
+  ``_quantize_token`` plus ``dynamic_update_slice_in_dim``
+  (``repro/models/lm.py``): quantize each (b, h) row of the new token's K
+  and V (B, 1, KV, hd) over its hd values, as ``quantize`` does a column,
+  and write codes and scales into ring slot ``slot`` of the caches.
 * dequant_matmul: ``C = A @ (Q.float() * scale)`` in IEEE float32 (TF32
   off), held by tolerance: against a float64 product of the same operands
   it stays within ``(K+2) * 2**-24 * (|A| @ |deq|)``.  The CUDA kernel
@@ -47,6 +52,24 @@ def quantize(x: torch.Tensor):
     """x: (T, C) f32/bf16 -> (q int8 (T, C), scale f32 (C,))."""
     scale = scale_from_absmax(absmax(x))
     return quantize_with_scale(x, scale), scale
+
+
+def quantize_rows(x: torch.Tensor):
+    """x (..., hd) -> (codes int8 (..., hd), scale f32 (...)): :func:`quantize`
+    on the transposed view (hd, rows), whose columns are the rows of x."""
+    q, scale = quantize(x.reshape(-1, x.shape[-1]).T)
+    return q.T.reshape(x.shape), scale.reshape(x.shape[:-1])
+
+
+def quantize_append(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                    k_scale: torch.Tensor, v_scale: torch.Tensor, slot: torch.Tensor) -> None:
+    """k, v (B, 1, KV, hd) -> codes into ``k_cache``/``v_cache`` (B, W, KV,
+    hd) int8 and scales into ``k_scale``/``v_scale`` (B, W, KV) float32 at
+    ring slot ``slot`` (a 1-element int64 tensor), in place."""
+    for x, cache, scales in ((k, k_cache, k_scale), (v, v_cache, v_scale)):
+        q, scale = quantize_rows(x)
+        cache.index_copy_(1, slot, q)
+        scales.index_copy_(1, slot, scale)
 
 
 def dequantize(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -9,12 +9,15 @@ same paths.  :class:`DecoderLM` registers that tree as an ``nn.Module``.
 
 Serving uses a ring KV cache (:class:`DecodeCache`), optionally int8
 per token and head through the paper's linear-scaling quantizer.  The
-reference computes that quantizer in ``jnp``; here :func:`_quantize_token`
-sends it through the port's kvquant kernels (``absmax`` and
-``quantize_with_scale``) on a CUDA tensor and through their plain
-version on a CPU tensor, with a true divide for ``absmax / 127`` (the
-reference's jitted divide is XLA's multiply by ``f32(1/127)``, which can
-differ by one ulp).
+reference computes that quantizer in ``jnp`` and writes the codes and
+scales into the ring slot with ``dynamic_update_slice_in_dim``; here the
+decode step does both through ``kv_quantize_append``, the kvquant
+kernels' fused append (one launch per attention layer for K and V) on
+CUDA tensors and its plain version on CPU tensors, with a true divide for
+``absmax / 127`` (the reference's jitted divide is XLA's multiply by
+``f32(1/127)``, which can differ by one ulp).  :func:`_quantize_token`,
+the reference's function of that name, runs the standalone ``absmax``
+and ``quantize_with_scale`` kernels.
 
 bf16 numerics follow the reference's: norms, RoPE and attention scores in
 float32; the int8 dequant product rounds once to bf16, and attention's two
@@ -51,7 +54,7 @@ from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from .. import tree as tree_util
-from ..kernels.kvquant.ops import kv_quantize
+from ..kernels.kvquant.ops import kv_quantize, kv_quantize_append
 from ..parallel.plan import ParallelPlan
 from .common import ModelConfig
 from .layers import (
@@ -465,7 +468,9 @@ def _decode_attn(p, x, layer_cache, length, pos_slot, cfg: ModelConfig, plan: Pa
 
     ``layer_cache`` is (k, v, k_scale, v_scale, pos) of one layer; the new
     token is written into its k/v (and scale) tensors in place at ring slot
-    ``pos_slot`` (a 1-element int64 tensor).  Returns the output and
+    ``pos_slot`` (a 1-element int64 tensor), at int8 quantized per token
+    and head by ``kv_quantize_append`` (what two :func:`_quantize_token`
+    calls and four ``index_copy_`` would write).  Returns the output and
     (k, v, k_scale, v_scale, new_pos)."""
     B = x.shape[0]
     dims = attn_dims(cfg, plan)
@@ -481,12 +486,7 @@ def _decode_attn(p, x, layer_cache, length, pos_slot, cfg: ModelConfig, plan: Pa
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
     if plan.kv_cache_dtype == "int8":
-        kq, ks = _quantize_token(k)
-        vq, vs = _quantize_token(v)
-        k_c.index_copy_(1, pos_slot, kq)
-        v_c.index_copy_(1, pos_slot, vq)
-        ks_c.index_copy_(1, pos_slot, ks)
-        vs_c.index_copy_(1, pos_slot, vs)
+        kv_quantize_append(k, v, k_c, v_c, ks_c, vs_c, pos_slot)
         # dequantize to bf16 (one rounding of the product), accumulate the
         # attention products in float32 below
         kf = k_c.to(torch.bfloat16) * ks_c[..., None].to(torch.bfloat16)

@@ -644,8 +644,9 @@ def test_new_families_default_to_cuda_and_never_fall_back():
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_cuda_int8_append_launches_per_attention_layer(arch):
-    """``absmax`` and ``quantize_with_scale`` once each for K and for V in
-    every attention layer a step (none for mamba2)."""
+    """The fused append (``quantize_append``) once for K and V together in
+    every attention layer a step (none for mamba2), and neither standalone
+    kvquant kernel."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     from repro_torch.kernels.kvquant import kernel as K
@@ -658,8 +659,8 @@ def test_cuda_int8_append_launches_per_attention_layer(arch):
     card = serve(cfg, plan, batch=2, tokens=3, params=params)
     torch.cuda.synchronize()
     layers = cfg.n_layers if cfg.family == "encdec" else t_lm._n_attn_layers(cfg)  # decoder self-attention
-    want = 2 * layers * 3
-    assert K.LAUNCHES["absmax"] == K.LAUNCHES["quantize_with_scale"] == want
+    assert K.LAUNCHES["quantize_append"] == layers * 3
+    assert K.LAUNCHES["absmax"] == K.LAUNCHES["quantize_with_scale"] == 0
     assert card.logits.device.type == "cuda" and bool(torch.isfinite(card.logits).all())
 
 

@@ -22,6 +22,12 @@ plain versions on a card.
   (``ref.tensor_core_dequant_matmul``), stays within both bounds above, and
   within the source note's worst-case counts over K = 32768 in one split,
   where promotion every 128 of K is what keeps the error small.
+* quantize_append (the fused int8 decode append): the plain version
+  writes the JAX oracle's codes and scales of each (b, h) row into the
+  named ring slot, bit for bit, and leaves every other slot as it was, on
+  float32 and bf16 rows (NaN, ±inf, zero, subnormal, floored and rint-tie
+  rows among them) at hd 64, 112 and 128; the kernel's wrapper refuses
+  CPU tensors, wrong types and shapes, and a slot off the cache's device.
 
 The ``cuda``-marked tests run on a card
 (``python -m pytest -q -m cuda tests/test_torch_kvquant.py``): absmax and
@@ -29,7 +35,9 @@ quantize bit-identical to their plain versions (NaN and all-zero columns
 included), dequant_matmul within the float64 bound, also on rows near
 2**-100 and 2**100, on misaligned views, with K = 32768 in one split, and
 with NaN and infinite rows, whose non-finite outputs sit where the plain
-version's do; and the card's sums equal the truncating model's bit for bit.
+version's do; and the card's sums equal the truncating model's bit for bit;
+quantize_append bit-identical to its plain version in one launch at the
+int8 append shapes of the served configs and on the edge rows above.
 """
 import numpy as np
 import pytest
@@ -328,6 +336,141 @@ def test_split_k_covers_k_in_whole_steps(mkn):
 
 
 # ---------------------------------------------------------------------------
+# the fused int8 decode append
+# ---------------------------------------------------------------------------
+
+#: (B, KV, hd) of the served configs' int8 append at batch 4: granite-3-8b,
+#: deepseek-moe-16b, qwen3-moe-30b-a3b, zamba2-7b, whisper-small (mamba2-2.7b
+#: has no attention layer)
+APPEND_SHAPES = [(4, 8, 128), (4, 16, 128), (4, 4, 128), (4, 32, 112), (4, 12, 64)]
+
+
+def _append_rows(B, KV, hd, seed):
+    """k and v (B, 1, KV, hd) float32, exact in bf16: random rows over
+    16 octaves, and in k a NaN row, an all-zero row (with -0.0), a row of
+    rint ties (scale 0.125 exactly: codes are k + 0.5), an inf row, a -inf
+    row, a subnormal row and a row whose scale is floored at 1e-8."""
+    rng = np.random.default_rng(seed)
+    shape = (B, 1, KV, hd)
+    k, v = (rng.standard_normal(shape) * np.exp2(rng.integers(-8, 8, (B, 1, KV, 1))) for _ in range(2))
+    rows = k.reshape(-1, hd)
+    edges = [np.nan, 0.0, "ties", np.inf, -np.inf, "subnormal", "floored"]
+    for r, edge in enumerate(edges[: rows.shape[0]]):
+        if edge == "ties":
+            n = np.arange(hd) % 127
+            rows[r] = (2 * n + 1) / 16 * np.where(np.arange(hd) % 2, -1, 1)
+            rows[r, 0] = 254 / 16  # amax 15.875: scale 0.125, every x / scale a half
+        elif edge == "subnormal":
+            rows[r] = rng.integers(-60, 60, hd) * np.float32(2.0**-133)
+        elif edge == "floored":
+            rows[r] = rng.standard_normal(hd) * 1e-7
+        elif edge == 0.0:
+            rows[r] = 0.0
+            rows[r, 1::2] = -0.0
+        else:
+            rows[r, r % hd] = edge
+    v.reshape(-1, hd)[-1, 3] = np.nan
+    return (torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).float().numpy() for a in (k, v))
+
+
+def _append_case(B, KV, hd, W, dtype, seed):
+    """Inputs, random prior caches and scales, and the plain version's
+    result on copies of them at slot 0 and W - 1."""
+    k, v = _append_rows(B, KV, hd, seed)
+    rng = np.random.default_rng(seed + 1)
+    caches = [rng.integers(-127, 128, (B, W, KV, hd)).astype(np.int8) for _ in range(2)]
+    scales = [rng.uniform(0.1, 2, (B, W, KV)).astype(np.float32) for _ in range(2)]
+    kt, vt = (torch.from_numpy(a).to(dtype) for a in (k, v))
+    return kt, vt, caches, scales
+
+
+def _same_nan(a, b):
+    """Bit identity, with a NaN equal to any NaN."""
+    a, b = np.asarray(a), np.asarray(b)
+    return a.shape == b.shape and bool(np.all((np.isnan(a) & np.isnan(b)) | (_bits(a) == _bits(b))))
+
+
+@pytest.mark.parametrize("slot_at", ["first", "last"])
+@pytest.mark.parametrize("hd", [64, 112, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_quantize_append_equals_jax_oracle(dtype, hd, slot_at):
+    B, KV, W = 2, 4, 5
+    k, v, caches, scales = _append_case(B, KV, hd, W, dtype, hd * 10 + (dtype == torch.bfloat16))
+    slot = 0 if slot_at == "first" else W - 1
+    kc, vc = (torch.from_numpy(c.copy()) for c in caches)
+    ks, vs = (torch.from_numpy(s.copy()) for s in scales)
+    K.reset_launches()
+    kv.kv_quantize_append(k, v, kc, vc, ks, vs, torch.tensor([slot]))
+    assert all(n == 0 for n in K.LAUNCHES.values())
+    for x, c0, s0, c, sc in ((k, caches[0], scales[0], kc, ks), (v, caches[1], scales[1], vc, vs)):
+        xf = x.float().numpy()
+        xj = jnp.asarray(xf, jnp.bfloat16) if dtype == torch.bfloat16 else jnp.asarray(xf)
+        q_r, s_r = r_ref_quantize(xj.reshape(-1, hd).T)  # columns are the (b, h) rows
+        want_c, want_s = c0.copy(), s0.copy()
+        want_c[:, slot] = np.asarray(q_r).T.reshape(B, KV, hd)
+        want_s[:, slot] = np.asarray(s_r).reshape(B, KV)
+        _same(c.numpy(), want_c, "codes; every other slot untouched")
+        assert _same_nan(sc.numpy(), want_s), "scales; every other slot untouched"
+    ks_np = ks.numpy()[:, slot].reshape(-1)
+    assert np.isnan(ks_np[0]) and ks_np[1] == ks_np[6] == ks_np[5] == np.float32(1e-8)
+    assert ks_np[2] == 0.125 and np.isinf(ks_np[3]) and np.isinf(ks_np[4])
+    ties = kc.numpy()[:, slot].reshape(-1, hd)[2].astype(np.int32)
+    half = (2 * (np.arange(hd) % 127) + 1) / 2 * np.where(np.arange(hd) % 2, -1, 1)
+    np.testing.assert_array_equal(ties[1:], np.rint(half[1:]))  # half to even
+    assert ties[0] == 127 and not kc.numpy()[:, slot].reshape(-1, hd)[[0, 1, 3, 4, 5]].any()
+
+
+def _append_args(dev="meta", dtype=torch.float32, B=2, KV=3, hd=8, W=4):
+    return dict(
+        k=torch.zeros((B, 1, KV, hd), dtype=dtype, device=dev),
+        v=torch.zeros((B, 1, KV, hd), dtype=dtype, device=dev),
+        k_cache=torch.zeros((B, W, KV, hd), dtype=torch.int8, device=dev),
+        v_cache=torch.zeros((B, W, KV, hd), dtype=torch.int8, device=dev),
+        k_scale=torch.zeros((B, W, KV), device=dev),
+        v_scale=torch.zeros((B, W, KV), device=dev),
+        slot=torch.zeros(1, dtype=torch.int64, device=dev),
+    )
+
+
+@pytest.mark.parametrize("dev", ["cpu", "meta"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_append_wrapper_refuses_non_cuda_tensors(dev, dtype):
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        K.quantize_append(**_append_args(dev, dtype))
+
+
+@pytest.mark.parametrize("change, match", [
+    (dict(k=torch.zeros((2, 1, 3, 8), dtype=torch.float16)), "float32 or bf16"),
+    (dict(v=torch.zeros((2, 1, 3, 8), dtype=torch.bfloat16)), "float32 or bf16"),
+    (dict(k=torch.zeros((2, 2, 3, 8)), v=torch.zeros((2, 2, 3, 8))), r"\(B, 1, KV, hd\)"),
+    (dict(v=torch.zeros((2, 1, 3, 4))), r"\(B, 1, KV, hd\)"),
+    (dict(k_cache=torch.zeros((2, 4, 3, 8), dtype=torch.uint8)), "k_cache must be int8"),
+    (dict(v_cache=torch.zeros((2, 4, 3, 4), dtype=torch.int8)), "v_cache must be int8"),
+    (dict(v_cache=torch.zeros((2, 5, 3, 8), dtype=torch.int8)), "differ"),
+    (dict(k_scale=torch.zeros((2, 4, 3), dtype=torch.float64)), "k_scale must be float32"),
+    (dict(v_scale=torch.zeros((2, 4, 4))), "v_scale must be float32"),
+    (dict(slot=torch.zeros(1, dtype=torch.int32)), "one int64"),
+    (dict(slot=torch.zeros(2, dtype=torch.int64)), "one int64"),
+    (dict(k_cache=torch.zeros((2, 3, 4, 8), dtype=torch.int8).transpose(1, 2)), "contiguous"),
+])
+def test_append_wrapper_refuses_wrong_types_and_shapes(change, match):
+    args = {**_append_args("cpu"), **change}
+    with pytest.raises(ValueError, match=match):
+        K.quantize_append(**args)
+
+
+def test_append_refuses_an_off_device_slot():
+    args = {**_append_args("meta"), "slot": torch.zeros(1, dtype=torch.int64)}
+    with pytest.raises(ValueError, match="the slot included"):
+        K.quantize_append(**args)
+    with pytest.raises(ValueError, match="the slot included"):  # mixed devices go to the kernel's wrapper
+        kv.kv_quantize_append(**args)
+    with pytest.raises(ValueError, match="the slot included"):
+        kv.kv_quantize_append(**{**_append_args("cpu"), "slot": torch.zeros(1, dtype=torch.int64, device="meta")})
+
+
+
+# ---------------------------------------------------------------------------
 # on the card
 # ---------------------------------------------------------------------------
 
@@ -511,3 +654,42 @@ def test_cuda_dequant_matmul_on_misaligned_views(cuda_device):
     got = K.dequant_matmul(at, qt, torch.from_numpy(s).to(cuda_device))
     exact, tol = f64_bound(a, q, s)
     assert np.all(np.abs(got.cpu().numpy() - exact) <= tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slot_at", ["first", "last"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", APPEND_SHAPES + [(2, 4, 64), (2, 4, 112), (1, 1, 128), (3, 5, 33), (64, 8, 128)])
+def test_cuda_quantize_append_equals_plain(cuda_device, shape, dtype, slot_at):
+    """One launch, bit for bit with the plain version: every cache slot and
+    scale, the edge rows of ``_append_rows`` included."""
+    B, KV, hd = shape
+    W = 24
+    k, v, caches, scales = _append_case(B, KV, hd, W, dtype, B * 1000 + KV * 10 + hd)
+    slot = torch.tensor([0 if slot_at == "first" else W - 1], device=cuda_device)
+    got = [torch.from_numpy(a.copy()).to(cuda_device) for a in (*caches, *scales)]
+    want = [t.clone() for t in got]
+    kd, vd = k.to(cuda_device), v.to(cuda_device)
+    K.reset_launches()
+    kv.kv_quantize_append(kd, vd, *got, slot)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["quantize_append"] == 1 and K.LAUNCHES["absmax"] == K.LAUNCHES["quantize_with_scale"] == 0
+    kref.quantize_append(kd, vd, *want, slot)
+    for a, b in zip(got, want):
+        assert _same_or_both_nan(a, b) if a.is_floating_point() else torch.equal(a, b)
+    cpu = [torch.from_numpy(a.copy()) for a in (*caches, *scales)]
+    kref.quantize_append(k, v, *cpu, slot.cpu())
+    for a, b in zip(got, cpu):
+        assert _same_or_both_nan(a.cpu(), b) if a.is_floating_point() else torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_cuda_quantize_append_out_of_ring_slot_writes_nothing(cuda_device):
+    args = _append_args(cuda_device)
+    before = {n: t.clone() for n, t in args.items()}
+    for bad in (4, -1):
+        args["slot"].fill_(bad)
+        K.quantize_append(**args)
+        torch.cuda.synchronize()
+        for n in ("k_cache", "v_cache", "k_scale", "v_scale"):
+            assert torch.equal(args[n], before[n])

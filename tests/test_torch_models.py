@@ -12,7 +12,9 @@ package's on the CPU.
 * the int8 append: the port's ``_quantize_token`` divides ``absmax / 127``
   where the reference's jitted one multiplies by ``f32(1/127)``; on the
   same vectors the scales differ by at most one ulp, the codes only where
-  a scale differs and by at most 1, and the counts are asserted;
+  a scale differs and by at most 1, and the counts are asserted; the
+  decode step's fused append writes what two ``_quantize_token`` calls and
+  four ``index_copy_`` calls write;
 * the reference's own model tests (``tests/test_models_smoke.py``) through
   the port, with its tolerances;
 * configs and parameter paths: all ten architectures' values, shape cells
@@ -34,8 +36,9 @@ are held within 1e-2 (1.6e-3 seen once in 20 steps, on h2o-danube), and
 at most a quarter of the steps may exceed 1e-4.  Codes may differ by 1 at
 a rounding tie, in at most 1% of the cache.
 
-The ``cuda``-marked test holds ``_quantize_token`` on the card to its
-plain version bit for bit
+The ``cuda``-marked tests hold ``_quantize_token`` on the card to its
+plain version bit for bit, and count the fused int8 append
+(``kv_quantize_append``) once per layer of a decode step
 (``python -m pytest -q -m cuda tests/test_torch_models.py``).
 """
 import dataclasses
@@ -246,6 +249,47 @@ def test_quantize_token_differs_only_by_the_reciprocal_rewrite(dtype):
     assert code_diff.max() <= 1
     assert not (code_diff.any(-1) & ~scale_diff).any()  # codes differ only where the scale does
     assert code_diff.astype(bool).sum() <= scale_diff.sum() * 128
+
+
+@pytest.mark.parametrize("arch, slot", [("granite-3-8b", 0), ("granite-3-8b", 5), ("qwen1.5-0.5b", 3)])
+def test_decode_attn_int8_append_writes_what_quantize_token_and_index_copy_write(monkeypatch, arch, slot):
+    """``_decode_attn``'s fused append leaves the caches and scales exactly
+    as two ``_quantize_token`` calls and four ``index_copy_`` calls on the
+    same K and V would (the sequence it replaced)."""
+    cfg = t_configs.get_smoke(arch)
+    plan = TPlan(kv_cache_dtype="int8")
+    model = t_models.init_params(5, cfg, plan, device=CPU)
+    cache = t_models.init_cache(model, cfg, plan, 3, 8)
+    g = torch.Generator().manual_seed(slot)
+    for t in (cache.k, cache.v):
+        t.copy_(torch.randint(-127, 128, t.shape, generator=g, dtype=torch.int8))
+    for t in (cache.k_scale, cache.v_scale):
+        t.copy_(torch.rand(t.shape, generator=g))
+    before = [t[0].clone() for t in (cache.k, cache.v, cache.k_scale, cache.v_scale)]
+    seen = []
+    real = t_lm.kv_quantize_append
+
+    def spy(k, v, *rest):
+        seen.append((k.clone(), v.clone()))
+        real(k, v, *rest)
+
+    monkeypatch.setattr(t_lm, "kv_quantize_append", spy)
+    x = torch.randn((3, 1, cfg.d_model), generator=g).to(cfg.param_dtype)
+    lc = (cache.k[0], cache.v[0], cache.k_scale[0], cache.v_scale[0], cache.pos)
+    pos_slot = torch.tensor([slot])
+    lp = t_lm._layer(t_lm.param_tree(model)["blocks"], 0)
+    t_lm._decode_attn(lp["attn"], x, lc, torch.tensor(slot, dtype=torch.int32), pos_slot, cfg, plan)
+    (k, v), = seen
+    assert k.shape == v.shape == (3, 1, cfg.n_kv_heads, cfg.hd)
+    kq, ks = t_lm._quantize_token(k)
+    vq, vs = t_lm._quantize_token(v)
+    kc, vc, ksc, vsc = before
+    kc.index_copy_(1, pos_slot, kq)
+    vc.index_copy_(1, pos_slot, vq)
+    ksc.index_copy_(1, pos_slot, ks)
+    vsc.index_copy_(1, pos_slot, vs)
+    for got, want in zip((cache.k[0], cache.v[0], cache.k_scale[0], cache.v_scale[0]), (kc, vc, ksc, vsc)):
+        assert torch.equal(got, want)
 
 
 # ---------------------------------------------------------------------------
@@ -479,3 +523,25 @@ def test_cuda_quantize_token_equals_plain_bit_for_bit():
     zeros = torch.zeros((2, 1, 4, 32), device="cuda")
     q, s = t_lm._quantize_token(zeros)
     assert not q.any() and bool((s == np.float32(1e-8)).all())
+
+
+@pytest.mark.cuda
+def test_cuda_int8_decode_step_launches_the_append_once_per_layer():
+    """The fused append once per attention layer a step, and neither of the
+    standalone kvquant kernels."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.kvquant import kernel as K
+
+    cfg = t_configs.get_smoke("granite-3-8b")
+    plan = TPlan(kv_cache_dtype="int8")
+    model = t_models.init_params(0, cfg, plan, device="cuda")
+    cache = t_models.init_cache(model, cfg, plan, 2, 8)
+    toks = _toks(0, (2, 3), cfg.vocab).cuda()
+    K.reset_launches()
+    for t in range(3):
+        logits, cache = t_models.decode_step(model, cache, toks[:, t : t + 1], cfg, plan)
+    torch.cuda.synchronize()
+    assert K.LAUNCHES["quantize_append"] == 3 * cfg.n_layers
+    assert K.LAUNCHES["absmax"] == K.LAUNCHES["quantize_with_scale"] == 0
+    assert bool(torch.isfinite(logits).all()) and bool((cache.k_scale[:, :, :3] > 0).all())

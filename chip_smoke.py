@@ -3897,6 +3897,142 @@ TRAIN_CPU_RTOL = 1e-5
 TRAIN_LEARN_STEPS, TRAIN_LEARN_DROP = 25, 1.0
 
 
+#: the sharded sub-run: Qwen1.5-0.5B's train_4k cell plan on a (1, 1)
+#: data x model mesh, whose losses are held against the plain run's: the
+#: local ops are the plain run's, so they are expected equal; a sum taken
+#: in another order would be held within this relative bound
+TRAIN_SHARDED_RTOL = 1e-5
+#: expert parallelism on the same mesh: deepseek-moe-16b at full width,
+#: depth cut from 28 layers to 4 (1 dense, 3 MoE), one batch of 1 x 4096
+#: tokens; the loss of the sharded plan against the plain plan's, at the
+#: default capacity and drop-free (the reference's contract: within 0.5 at
+#: the default, equal drop-free)
+EP_ARCH, EP_LAYERS, EP_BATCH, EP_SEQ, EP_DROPFREE = "deepseek-moe-16b", 4, 1, 4096, 16.0
+EP_DEFAULT_ATOL = 0.5
+
+
+def _train_sharded(cfg, seed: int, plain: dict) -> dict:
+    """The sharded sub-run on a one-card NCCL mesh (data 1 x model 1):
+    ``make_cell_plan`` for the train_4k cell (FSDP over data, the
+    reference's microbatches), the full state drawn from the plain run's
+    seed and placed as DTensors, ``TRAIN_STEPS`` steps through
+    ``jit_train_step`` on the plain run's batches; then expert parallelism
+    (:func:`_train_expert_parallel`) on the same mesh.  Tears the process
+    group down."""
+    import torch.distributed as dist
+
+    from repro_torch import configs
+    from repro_torch import tree as tree_util
+    from repro_torch.data import make_pipeline
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.launch.plans import TRAIN_MICROBATCHES, make_cell_plan
+    from repro_torch.models.common import float32_bf16_reductions
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train.step import init_train_state, jit_train_step, make_train_step
+
+    mesh = make_debug_mesh((1, 1), ("data", "model"), device="cuda")
+    try:
+        plan, popt = make_cell_plan(TRAIN_ARCH, cfg, configs.SHAPES["train_4k"], mesh)
+        if (plan.fsdp_axes, plan.microbatches, plan.batch_axes, plan.tp, plan.dp) != \
+                (("data",), TRAIN_MICROBATCHES[TRAIN_ARCH], ("data",), 1, 1):
+            raise AssertionError(f"train sharded: the cell plan is {plan}")
+        opt = AdamWConfig(lr=TRAIN_LR, compress_moments=popt.compress_moments)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        state = init_train_state(seed, cfg, plan, opt, device="cuda")
+        leaves = tree_util.flatten(state["params"])[0]
+        placements = sorted({str(list(t.placements)) for t in leaves})
+        if not all(hasattr(t, "placements") for t in leaves):
+            raise AssertionError("train sharded: the state's leaves are not DTensors")
+        pipe = make_pipeline(cfg, seq=TRAIN_SEQ, global_batch=TRAIN_BATCH)
+
+        def batch(k):
+            return {x: torch.from_numpy(v).cuda() for x, v in pipe.batch_at(k).items()}
+
+        step = jit_train_step(make_train_step(cfg, plan, opt, total_steps=TRAIN_STEPS), state, cfg, plan, opt,
+                              batch(0))
+        losses, norms, secs = [], [], []
+        with float32_bf16_reductions():
+            t0 = time.perf_counter()
+            for k in range(TRAIN_STEPS):  # timed as the launcher times a step: batch, step, sync
+                state, m = step(state, batch(k))
+                losses.append(float(m["loss"]))
+                norms.append(float(m["grad_norm"]))
+                secs.append(time.perf_counter() - t0)
+                t0 = time.perf_counter()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        launched = {k: v for k, v in all_launches().items() if v}
+        if launched:
+            raise AssertionError(f"train sharded: a train step launched kernels {launched}")
+        del state, step
+        torch.cuda.empty_cache()
+        loss_rel = max(abs(a - b) / abs(b) for a, b in zip(losses, plain["losses"]))
+        if not loss_rel <= TRAIN_SHARDED_RTOL:
+            raise AssertionError(f"train sharded: losses {losses} against the plain run's {plain['losses']}")
+        p50 = statistics.median(secs)
+        out = {
+            "mesh": {"shape": [1, 1], "axes": ["data", "model"], "backend": dist.get_backend()},
+            "plan": {"fsdp_axes": list(plan.fsdp_axes), "microbatches": plan.microbatches, "remat": plan.remat,
+                     "batch_axes": list(plan.batch_axes), "compress_moments": opt.compress_moments},
+            "placements": placements, "losses": losses, "grad_norms": norms,
+            "losses_bit_equal_plain": losses == plain["losses"], "loss_max_rel_vs_plain": loss_rel,
+            "grad_norm_max_rel_vs_plain": max(abs(a - b) / abs(b) for a, b in zip(norms, plain["grad_norms"])),
+            "step_seconds": secs, "step_p50_s": p50, "step_p99_s": float(np.percentile(secs, 99)),
+            "steady_p50_s": statistics.median(secs[1:]), "peak_memory_GB": peak,
+            "p50_over_plain_p50": p50 / plain["step_p50_s"],
+            "steady_p50_over_plain": statistics.median(secs[1:]) / plain["steady_p50_s"],
+        }
+        out["expert_parallel"] = _train_expert_parallel(mesh, seed)
+        return out
+    finally:
+        dist.destroy_process_group()
+
+
+def _train_expert_parallel(mesh, seed: int) -> dict:
+    """``models.loss_fn`` of deepseek-moe-16b (full width, ``EP_LAYERS``
+    layers) on one batch under the plain plan and under the expert-parallel
+    plan on ``mesh`` (the reference's ``test_moe_expert_parallel_parity``),
+    at the default capacity and drop-free.  On one card the model axis has
+    one rank: the expert-parallel dispatch runs, but nothing reaches its
+    discard bucket and no combine crosses ranks."""
+    from repro_torch import configs, models
+    from repro_torch.data import make_pipeline
+    from repro_torch.models import moe
+    from repro_torch.models.common import float32_bf16_reductions
+    from repro_torch.parallel import ParallelPlan
+
+    cfg = dataclasses.replace(configs.get(EP_ARCH), n_layers=EP_LAYERS)
+    plain, sharded = ParallelPlan(), ParallelPlan(mesh=mesh, batch_axes=("data",))
+    t0 = time.perf_counter()
+    params = models.init_params(seed, cfg, plain, device="cuda")
+    batch = {k: torch.from_numpy(v).cuda()
+             for k, v in make_pipeline(cfg, seq=EP_SEQ, global_batch=EP_BATCH).batch_at(0).items()}
+    default = moe.CAPACITY_FACTOR
+    out = {"arch": EP_ARCH, "layers": EP_LAYERS, "of_layers": configs.get(EP_ARCH).n_layers,
+           "experts": cfg.n_experts, "top_k": cfg.top_k, "tokens": EP_BATCH * EP_SEQ,
+           "scope": "the expert-parallel dispatch on a model axis of one rank: its discard bucket stays empty "
+                    "and no combine crosses ranks; tools/sharded_cards.py runs it across four cards"}
+    try:
+        with torch.no_grad(), float32_bf16_reductions():
+            for name, factor in (("default", default), ("dropfree", EP_DROPFREE)):
+                moe.CAPACITY_FACTOR = factor
+                one = float(models.loss_fn(params, batch, cfg, plain))
+                ep = float(models.loss_fn(params, batch, cfg, sharded))
+                out[name] = {"capacity_factor": factor, "plain": one, "expert_parallel": ep, "abs_diff": abs(one - ep)}
+    finally:
+        moe.CAPACITY_FACTOR = default
+    del params
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    if not all(math.isfinite(out[k][x]) for k in ("default", "dropfree") for x in ("plain", "expert_parallel")):
+        raise AssertionError(f"train expert parallel: non-finite loss {out}")
+    if not (out["default"]["abs_diff"] < EP_DEFAULT_ATOL and out["dropfree"]["plain"] == out["dropfree"]["expert_parallel"]):
+        raise AssertionError(f"train expert parallel: the sharded plan's loss differs from the plain plan's: {out}")
+    return out
+
+
 def _adam_bound(lr: float, steps: int, total: int) -> float:
     """The most Adam's first steps can move an element whose gradient's sign
     differs between two runs: twice ``lr * lr_scale`` summed over the steps."""
@@ -4096,7 +4232,9 @@ def _train_resume(cfg, plan, opt, tmp, launches_total, seed: int) -> dict:
 def phase_train(seed: int, launches_total: dict) -> None:
     """The train launcher (``repro_torch.launch.train.train``): (a)
     Qwen1.5-0.5B at full size, plain and with the compressed DP reduction
-    and compressed moments on a one-rank NCCL mesh, and one full-size step
+    and compressed moments on a one-rank NCCL mesh, sharded through
+    ``jit_train_step`` on a (1, 1) data x model mesh with expert
+    parallelism after it (:func:`_train_sharded`), and one full-size step
     at ``microbatches`` 1 and 2 from one state (loss, grad norm and first
     moment, :func:`_train_micro_check`); (b) the smoke
     config in float32 on the card against the CPU; (c) the loss falling on
@@ -4162,6 +4300,11 @@ def phase_train(seed: int, launches_total: dict) -> None:
         finally:
             dist.destroy_process_group()
         torch.cuda.empty_cache()
+        # (a) sharded: the train_4k cell plan on a (1, 1) data x model mesh
+        t_sharded = time.perf_counter()
+        sharded = _train_sharded(cfg, seed, plain)
+        sharded["seconds"] = time.perf_counter() - t_sharded
+        torch.cuda.empty_cache()
 
         # (b) the smoke config in float32: 3 steps on the card and on the CPU
         scfg = configs.get_smoke(TRAIN_ARCH)
@@ -4207,7 +4350,7 @@ def phase_train(seed: int, launches_total: dict) -> None:
                 "seq": TRAIN_SEQ, "global_batch": TRAIN_BATCH, "microbatches": micro, "remat": "full",
                 "steps": TRAIN_STEPS, "lr": TRAIN_LR},
         params=n_params, n_flop_params=cfg.n_flop_params(), init_s=t_init,
-        plain=plain, compressed=comp,
+        plain=plain, compressed=comp, sharded=sharded,
         microbatch_check={**micro_check, "loss_tolerance": TRAIN_MICRO_TOL, "grad_norm_rtol": TRAIN_MICRO_GNORM_RTOL,
                           "moment_rtol": TRAIN_MICRO_MOMENT_RTOL},
         card_vs_cpu={"card_losses": on_card.losses, "cpu_losses": on_cpu.losses, "loss_max_rel": loss_rel,

@@ -277,7 +277,11 @@ def decode_leaf(
 
 def _snapshot(leaf):
     """A copy the caller's in-place updates cannot reach: a clone on the
-    tensor's own device, or a numpy copy."""
+    tensor's own device, or a numpy copy.  A DTensor is gathered whole
+    (``full_tensor()``, a collective every rank of its mesh joins), so a
+    sharded state writes the bytes of the same state unsharded."""
+    if hasattr(leaf, "full_tensor"):
+        return leaf.full_tensor().detach()
     if isinstance(leaf, torch.Tensor):
         return leaf.detach().clone()
     return np.array(leaf, copy=True)

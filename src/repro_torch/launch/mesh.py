@@ -6,9 +6,9 @@ run: NCCL on the card, gloo on the CPU.  The process group comes from the
 ``MASTER_PORT``); without it, a mesh of one device opens a one-rank group
 on an in-process store.  Nothing here runs at import.
 
-The reference's ``make_production_mesh`` (16x16 chips a pod, a ``model``
-axis of 16) needs tensor parallelism, which is slice 11d of the port
-(``ROADMAP.md``).
+:func:`make_production_mesh` is the reference's: 16 x 16 devices a pod
+(``data`` x ``model``), two pods (``pod`` x ``data`` x ``model``) when
+``multi_pod``, over as many processes.
 """
 from __future__ import annotations
 
@@ -52,11 +52,18 @@ def make_debug_mesh(shape: Sequence[int] = (1, 1), axes: Sequence[str] = ("data"
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
     _init_process_group("nccl" if dev.type == "cuda" else "gloo", n)
     if dist.get_world_size() != n:
-        raise ValueError(f"a mesh of shape {shape} needs {n} processes, this run has {dist.get_world_size()}")
+        raise ValueError(f"a mesh of shape {shape} needs {n} processes, this run has {dist.get_world_size()}: "
+                         f"run under torchrun --nproc-per-node {n}")
     return init_device_mesh(dev.type, shape, mesh_dim_names=axes)
 
 
-def make_production_mesh(*, multi_pod: bool = False):
-    raise NotImplementedError(
-        "the production mesh (a 'model' axis of 16 for tensor parallelism) is slice 11d of the port (ROADMAP.md)"
-    )
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """16x16 = 256 devices a pod; 2 pods = 512 when ``multi_pod``: a
+    ``DeviceMesh`` over this run's processes (``torchrun`` with that many),
+    on ``device`` (``"cuda"`` by default)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    if dist.is_initialized() and dist.get_world_size() != math.prod(shape):
+        raise ValueError(f"the production mesh {shape} needs {math.prod(shape)} processes, this run has "
+                         f"{dist.get_world_size()}: run under torchrun with --nnodes/--nproc-per-node to match")
+    return make_debug_mesh(shape, axes, device=device)

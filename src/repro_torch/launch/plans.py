@@ -3,12 +3,23 @@
 The reference's tables are kept here as they are: the per-arch
 gradient-accumulation microbatches of a ``train`` cell, and the archs that
 shard the sequence, compress moments or hold an int8 KV cache.
-:func:`make_cell_plan` builds FSDP and tensor-parallel plans over a
-production mesh, which is slice 11d of the port (``ROADMAP.md``).
+:func:`make_cell_plan` is the reference's policy:
+
+  * train: FSDP over ``data`` (replicas over ``pod``), full remat, the
+    per-arch microbatches; nemotron also shards the residual stream's
+    sequence over ``model`` and compresses its optimizer moments;
+  * decode: weights FSDP-sharded; nemotron's KV cache in int8;
+  * a cell whose batch does not divide the data-parallel size
+    (``long_500k``, batch 1) replicates the batch.
 """
 from __future__ import annotations
 
-from typing import Dict
+import math
+from typing import Any, Dict, Optional, Tuple
+
+from ..models.common import ModelConfig
+from ..optim import AdamWConfig
+from ..parallel.plan import ParallelPlan
 
 TRAIN_MICROBATCHES: Dict[str, int] = {
     "nemotron-4-340b": 16,
@@ -28,7 +39,44 @@ COMPRESS_MOMENTS = {"nemotron-4-340b"}
 KV_INT8_DECODE = {"nemotron-4-340b"}
 
 
-def make_cell_plan(*args, **kwargs):
-    raise NotImplementedError(
-        "per-cell plans (FSDP over 'data', tensor parallelism over 'model') are slice 11d of the port (ROADMAP.md)"
+def make_cell_plan(
+    arch: str,
+    cfg: ModelConfig,
+    cell,
+    mesh,
+    multi_pod: Optional[bool] = None,
+    overrides: Optional[Dict[str, Any]] = None,
+) -> Tuple[ParallelPlan, AdamWConfig]:
+    """The plan and optimizer config of one (arch x shape) cell on
+    ``mesh``; ``multi_pod`` defaults to whether the mesh has a ``pod``
+    axis."""
+    if multi_pod is None:
+        multi_pod = "pod" in mesh.mesh_dim_names
+    overrides = dict(overrides or {})
+    dp_axes = ("pod", "data") if multi_pod else ("data",)
+    names = mesh.mesh_dim_names
+    dp = math.prod(int(mesh.size(names.index(a))) for a in dp_axes)
+    batch_axes = dp_axes if cell.batch % dp == 0 else ()
+
+    opt = AdamWConfig(compress_moments=arch in COMPRESS_MOMENTS)
+    if "compress_moments" in overrides:
+        opt = opt._replace(compress_moments=overrides.pop("compress_moments"))
+
+    kw: Dict[str, Any] = dict(
+        mesh=mesh,
+        batch_axes=batch_axes,
+        model_axis="model",
+        fsdp_axes=("data",),
+        remat="full",
+        microbatches=1,
+        kv_cache_dtype="bf16",
     )
+    if cell.kind == "train":
+        kw["microbatches"] = TRAIN_MICROBATCHES.get(arch, 4)
+        if arch in SEQ_SHARD_TRAIN:
+            kw["seq_axes"] = ("model",)
+    elif cell.kind == "decode":
+        if arch in KV_INT8_DECODE:
+            kw["kv_cache_dtype"] = "int8"
+    kw.update(overrides)
+    return ParallelPlan(**kw), opt

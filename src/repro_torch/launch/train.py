@@ -7,7 +7,10 @@ data-parallel mesh (``--mesh data=N``, one process per device under
 ``torchrun``) with plain or compressed gradient reduction, plain or
 compressed AdamW moments, SZ3-compressed checkpoints every ``--ckpt-every``
 steps (two kept) with resume from the newest, the deterministic data
-pipeline and heartbeat monitoring.  As in the reference, ``--smoke`` is
+pipeline and heartbeat monitoring.  ``--mesh data=N,model=M`` (the
+reference's flag) trains sharded: tensor and expert parallelism over
+``model`` on a ``DeviceMesh`` of N x M processes, the state's leaves
+DTensors (``train/step.py``).  As in the reference, ``--smoke`` is
 on whatever the command line says, so :func:`main` always trains the
 reduced config; :func:`train` is the body for a caller that brings its own
 config (a full one) or state.
@@ -15,8 +18,11 @@ config (a full one) or state.
 Every step ends in a device sync; its host seconds go to the
 ``sz3_train_step_seconds`` histogram.  On the card, bf16 products
 accumulate in float32 for the run (``models.common.float32_bf16_reductions``).
-With a mesh, rank 0 prints and writes the checkpoints, and the feedback
-shards are gathered into the reference's one vector to be saved.
+With a mesh, rank 0 prints and writes the checkpoints: the state's
+DTensors are gathered whole leaf by leaf onto it (the feedback shards into
+the reference's one vector), so the checkpoint is the one the same state
+without a mesh would write; a resume decodes it on every rank and keeps
+each rank's pieces.
 """
 from __future__ import annotations
 
@@ -39,7 +45,8 @@ from ..ft import CheckpointManager, CheckpointPolicy, HeartbeatMonitor
 from ..models.common import ModelConfig, float32_bf16_reductions
 from ..optim import AdamWConfig
 from ..parallel import ParallelPlan
-from ..train.step import init_train_state, make_train_step
+from ..parallel import specs as sp
+from ..train.step import init_train_state, make_train_step, state_specs
 
 DEFAULT_CKPT_DIR = os.path.join(tempfile.gettempdir(), "repro_torch_launch_train")
 
@@ -58,8 +65,8 @@ def main(argv=None) -> None:
     ap.add_argument("--ckpt-every", type=int, default=10)
     ap.add_argument("--compress-moments", action="store_true")
     ap.add_argument("--mesh", default="",
-                    help="mesh shape as data=N; needs N processes, one per device "
-                         "(torchrun --nproc-per-node N)")
+                    help="mesh shape as data=N[,model=M]; needs N*M processes, one per device "
+                         "(torchrun --nproc-per-node N*M)")
     ap.add_argument("--compress-grads", default="", metavar="POLICY",
                     help="error-bounded DP gradient reduction: a jitmode "
                          "policy spec ('int8', 'int4:bs=256', "
@@ -116,15 +123,24 @@ def _say(*a) -> None:
         print(*a, flush=True)
 
 
-def _saved_view(state, plan: ParallelPlan):
-    """The state as the reference lays it out on disk: with dp > 1 the
-    ranks' feedback shards gathered into one vector (a collective)."""
-    if "feedback" not in state or plan.dp == 1:
-        return state
-    fb = state["feedback"]
-    whole = torch.empty(plan.dp * fb.numel(), dtype=fb.dtype, device=fb.device)
-    dist.all_gather_into_tensor(whole, fb, group=plan.dp_group())
-    return {**state, "feedback": whole}
+def _world() -> bool:
+    return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def _saved_view(state):
+    """The state as the reference lays it out on disk, whole: on a mesh
+    each DTensor leaf is gathered in turn (a collective every rank joins;
+    the feedback shards into one vector), and only rank 0, which writes
+    the checkpoint, keeps the gathered leaves (None elsewhere)."""
+    keep = _is_rank0()
+    flat, treedef = tree_util.flatten_with_path(state)
+    out = []
+    for _, t in flat:
+        if sp.is_dtensor(t):
+            whole = t.full_tensor()  # every rank joins the gather
+            t = whole if keep else None
+        out.append(t)
+    return tree_util.unflatten(treedef, out)
 
 
 def _newest_step(mgr: CheckpointManager, plan: ParallelPlan) -> Optional[int]:
@@ -132,22 +148,21 @@ def _newest_step(mgr: CheckpointManager, plan: ParallelPlan) -> Optional[int]:
     from the same one), or None."""
     steps = mgr.list_steps()
     newest = [steps[-1] if steps else None]
-    if plan.dp > 1:
-        dist.broadcast_object_list(newest, group=plan.dp_group(), group_src=0)
+    if plan.mesh is not None and _world():
+        dist.broadcast_object_list(newest, src=0)
     return newest[0]
 
 
-def _resume(mgr: CheckpointManager, step: int, state, plan: ParallelPlan):
-    """Checkpoint ``step`` written into ``state``'s tensors in place;
-    returns its ``next_step``."""
-    view = _saved_view(state, plan)
-    host, extra = mgr.restore(view, step)
+def _resume(mgr: CheckpointManager, step: int, state, plan: ParallelPlan, specs):
+    """Checkpoint ``step`` written into ``state``'s tensors in place (on a
+    mesh each rank's pieces, cut by ``specs``); returns its ``next_step``."""
+    flat, treedef = tree_util.flatten_with_path(state)
+    shapes = tree_util.unflatten(treedef, [torch.empty(t.shape, dtype=t.dtype, device="meta") for _, t in flat])
+    host, extra = mgr.restore(shapes, step)
+    whole = dict(tree_util.flatten_with_path(host)[0])
     with torch.no_grad():
-        for (path, dst), (_, src) in zip(tree_util.flatten_with_path(view)[0], tree_util.flatten_with_path(host)[0]):
-            if path == "feedback" and plan.dp > 1:
-                src = src.reshape(plan.dp, -1)[plan.dp_rank]
-                dst = state["feedback"]
-            dst.copy_(src)
+        for path, dst, spec in sp.spec_leaves(state, specs):
+            sp.local(dst).copy_(sp.shard_local(whole[path], spec, plan))
     return int(extra.get("next_step", 0))
 
 
@@ -189,7 +204,7 @@ def train(
     start = 0
     newest = _newest_step(mgr, plan)
     if newest is not None:
-        start = _resume(mgr, newest, state, plan)
+        start = _resume(mgr, newest, state, plan, state_specs(state, cfg, plan, opt))
         _say(f"resumed at step {start}")
 
     step_fn = make_train_step(cfg, plan, opt, total_steps=steps)
@@ -211,12 +226,12 @@ def train(
             if k % 5 == 0 or k == steps - 1:
                 _say(f"step {k:4d} loss={loss:.4f} ({batch * seq / dt:,.0f} tok/s)")
             if (k + 1) % ckpt_every == 0:
-                view = _saved_view(state, plan)
+                view = _saved_view(state)
                 if _is_rank0():
                     mgr.save(k + 1, view, extra={"next_step": k + 1})
     mgr.wait()
-    if plan.dp > 1:  # rank 0's checkpoints are on disk for every rank
-        dist.barrier(group=plan.dp_group())
+    if plan.mesh is not None and _world():  # rank 0's checkpoints are on disk for every rank
+        dist.barrier()
     _say("done; checkpoints:", mgr.list_steps())
     return TrainResult(state, start, losses, norms, seconds, batch * seq, mgr.list_steps())
 

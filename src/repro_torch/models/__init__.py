@@ -4,9 +4,16 @@ All six families of the JAX package (``repro/models``) run here: the dense,
 VLM, MoE, SSM and hybrid decoders (``models/lm.py``, a
 :class:`DecoderLM`) and the encoder-decoder (``models/encdec.py``, an
 :class:`EncoderDecoder`).  Entry points run on the card unless given
-``device="cpu"``.  Parameters are made under ``torch.no_grad()`` and do not
-require grad; the trainer (``repro_torch.train.step``) turns gradients on
-for what it trains.
+``device="cpu"`` (``device="meta"`` draws the tree's shapes only).
+Parameters are made under ``torch.no_grad()`` and do not require grad; the
+trainer (``repro_torch.train.step``) turns gradients on for what it trains.
+
+On a plan with a mesh the entry points take the parameters whole on every
+rank or as DTensors in ``param_specs`` placements, and run on this rank's
+view of them (``parallel.specs.model_local``); ``local=True`` says the
+tree is that view already (the train step's ``parallel.specs.fsdp_view``,
+whose stacked layer leaves the layer loop gathers).  The batch is this
+rank's rows.
 """
 from __future__ import annotations
 
@@ -34,6 +41,10 @@ def init_params(key: Key, cfg: ModelConfig, plan: ParallelPlan, device=None) -> 
 
     if isinstance(key, torch.Generator):
         gen = key
+    elif device is not None and torch.device(device).type == "meta":
+        from .layers import MetaGenerator
+
+        gen = MetaGenerator()
     else:
         gen = torch.Generator(device=resolve_device(device)).manual_seed(int(key))
     with torch.no_grad():
@@ -42,10 +53,20 @@ def init_params(key: Key, cfg: ModelConfig, plan: ParallelPlan, device=None) -> 
         return DecoderLM(cfg, plan, _lm.init_lm(gen, cfg, plan))
 
 
+def _view(params, cfg: ModelConfig, plan: ParallelPlan, local: bool):
+    if local or plan.mesh is None:
+        return params
+    from ..parallel.specs import model_local
+
+    return model_local(params, cfg, plan)
+
+
 def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, plan: ParallelPlan,
-            attn_mode: str = "blocked") -> torch.Tensor:
+            attn_mode: str = "blocked", local: bool = False) -> torch.Tensor:
     """The training loss (float32 scalar) of ``batch`` (``tokens`` or
-    ``embeds``, ``enc_frames`` for the encoder-decoder, and ``labels``)."""
+    ``embeds``, ``enc_frames`` for the encoder-decoder, and ``labels``).
+    On a mesh: the loss of this rank's rows, equal over the model axis."""
+    params = _view(params, cfg, plan, local)
     if cfg.family == "encdec":
         return _encdec.encdec_loss(params, batch, cfg, plan, attn_mode)
     _lm._check_family(cfg)
@@ -53,37 +74,50 @@ def loss_fn(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, plan: Para
 
 
 def prefill_logits(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, plan: ParallelPlan,
-                   attn_mode: str = "blocked") -> torch.Tensor:
+                   attn_mode: str = "blocked", local: bool = False) -> torch.Tensor:
     """Inference prefill: forward to the final hidden state, then the
     last position's logits (B, vocab) float32."""
-    params = _lm.param_tree(params)
+    params = _view(_lm.param_tree(params), cfg, plan, local)
     if cfg.family == "encdec":
         enc_out = _encdec.encode(params, batch["enc_frames"], cfg, plan)
         hidden = _encdec.decode_train(params, batch["tokens"], enc_out, cfg, plan, attn_mode)
     else:
         if "embeds" in batch:
-            x = plan.act_btd(batch["embeds"].to(cfg.param_dtype))
+            x = plan.act_btd(plan.to_stream(batch["embeds"].to(cfg.param_dtype)))
         else:
             x = _lm.embed_tokens(params, batch["tokens"], cfg, plan)
         hidden, _ = _lm.lm_backbone(params, x, cfg, plan, attn_mode)
-    w = _lm.unembed_matrix(params, cfg)
-    logits = (hidden[:, -1:, :] @ w).to(torch.float32)
-    return logits[:, 0, : cfg.vocab]
+    return _lm.full_logits(hidden[:, -1:, :], _lm.unembed_matrix(params, cfg), cfg, plan)[:, 0]
 
 
 def init_cache(params, cfg: ModelConfig, plan: ParallelPlan, batch: int, max_len: int,
                enc_frames=None) -> Union[DecodeCache, EncDecCache]:
-    """An empty decode cache on the model's device; the encoder-decoder's
-    runs the encoder over ``enc_frames`` (B, enc_seq, d) for the cross
-    K/V."""
+    """An empty decode cache on the model's device, whole (every rank of a
+    mesh holds all of it; ``serve.step.jit_serve_step`` places it); the
+    encoder-decoder's runs the encoder over ``enc_frames`` (B, enc_seq, d)
+    for the cross K/V."""
     if cfg.family == "encdec":
         with torch.no_grad():
-            return _encdec.init_encdec_cache(params, enc_frames, cfg, plan, batch, max_len)
-    device = _lm.param_tree(params)["embed"].device
+            cache = _encdec.init_encdec_cache(_view(params, cfg, plan, False), enc_frames, cfg, plan, batch,
+                                              max_len)
+        if plan.tp > 1:
+            from ..parallel import comm
+            from ..parallel.specs import heads_shardable
+
+            if heads_shardable(cfg, plan):  # this rank's heads, gathered
+                cache.cross_k = comm.all_gather(cache.cross_k, 3, plan.tp_groups)
+                cache.cross_v = comm.all_gather(cache.cross_v, 3, plan.tp_groups)
+        return cache
+    embed = _lm.param_tree(params)["embed"]
+    device = (embed.to_local() if hasattr(embed, "to_local") else embed).device
     return _lm.init_decode_cache(cfg, plan, batch, max_len, device=device)
 
 
-def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan):
+def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan, local: bool = False):
+    """One decode step (``lm_decode_step`` or ``encdec_decode_step``): the
+    cache's tensors are this rank's view, as ``serve.step.jit_serve_step``
+    gives them."""
+    params = _view(params, cfg, plan, local)
     if cfg.family == "encdec":
         return _encdec.encdec_decode_step(params, cache, tokens, cfg, plan)
     return _lm.lm_decode_step(params, cache, tokens, cfg, plan)

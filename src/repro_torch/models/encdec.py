@@ -40,7 +40,9 @@ from .lm import (
     _scan_blocks,
     _stack_init,
     chunked_xent,
+    decode_plan,
     embed_tokens,
+    full_logits,
     init_decode_cache,
     param_tree,
     unembed_matrix,
@@ -85,16 +87,16 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan,
            attn_mode: str = "scan") -> torch.Tensor:
     """frames: (B, enc_seq, d) stub embeddings -> encoder hidden states."""
     params = param_tree(params)
-    x = plan.act_btd(frames.to(cfg.param_dtype))
+    x = plan.act_btd(plan.to_stream(frames.to(cfg.param_dtype)))
 
     def block(p, h):
-        hh = apply_norm(p["ln1"], h)
+        hh = apply_norm(p["ln1"], plan.seq_gather(h))
         h = h + attention_block(p["attn"], hh, cfg, plan, causal=False, attn_mode=attn_mode)
-        hh = apply_norm(p["ln2"], h)
+        hh = apply_norm(p["ln2"], plan.seq_gather(h))
         return h + apply_mlp(p["mlp"], hh, cfg, plan), torch.zeros((), dtype=torch.float32, device=h.device)
 
     x, _ = _scan_blocks(x, params["enc_blocks"], range(cfg.n_enc_layers), block, plan)
-    return apply_norm(params["enc_norm"], x)
+    return apply_norm(params["enc_norm"], plan.seq_gather(x))
 
 
 def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan,
@@ -105,15 +107,15 @@ def decode_train(params, tokens: torch.Tensor, enc_out: torch.Tensor, cfg: Model
     x = embed_tokens(params, tokens, cfg, plan)
 
     def block(p, h):
-        hh = apply_norm(p["ln1"], h)
+        hh = apply_norm(p["ln1"], plan.seq_gather(h))
         h = h + attention_block(p["self_attn"], hh, cfg, plan, causal=True, attn_mode=attn_mode)
-        hh = apply_norm(p["lnx"], h)
+        hh = apply_norm(p["lnx"], plan.seq_gather(h))
         h = h + attention_block(p["cross_attn"], hh, cfg, plan, causal=False, attn_mode="scan", kv_from=enc_out)
-        hh = apply_norm(p["ln2"], h)
+        hh = apply_norm(p["ln2"], plan.seq_gather(h))
         return h + apply_mlp(p["mlp"], hh, cfg, plan), torch.zeros((), dtype=torch.float32, device=h.device)
 
     x, _ = _scan_blocks(x, params["dec_blocks"], range(cfg.n_layers), block, plan)
-    return apply_norm(params["final_norm"], x)
+    return apply_norm(params["final_norm"], plan.seq_gather(x))
 
 
 def encdec_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, plan: ParallelPlan,
@@ -168,17 +170,18 @@ def init_encdec_cache(params, enc_frames: torch.Tensor, cfg: ModelConfig, plan: 
                       max_len: int) -> EncDecCache:
     """Prefill: run the encoder and precompute every layer's cross K/V."""
     params = param_tree(params)
+    plan = decode_plan(plan)
     enc_out = encode(params, enc_frames, cfg, plan)
-    dims = attn_dims(cfg, plan)
+    hd = attn_dims(cfg, plan).hd
     B, Se, _ = enc_out.shape
     ks, vs = [], []
     for i in range(cfg.n_layers):
         p = _layer(params["dec_blocks"], i)["cross_attn"]
-        k = (enc_out @ p["wk"]).reshape(B, Se, dims.n_kv, dims.hd)
-        v = (enc_out @ p["wv"]).reshape(B, Se, dims.n_kv, dims.hd)
+        k = (enc_out @ p["wk"]).reshape(B, Se, -1, hd)  # this rank's heads, where they shard
+        v = (enc_out @ p["wv"]).reshape(B, Se, -1, hd)
         if "bk" in p:
-            k = k + p["bk"].reshape(1, 1, dims.n_kv, dims.hd)
-            v = v + p["bv"].reshape(1, 1, dims.n_kv, dims.hd)
+            k = k + p["bk"].reshape(1, 1, -1, hd)
+            v = v + p["bv"].reshape(1, 1, -1, hd)
         ks.append(k)
         vs.append(v)
     sc = init_decode_cache(dataclasses.replace(cfg, family="dense"), plan, batch, max_len, device=enc_out.device)
@@ -190,7 +193,11 @@ def encdec_decode_step(params, cache: EncDecCache, tokens: torch.Tensor, cfg: Mo
     """One serve step of the decoder: self-attention against the ring cache
     (updated in place), dense cross-attention over the cached encoder K/V.
     Returns the logits (B, vocab) float32 and the same cache, advanced."""
+    from ..parallel.specs import heads_shardable
+
     params = param_tree(params)
+    plan = decode_plan(plan)
+    shardable = heads_shardable(cfg, plan)
     B = tokens.shape[0]
     h = embed_tokens(params, tokens, cfg, plan)
     sc = cache.self_cache
@@ -207,19 +214,20 @@ def encdec_decode_step(params, cache: EncDecCache, tokens: torch.Tensor, cfg: Mo
         h = h + o
         # cross attention (dense over the encoder frames), float32
         hn = apply_norm(lp["lnx"], h)
+        if shardable:
+            hn = plan.tp_enter(hn)
         xp = lp["cross_attn"]
-        q = (hn @ xp["wq"]).reshape(B, 1, dims.n_q, dims.hd)
+        q = (hn @ xp["wq"]).reshape(B, 1, -1, dims.hd)
         if "bq" in xp:
-            q = q + xp["bq"].reshape(1, 1, dims.n_q, dims.hd)
-        qg = q.reshape(B, dims.n_kv, dims.group, dims.hd).to(torch.float32) / math.sqrt(dims.hd)
+            q = q + xp["bq"].reshape(1, 1, -1, dims.hd)
+        qg = q.reshape(B, -1, dims.group, dims.hd).to(torch.float32) / math.sqrt(dims.hd)
         s = torch.einsum("bkgh,bskh->bkgs", qg, cache.cross_k[i].to(torch.float32))
         w = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgs,bskh->bkgh", w, cache.cross_v[i].to(torch.float32))
-        o = o.reshape(B, 1, dims.n_q * dims.hd).to(h.dtype)
-        h = h + o @ xp["wo"]
+        o = o.reshape(B, 1, -1).to(h.dtype)
+        h = h + plan.tp_project(o, xp["wo"], shardable)
         h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h), cfg, plan)
     sc.pos = new_pos
     sc.length = length + 1
     h = apply_norm(params["final_norm"], h)
-    logits = (h @ unembed_matrix(params, cfg)).to(torch.float32)
-    return logits[:, 0, : cfg.vocab], cache
+    return full_logits(h, unembed_matrix(params, cfg), cfg, plan)[:, 0], cache

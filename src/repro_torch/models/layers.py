@@ -34,13 +34,27 @@ Params = Dict[str, torch.Tensor]
 # initialization helpers
 # ---------------------------------------------------------------------------
 
+class MetaGenerator:
+    """Stands in for a ``torch.Generator`` to draw a parameter tree on the
+    meta device: shapes and dtypes, no storage, no draws."""
+
+    device = torch.device("meta")
+
+
+def draw(fn, shape, gen, **kw) -> torch.Tensor:
+    """``fn`` (``torch.randn`` or ``torch.rand``) of ``shape`` from ``gen``
+    on its device, float32; an empty meta tensor for a :class:`MetaGenerator`."""
+    if isinstance(gen, MetaGenerator):
+        return torch.empty(shape, dtype=torch.float32, device="meta")
+    return fn(shape, generator=gen, device=gen.device, dtype=torch.float32, **kw)
+
+
 def dense_init(gen: torch.Generator, shape, dtype: torch.dtype, scale: Optional[float] = None) -> torch.Tensor:
     """Normal draws times ``scale`` (default 1/sqrt(fan_in), fan_in =
     ``shape[0]``), made in float32 on the generator's device, then cast."""
     fan_in = shape[0] if len(shape) >= 1 else 1
     s = scale if scale is not None else 1.0 / math.sqrt(max(1, fan_in))
-    x = torch.randn(shape, generator=gen, device=gen.device, dtype=torch.float32)
-    return (x * s).to(dtype)
+    return (draw(torch.randn, shape, gen) * s).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -260,26 +274,29 @@ def attention_block(
     from ..parallel.specs import heads_shardable
 
     B, S, d = x.shape
-    dims = attn_dims(cfg, plan)
+    hd = attn_dims(cfg, plan).hd
+    shardable = heads_shardable(cfg, plan)
+    if shardable:  # this rank's heads (all of them without TP)
+        x = plan.tp_enter(x)
+        kv_from = None if kv_from is None else plan.tp_enter(kv_from)
     src = x if kv_from is None else kv_from
     q = x @ p["wq"]
     k = src @ p["wk"]
     v = src @ p["wv"]
     if "bq" in p:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    q = q.reshape(B, S, dims.n_q, dims.hd)
-    k = k.reshape(B, src.shape[1], dims.n_kv, dims.hd)
-    v = v.reshape(B, src.shape[1], dims.n_kv, dims.hd)
-    q = plan.act_heads(q)
+    q = q.reshape(B, S, -1, hd)
+    k = k.reshape(B, src.shape[1], -1, hd)
+    v = v.reshape(B, src.shape[1], -1, hd)
+    q = plan.act_heads(q, shardable)
     if positions is None:
         positions = torch.arange(S, device=x.device)[None, :]
     if kv_from is None:  # self-attention: rotary on q and k
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
     out = attention_core(q, k, v, causal=causal, window=window, mode=attn_mode, out_dtype=x.dtype)
-    out = out.reshape(B, S, dims.n_q * dims.hd)
-    proj = plan.tp_project(out, p["wo"], shardable=heads_shardable(cfg, plan))
-    return plan.act_btd(proj)
+    out = out.reshape(B, S, -1)
+    return plan.act_btd(plan.tp_project(out, p["wo"], shardable=shardable))
 
 
 # ---------------------------------------------------------------------------
@@ -298,6 +315,9 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None)
 
 
 def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan) -> torch.Tensor:
+    """Column-parallel ``w1``/``w3`` and row-parallel ``w2`` under tensor
+    parallelism (this rank's hidden units)."""
+    x = plan.tp_enter(x)
     h = x @ p["w1"]
     if cfg.mlp_act == "swiglu":
         h = F.silu(h) * (x @ p["w3"])

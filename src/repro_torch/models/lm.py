@@ -50,11 +50,13 @@ import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from .. import tree as tree_util
 from ..kernels.kvquant.ops import kv_quantize, kv_quantize_append
+from ..parallel import comm
 from ..parallel.plan import ParallelPlan
 from .common import ModelConfig
 from .layers import (
@@ -153,9 +155,9 @@ def _init_ssm_block(gen: torch.Generator, cfg: ModelConfig):
 
 def _attn_block(p, x, cfg, plan, attn_mode, moe: bool):
     x = plan.grad_barrier(x)
-    h = apply_norm(p["ln1"], x)
+    h = apply_norm(p["ln1"], plan.seq_gather(x))
     x = x + attention_block(p["attn"], h, cfg, plan, causal=True, window=cfg.sliding_window, attn_mode=attn_mode)
-    h = apply_norm(p["ln2"], x)
+    h = apply_norm(p["ln2"], plan.seq_gather(x))
     if moe:
         y, aux = apply_moe(p["moe"], h, cfg, plan)
         return x + y, aux
@@ -164,7 +166,7 @@ def _attn_block(p, x, cfg, plan, attn_mode, moe: bool):
 
 def _ssm_block(p, x, cfg, plan):
     x = plan.grad_barrier(x)
-    h = apply_norm(p["ln"], x)
+    h = apply_norm(p["ln"], plan.seq_gather(x))
     return x + apply_mamba2(p["ssm"], h, cfg, plan), torch.zeros((), dtype=torch.float32, device=x.device)
 
 
@@ -172,7 +174,8 @@ def _ssm_block(p, x, cfg, plan):
 #: reference's ``dots_with_no_batch_dims_saveable``): a weight product
 #: ``(B, S, d) @ (d, f)`` runs as one ``mm`` or ``addmm``, while attention's
 #: einsums run as ``bmm``, which is recomputed
-_SAVEABLE_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_SAVEABLE_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default) + (
+    (torch.ops.aten.mm.dtype,) if hasattr(torch.ops.aten.mm, "dtype") else ())  # tp_project's bf16 product
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -201,8 +204,10 @@ def _maybe_remat(fn, plan: ParallelPlan):
 
 def _scan_blocks(x, stacked, layers, block_fn, plan: ParallelPlan):
     """The reference's ``lax.scan`` over stacked layers, as a loop over the
-    indices ``layers``: layer ``i`` sees views of the stacked leaves."""
-    fn = _maybe_remat(block_fn, plan)
+    indices ``layers``: layer ``i`` sees views of the stacked leaves, a
+    leaf held as this rank's shard (``comm.Sharded``, the train step's
+    FSDP view) gathered inside the layer, under its remat."""
+    fn = _maybe_remat(lambda p, h: block_fn(comm.gathered(p), h), plan)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i in layers:
         x, aux_i = fn(_layer(stacked, i), x)
@@ -252,7 +257,7 @@ def lm_backbone(
             aux_total = aux_total + aux
     else:
         raise ValueError(cfg.family)
-    return apply_norm(params["final_norm"], x), aux_total
+    return apply_norm(params["final_norm"], plan.seq_gather(x)), aux_total
 
 
 # ---------------------------------------------------------------------------
@@ -260,11 +265,23 @@ def lm_backbone(
 # ---------------------------------------------------------------------------
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan) -> torch.Tensor:
-    """The embedding rows of ``tokens``.  ``F.embedding``, not indexing: the
-    backward of ``embed[tokens]`` accumulates repeated tokens' rows in an
-    order that changes from call to call on the CPU, while the embedding's
-    backward sums them in a fixed order, so a step is reproducible."""
-    return plan.act_btd(torch.nn.functional.embedding(tokens.long(), params["embed"]))
+    """The embedding rows of ``tokens``, in the stream's layout.
+    ``F.embedding``, not indexing: the backward of ``embed[tokens]``
+    accumulates repeated tokens' rows in an order that changes from call to
+    call on the CPU, while the embedding's backward sums them in a fixed
+    order, so a step is reproducible.
+
+    Vocab-parallel under tensor parallelism: this rank holds rows
+    ``[r * V / tp, (r + 1) * V / tp)``; ids outside them look up row 0 and
+    are zeroed, and the ranks' partial embeddings are summed."""
+    w = params["embed"]
+    if plan.tp == 1:
+        return plan.act_btd(plan.to_stream(torch.nn.functional.embedding(tokens.long(), w)))
+    ids = tokens.long() - plan.tp_rank * w.shape[0]
+    mine = (ids >= 0) & (ids < w.shape[0])
+    e = torch.nn.functional.embedding(torch.where(mine, ids, 0), w)
+    e = torch.where(mine[..., None], e, torch.zeros((), dtype=e.dtype, device=e.device))
+    return plan.act_btd(plan.reduce_to_stream(e))
 
 
 def unembed_matrix(params, cfg: ModelConfig) -> torch.Tensor:
@@ -288,21 +305,47 @@ def chunked_xent(
     c = min(chunk, S)
     if S % c:
         raise ValueError(f"sequence length {S} is not a multiple of the loss chunk {c}")
+    hidden = plan.tp_enter(hidden)
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.int32, device=hidden.device)
     for i in range(S // c):
         h = hidden[:, i * c : (i + 1) * c]
         y = labels[:, i * c : (i + 1) * c]
         logits = (h @ w_unembed).to(torch.float32)
-        logits = plan.constrain(logits, plan.ps(plan.b, None, plan.model_axis))
         mask = (y >= 0) & (y < cfg.vocab)
-        ysafe = torch.where(mask, y, 0).long()
-        lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, ysafe[..., None])[..., 0]
+        if plan.tp == 1:
+            lse = torch.logsumexp(logits, dim=-1)
+            gold = torch.gather(logits, -1, torch.where(mask, y, 0).long()[..., None])[..., 0]
+        else:
+            lse, gold = _vocab_parallel_lse_gold(logits, y, mask, plan)
         nll = torch.where(mask, lse - gold, 0.0)
         tot = tot + nll.sum()
         cnt = cnt + mask.sum(dtype=torch.int32)
     return tot / torch.clamp_min(cnt, 1)
+
+
+def _vocab_parallel_lse_gold(logits: torch.Tensor, y: torch.Tensor, mask: torch.Tensor, plan: ParallelPlan):
+    """Log-sum-exp and gold logit over the vocabulary when each rank of the
+    model axis holds its columns of the logits: the max over the ranks
+    (no gradient), the sum of exponentials and the gold column summed over
+    them."""
+    g = plan.tp_groups
+    v_loc = logits.shape[-1]
+    top = comm.all_reduce(logits.detach().amax(dim=-1), g, op=dist.ReduceOp.MAX)
+    sumexp = comm.reduce_from(torch.exp(logits - top[..., None]).sum(-1), g)
+    lse = top + torch.log(sumexp)
+    col = y.long() - plan.tp_rank * v_loc
+    mine = mask & (col >= 0) & (col < v_loc)
+    gold = torch.gather(logits, -1, torch.where(mine, col, 0)[..., None])[..., 0]
+    gold = comm.reduce_from(torch.where(mine, gold, 0.0), g)
+    return lse, gold
+
+
+def full_logits(h: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan) -> torch.Tensor:
+    """``h @ w`` in float32 over the real vocabulary: under tensor
+    parallelism each rank's columns gathered over the model axis."""
+    logits = comm.all_gather((h @ w).to(torch.float32), -1 % h.ndim, plan.tp_groups)
+    return logits[..., : cfg.vocab]
 
 
 def lm_loss(
@@ -318,7 +361,7 @@ def lm_loss(
     times the blocks' auxiliary loss."""
     params = param_tree(params)
     if "embeds" in batch:  # vlm / stubbed-frontend path
-        x = plan.act_btd(batch["embeds"].to(cfg.param_dtype))
+        x = plan.act_btd(plan.to_stream(batch["embeds"].to(cfg.param_dtype)))
     else:
         x = embed_tokens(params, batch["tokens"], cfg, plan)
     hidden, aux = lm_backbone(params, x, cfg, plan, attn_mode)
@@ -449,6 +492,12 @@ def init_decode_cache(cfg: ModelConfig, plan: ParallelPlan, batch: int, max_len:
     return c
 
 
+def decode_plan(plan: ParallelPlan) -> ParallelPlan:
+    """The plan a decode step runs under: one token a sequence leaves no
+    sequence to shard."""
+    return dataclasses.replace(plan, seq_axes=()) if plan.seq_axes else plan
+
+
 def _quantize_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-token-per-head int8 (the paper's linear-scaling quantizer, radius
     127): x (..., hd) -> (codes int8 (..., hd), scale float32 (...)).
@@ -472,16 +521,22 @@ def _decode_attn(p, x, layer_cache, length, pos_slot, cfg: ModelConfig, plan: Pa
     and head by ``kv_quantize_append`` (what two :func:`_quantize_token`
     calls and four ``index_copy_`` would write).  Returns the output and
     (k, v, k_scale, v_scale, new_pos)."""
+    from ..parallel.specs import heads_shardable
+
     B = x.shape[0]
     dims = attn_dims(cfg, plan)
+    hd = dims.hd
+    shardable = heads_shardable(cfg, plan)
+    if shardable:  # this rank's heads, as its cache holds them
+        x = plan.tp_enter(x)
     k_c, v_c, ks_c, vs_c, pos_c = layer_cache
-    q = (x @ p["wq"]).reshape(B, 1, dims.n_q, dims.hd)
-    k = (x @ p["wk"]).reshape(B, 1, dims.n_kv, dims.hd)
-    v = (x @ p["wv"]).reshape(B, 1, dims.n_kv, dims.hd)
+    q = (x @ p["wq"]).reshape(B, 1, -1, hd)
+    k = (x @ p["wk"]).reshape(B, 1, -1, hd)
+    v = (x @ p["wv"]).reshape(B, 1, -1, hd)
     if "bq" in p:
-        q = q + p["bq"].reshape(1, 1, dims.n_q, dims.hd)
-        k = k + p["bk"].reshape(1, 1, dims.n_kv, dims.hd)
-        v = v + p["bv"].reshape(1, 1, dims.n_kv, dims.hd)
+        q = q + p["bq"].reshape(1, 1, -1, hd)
+        k = k + p["bk"].reshape(1, 1, -1, hd)
+        v = v + p["bv"].reshape(1, 1, -1, hd)
     posv = length.reshape(1, 1)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
@@ -501,13 +556,13 @@ def _decode_attn(p, x, layer_cache, length, pos_slot, cfg: ModelConfig, plan: Pa
     if cfg.sliding_window:
         valid &= (length - new_pos) < cfg.sliding_window
     G = dims.group
-    qg = (q.reshape(B, dims.n_kv, G, dims.hd).to(torch.float32) / math.sqrt(dims.hd)).to(kf.dtype)
+    qg = (q.reshape(B, -1, G, hd).to(torch.float32) / math.sqrt(hd)).to(kf.dtype)
     s = torch.einsum("bkgh,bwkh->bkgw", qg.to(torch.float32), kf.to(torch.float32))
     s = s.masked_fill(~valid[:, None, None, :], -1e30)
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgw,bwkh->bkgh", w.to(kf.dtype).to(torch.float32), vf.to(torch.float32))
-    o = o.reshape(B, 1, dims.n_q * dims.hd).to(x.dtype)
-    return o @ p["wo"], (k_c, v_c, ks_c, vs_c, new_pos)
+    o = o.reshape(B, 1, -1).to(x.dtype)
+    return plan.tp_project(o, p["wo"], shardable), (k_c, v_c, ks_c, vs_c, new_pos)
 
 
 def lm_decode_step(
@@ -524,6 +579,7 @@ def lm_decode_step(
     family's shared block reads and writes attention cache ``g`` at its
     ``g``-th application."""
     params = param_tree(params)
+    plan = decode_plan(plan)
     h = embed_tokens(params, tokens, cfg, plan)
     length = cache.length
     int8 = cache.k_scale is not None
@@ -572,5 +628,4 @@ def lm_decode_step(
     cache.pos = new_pos
     cache.length = length + 1
     h = apply_norm(params["final_norm"], h)
-    logits = (h @ unembed_matrix(params, cfg)).to(torch.float32)
-    return logits[:, 0, : cfg.vocab], cache
+    return full_logits(h, unembed_matrix(params, cfg), cfg, plan)[:, 0], cache

@@ -9,6 +9,12 @@ reference's order (not ``F.conv1d``).  ``dt`` goes through
 ``softplus(x) = logaddexp(x, 0)``, the reference's ``jax.nn.softplus``
 (``F.softplus`` switches to the identity above 20).  Decode is the O(1)
 recurrence on the (ssm, conv) state, the whole "cache" of an SSM layer.
+
+Tensor parallelism splits the heads over ``model``, as the reference's
+``xh`` constraint does: each rank runs the SSD scan on its heads, with the
+one group's B and C on every rank, the gated RMSnorm sums its mean square
+over the axis, and ``out_proj`` is row-parallel (:func:`_tp_view`).  Heads
+that do not divide the axis run whole on every rank.
 """
 from __future__ import annotations
 
@@ -18,9 +24,10 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import comm
 from ..parallel.plan import ParallelPlan
 from .common import ModelConfig
-from .layers import apply_norm, dense_init
+from .layers import apply_norm, dense_init, draw
 
 
 def init_mamba2(gen: torch.Generator, cfg: ModelConfig):
@@ -30,7 +37,7 @@ def init_mamba2(gen: torch.Generator, cfg: ModelConfig):
     dev = gen.device
     d_in_proj = 2 * di + 2 * G * N + H  # z, x, B, C, dt
     conv_dim = di + 2 * G * N
-    u = torch.rand((H,), generator=gen, device=dev, dtype=torch.float32)
+    u = draw(torch.rand, (H,), gen)
     dt = torch.exp(u * (math.log(0.1) - math.log(0.001)) + math.log(0.001))
     return {
         "in_proj": dense_init(gen, (d, d_in_proj), cfg.param_dtype),
@@ -110,30 +117,88 @@ def _ssd_chunk_scan(xh, Bc, Cc, dt, A, chunk: int):
     return torch.stack(ys, dim=1).reshape(Bsz, T, H, P), h
 
 
-def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig):
-    di, GN = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state
-    return torch.split(zxbcdt, [di, di, GN, GN, cfg.ssm_heads], dim=-1)
+#: the dim of each Mamba2 leaf that shards over the model axis (the
+#: reference's ``parallel/specs.py``)
+_TP_DIM = {"in_proj": -1, "out_proj": 0, "conv_w": -1, "conv_b": 0, "norm_w": 0, "dt_bias": 0, "A_log": 0, "D": 0}
+
+
+def _heads_local(cfg: ModelConfig, plan: ParallelPlan) -> bool:
+    return plan.tp > 1 and cfg.ssm_heads % plan.tp == 0
+
+
+def _tp_view(p, cfg: ModelConfig, plan: ParallelPlan):
+    """The block's parameters for this rank, and its head count.
+
+    Without tensor parallelism: ``p`` and all heads.  With heads that
+    divide the model axis: this rank's heads.  ``dt_bias``, ``A_log``,
+    ``D``, ``norm_w`` and ``out_proj`` hold them already; ``in_proj`` and
+    ``conv_w``/``conv_b`` are placed in contiguous pieces that cut across
+    the z/x/B/C/dt boundaries, so they are gathered over the axis (backward:
+    a reduce-scatter, every rank using the shared B and C columns) and this
+    rank's columns taken.  Otherwise every parameter is gathered (backward:
+    this rank's slice) and the block runs whole on every rank."""
+    if plan.tp == 1:
+        return p, cfg.ssm_heads
+    g = plan.tp_groups
+    if not _heads_local(cfg, plan):
+        return {k: comm.gather_from(v, _TP_DIM[k] % v.ndim, g) for k, v in p.items()}, cfg.ssm_heads
+    di, GN, P = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_head_dim
+    nh = cfg.ssm_heads // plan.tp
+    h0 = plan.tp_rank * nh
+    dev = p["in_proj"].device
+
+    def ar(lo, n):
+        return torch.arange(lo, lo + n, device=dev)
+
+    xs = ar(h0 * P, nh * P)
+    cols = torch.cat([xs, di + xs, ar(2 * di, 2 * GN), ar(2 * di + 2 * GN + h0, nh)])
+    chans = torch.cat([xs, ar(di, 2 * GN)])
+    view = dict(p)
+    view["in_proj"] = comm.gather_to(p["in_proj"], p["in_proj"].ndim - 1, g).index_select(-1, cols)
+    view["conv_w"] = comm.gather_to(p["conv_w"], p["conv_w"].ndim - 1, g).index_select(-1, chans)
+    view["conv_b"] = comm.gather_to(p["conv_b"], 0, g).index_select(0, chans)
+    return view, nh
+
+
+def _split_proj(zxbcdt: torch.Tensor, cfg: ModelConfig, nh: int):
+    dl, GN = nh * cfg.ssm_head_dim, cfg.ssm_groups * cfg.ssm_state
+    return torch.split(zxbcdt, [dl, dl, GN, GN, nh], dim=-1)
+
+
+def _gated_norm(y: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan) -> torch.Tensor:
+    """The RMSnorm over the whole inner width: with this rank's heads, the
+    mean square's sum is taken over the model axis."""
+    if not _heads_local(cfg, plan):
+        return apply_norm({"w": w}, y)
+    g = plan.tp_groups
+    xf = y.to(torch.float32)
+    ss = comm.copy_to(comm.reduce_from((xf * xf).sum(-1, keepdim=True), g), g)
+    return (xf * torch.rsqrt(ss / cfg.d_inner + 1e-6) * w.to(torch.float32)).to(y.dtype)
 
 
 def apply_mamba2(p, x: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan) -> torch.Tensor:
-    """x: (B, T, d) -> (B, T, d)."""
+    """x: (B, T, d) -> (B, T, d); under tensor parallelism on this rank's
+    heads (:func:`_tp_view`)."""
+    p, nh = _tp_view(p, cfg, plan)
+    local = _heads_local(cfg, plan)
+    if local:
+        x = plan.tp_enter(x)
     B, T, d = x.shape
-    di, G, N, H, P = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
-    z, xs, Bc, Cc, dt = _split_proj(x @ p["in_proj"], cfg)
+    G, N, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    z, xs, Bc, Cc, dt = _split_proj(x @ p["in_proj"], cfg, nh)
     conv_out, _ = _causal_conv(torch.cat([xs, Bc, Cc], dim=-1), p["conv_w"], p["conv_b"])
-    xs, Bc, Cc = torch.split(conv_out, [di, G * N, G * N], dim=-1)
+    xs, Bc, Cc = torch.split(conv_out, [nh * P, G * N, G * N], dim=-1)
     dt = softplus(dt.to(torch.float32) + p["dt_bias"])
     A = -torch.exp(p["A_log"])
-    xh = xs.reshape(B, T, H, P)
-    xh = plan.constrain(xh, plan.ps(plan.b, None, plan.model_axis, None))
+    xh = xs.reshape(B, T, nh, P)
     if G != 1:
         raise AssertionError("groups>1 not needed for assigned archs")
     y, _ = _ssd_chunk_scan(xh, Bc, Cc, dt, A, cfg.ssm_chunk)
     y = y + xh.to(torch.float32) * p["D"][None, None, :, None]
-    y = y.reshape(B, T, di)
+    y = y.reshape(B, T, nh * P)
     y = y * F.silu(z.to(torch.float32))
-    y = apply_norm({"w": p["norm_w"]}, y.to(x.dtype))
-    return plan.act_btd(y @ p["out_proj"])
+    y = _gated_norm(y.to(x.dtype), p["norm_w"], cfg, plan)
+    return plan.act_btd(plan.tp_project(y, p["out_proj"], shardable=local))
 
 
 def mamba2_decode_step(
@@ -143,24 +208,36 @@ def mamba2_decode_step(
     cfg: ModelConfig,
     plan: ParallelPlan,
 ):
-    """One token through the recurrence: returns (y (B, 1, d), (ssm, conv))."""
+    """One token through the recurrence: returns (y (B, 1, d), (ssm, conv)).
+    Under tensor parallelism with this rank's heads, ``ssm`` holds them and
+    ``conv`` is whole (this rank's channels taken from it, and the other
+    ranks' gathered back into the new state)."""
+    p, nh = _tp_view(p, cfg, plan)
+    local = _heads_local(cfg, plan)
     B = x.shape[0]
-    di, G, N, H, P = cfg.d_inner, cfg.ssm_groups, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    G, N, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
+    dl = nh * P
     h_prev, conv_state = state
-    z, xs, Bc, Cc, dt = _split_proj(x @ p["in_proj"], cfg)
+    if local:
+        x = plan.tp_enter(x)
+        h0 = plan.tp_rank * dl
+        conv_state = torch.cat([conv_state[..., h0 : h0 + dl], conv_state[..., cfg.d_inner :]], dim=-1)
+    z, xs, Bc, Cc, dt = _split_proj(x @ p["in_proj"], cfg, nh)
     conv_out, conv_state = _causal_conv(torch.cat([xs, Bc, Cc], dim=-1), p["conv_w"], p["conv_b"], conv_state)
-    xs, Bc, Cc = torch.split(conv_out, [di, G * N, G * N], dim=-1)
+    if local:
+        conv_state = torch.cat([comm.all_gather(conv_state[..., :dl], -1, plan.tp_groups), conv_state[..., dl:]], -1)
+    xs, Bc, Cc = torch.split(conv_out, [dl, G * N, G * N], dim=-1)
     dt = softplus(dt.to(torch.float32) + p["dt_bias"])[:, 0]  # (B,H)
     A = -torch.exp(p["A_log"])
     a = torch.exp(dt * A[None, :])  # (B,H)
-    xh = xs.reshape(B, H, P).to(torch.float32)
+    xh = xs.reshape(B, nh, P).to(torch.float32)
     bk = Bc.reshape(B, N).to(torch.float32)
     ck = Cc.reshape(B, N).to(torch.float32)
     h_new = h_prev * a[:, :, None, None] + torch.einsum("bn,bhp,bh->bhpn", bk, xh, dt)
     y = torch.einsum("bn,bhpn->bhp", ck, h_new) + xh * p["D"][None, :, None]
-    y = y.reshape(B, 1, di) * F.silu(z.to(torch.float32))
-    y = apply_norm({"w": p["norm_w"]}, y.to(x.dtype))
-    return y @ p["out_proj"], (h_new, conv_state)
+    y = y.reshape(B, 1, dl) * F.silu(z.to(torch.float32))
+    y = _gated_norm(y.to(x.dtype), p["norm_w"], cfg, plan)
+    return plan.tp_project(y, p["out_proj"], shardable=local), (h_new, conv_state)
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, device=None):

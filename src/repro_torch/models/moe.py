@@ -15,8 +15,16 @@ token's slots in ascending order, and the partial outputs are added in
 that order, each add rounded to the model dtype (``index_add_`` on the card
 adds through atomics, in no fixed order).
 
-Expert parallelism (experts sharded over a ``model`` mesh axis, the
-reference's ``shard_map`` path) is slice 11d of the port (``ROADMAP.md``).
+Expert parallelism (the reference's ``shard_map`` path): on a mesh with a
+``model`` axis of ``tp`` ranks, rank ``r`` holds experts ``[r * E / tp,
+(r + 1) * E / tp)``.  Tokens are replicated over the axis (they are after
+the attention's reduction), every rank routes all of them the same way,
+takes the assignments to its own experts at the capacity of its local
+token count (this data-parallel rank's rows, as the reference's shard
+does), runs its experts and combines their outputs; the ranks' partial
+combines are summed over the axis in the model dtype.  The shared experts
+are column/row-parallel like the dense MLP.  ``aux`` is averaged over the
+batch axes (it is equal over the model axis already).
 """
 from __future__ import annotations
 
@@ -26,6 +34,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..parallel import comm
 from ..parallel.plan import ParallelPlan
 from .common import ModelConfig
 from .layers import dense_init
@@ -122,8 +131,13 @@ def _combine(ye: torch.Tensor, token_row: torch.Tensor, T: int, top_k: int) -> t
     return y
 
 
-def _moe_local(x, router, w1, w3, w2, *, top_k: int, n_experts: int):
-    """x (T, d) -> (y (T, d), aux, dropped share), all experts local."""
+def _moe_local(x, router, w1, w3, w2, *, top_k: int, n_experts: int, plan: ParallelPlan = None):
+    """x (T, d) -> (y (T, d), aux, dropped share) over this rank's
+    ``E_loc = w1.shape[0]`` experts: all of them without expert
+    parallelism, else ``plan``'s model-axis rank's, whose partial combine
+    the caller sums over the axis.  On a mesh with a model axis the
+    expert-parallel dispatch runs at any size of the axis (at size 1 its
+    discard bucket stays empty)."""
     T, d = x.shape
     E = w1.shape[0]
     probs, gates, idx = _route(x, router, top_k)
@@ -136,6 +150,11 @@ def _moe_local(x, router, w1, w3, w2, *, top_k: int, n_experts: int):
     aux = n_experts * torch.sum(me * (counts / (T * top_k)))
 
     C = capacity(T, top_k, n_experts)
+    if plan is not None and plan.present((plan.model_axis,)):
+        # expert parallel: other ranks' assignments go to a discard bucket E
+        e0 = plan.tp_rank * E
+        idx = torch.where((idx >= e0) & (idx < e0 + E), idx - e0, E)
+        gates, x = plan.tp_enter(gates), plan.tp_enter(x)
     token_row, gate_val, keep = _dispatch(idx, gates, E, C)
     xp = torch.cat([x, x.new_zeros((1, d))], dim=0)
     gx = xp[token_row].reshape(E, C, d)
@@ -150,17 +169,16 @@ def _moe_local(x, router, w1, w3, w2, *, top_k: int, n_experts: int):
 def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss).  Capacity and drops are per call over
     its B·S tokens."""
-    if plan.mesh is not None and plan.model_axis in plan.mesh.mesh_dim_names:
-        raise NotImplementedError(
-            "expert parallelism over a mesh's model axis is slice 11d of the port (ROADMAP.md)"
-        )
     B, S, d = x.shape
     y, aux, _ = _moe_local(x.reshape(B * S, d), p["router"], p["w1"], p["w3"], p["w2"],
-                           top_k=cfg.top_k, n_experts=cfg.n_experts)
-    y = y.reshape(B, S, d)
+                           top_k=cfg.top_k, n_experts=cfg.n_experts, plan=plan)
+    y = plan.to_stream(comm.reduce_from(y.reshape(B, S, d), plan.tp_groups))
+    if plan.mesh is not None:
+        aux = comm.mean_from(aux, plan.dp_groups())
     if "shared" in p:
         sh = p["shared"]
-        h = x @ sh["w1"]
-        h = (F.silu(h) * (x @ sh["w3"])).to(x.dtype)
-        y = y + h @ sh["w2"]
+        xs = plan.tp_enter(x)
+        h = xs @ sh["w1"]
+        h = (F.silu(h) * (xs @ sh["w3"])).to(x.dtype)
+        y = y + plan.tp_project(h, sh["w2"])
     return y, aux

@@ -61,11 +61,17 @@ def init_state(params, cfg: AdamWConfig) -> Dict[str, Any]:
     }
 
 
-def _global_norm(tree) -> torch.Tensor:
+def _global_norm(tree, reduce=None) -> torch.Tensor:
+    """The L2 norm over every leaf.  ``reduce`` maps the leaves' sums of
+    squares (this rank's, in leaf order) to the whole tree's, for a tree of
+    shards (``train/step.py``)."""
     leaves, _ = tree_util.flatten(tree)
+    sums = [torch.sum(g.to(torch.float32) ** 2) for g in leaves]
+    if reduce is not None:
+        sums = reduce(sums)
     total = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
-    for g in leaves:  # (0 + s_0) + s_1 + ..., the reference's reduce order
-        total = total + torch.sum(g.to(torch.float32) ** 2)
+    for s in sums:  # (0 + s_0) + s_1 + ..., the reference's reduce order
+        total = total + s
     return torch.sqrt(total)
 
 
@@ -73,11 +79,12 @@ def _scalar(v: float, like: torch.Tensor) -> torch.Tensor:
     return torch.tensor(v, dtype=torch.float32, device=like.device)
 
 
-def _leaf_update(grads, state, cfg: AdamWConfig, lr_scale):
+def leaf_update(grads, state, cfg: AdamWConfig, lr_scale, reduce=None):
     """The step's shared scalars and the per-leaf update
-    ``upd(p, g, m, v) -> (p_new, m_new, v_new)``."""
+    ``upd(p, g, m, v) -> (p_new, m_new, v_new)``; ``reduce`` as for
+    :func:`_global_norm`."""
     step = state["step"] + 1
-    gnorm = _global_norm(grads)
+    gnorm = _global_norm(grads, reduce)
     # tensor / tensor: torch computes ``float / tensor`` as a reciprocal
     # times the float
     clip = torch.clamp_max(_scalar(cfg.grad_clip, gnorm) / torch.clamp_min(gnorm, 1e-12), 1.0)
@@ -117,7 +124,7 @@ def _flat(params, grads, state):
 
 def update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     """Returns (new_params, new_state, metrics)."""
-    step, gnorm, upd = _leaf_update(grads, state, cfg, lr_scale)
+    step, gnorm, upd = leaf_update(grads, state, cfg, lr_scale)
     flat_p, treedef, (flat_g, flat_m, flat_v) = _flat(params, grads, state)
     out = [upd(p, g, m, v) for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v)]
     new_params = tree_util.unflatten(treedef, [o[0] for o in out])
@@ -126,30 +133,12 @@ def update(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
     return new_params, {"m": new_m, "v": new_v, "step": step}, {"grad_norm": gnorm}
 
 
-def _write_(dst, src) -> None:
+def write_(dst, src) -> None:
     if isinstance(dst, oc.Compressed):
         for name in dst.ARRAYS:
             getattr(dst, name).copy_(getattr(src, name))
     else:
         dst.copy_(src)
-
-
-@torch.no_grad()
-def update_(params, grads, state, cfg: AdamWConfig, lr_scale=1.0):
-    """:func:`update` in place: each parameter and moment is overwritten by
-    its new value leaf by leaf (so one leaf's temporaries live at a time,
-    not a second copy of the state), and ``state["step"]`` advances.  The
-    values are :func:`update`'s bit for bit.  Returns the metrics."""
-    step, gnorm, upd = _leaf_update(grads, state, cfg, lr_scale)
-    flat_p, _, (flat_g, flat_m, flat_v) = _flat(params, grads, state)
-    for p, g, m, v in zip(flat_p, flat_g, flat_m, flat_v):
-        p_new, m_new, v_new = upd(p, g, m, v)
-        p.copy_(p_new)
-        _write_(m, m_new)
-        _write_(v, v_new)
-        del p_new, m_new, v_new
-    state["step"].copy_(step)
-    return {"grad_norm": gnorm}
 
 
 # ---------------------------------------------------------------------------

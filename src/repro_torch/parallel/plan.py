@@ -4,22 +4,32 @@ The JAX package's plan (``repro/parallel/plan.py``) places every tensor on
 a ``jax.sharding.Mesh`` with three axes (``pod``, ``data``, ``model``) and
 threads through the model code, where each sharding decision goes through
 :meth:`ParallelPlan.ps` and :meth:`ParallelPlan.constrain`.  Here ``mesh``
-is ``None`` (one device) or a ``torch.distributed`` ``DeviceMesh`` for data
-parallelism: every rank holds the whole model and its rows of the batch,
-and the train step reduces the gradients over the group of the batch axis
-(:meth:`ParallelPlan.dp_group`).  On such a mesh every constraint is the
-identity, as it is without one, and :meth:`ParallelPlan.tp_project` is the
-plain product.
+is ``None`` (one device) or a ``torch.distributed`` ``DeviceMesh`` with one
+process per device, and the model code runs on each rank's local shards:
 
-Tensor parallelism (a ``model`` axis above 1), FSDP (``fsdp_axes``),
-sequence parallelism (``seq_axes``), ``manual_tp_psum`` and
-``decode_feature_shard`` on a mesh are slice 11d of the port
-(``ROADMAP.md``) and raise ``NotImplementedError``.  Without a mesh those
-fields change nothing, as in the reference.
+  * the batch splits over ``batch_axes`` (each rank takes its rows);
+  * ``model`` (tensor and expert parallelism): attention heads, the MLP's
+    hidden width, MoE experts and the vocabulary split over the axis.  A
+    column-parallel product's input passes :func:`comm.copy_to`, a
+    row-parallel product's partial sums are all-reduced
+    (:meth:`tp_project`), the embedding and the loss are vocab-parallel;
+  * ``fsdp_axes``: the train step's model gathers each parameter over
+    these axes where it uses it, a layer's weights inside its layer, and
+    the gather's backward reduce-scatters the gradient
+    (``parallel.specs.fsdp_view``, ``train/step.py``);
+  * ``seq_axes`` (sequence parallelism over the model axis): between
+    blocks the residual stream holds this rank's slice of the sequence; a
+    block gathers it at entry (:meth:`seq_gather`) and its output
+    projection reduce-scatters instead of all-reducing.
+
+Every collective goes through :mod:`.comm`, which pairs it with its
+conjugate in backward.  On a group of one rank each is the identity, so a
+mesh whose axes have size 1 computes what one device does, op for op.
+``constrain`` stays the identity: the layouts are explicit.
 
 ``bwd_cast_bf16`` rounds the cotangent flowing backward through each block
-entry and each ``act_btd`` constraint to bf16 (:class:`_Bf16GradBarrier`),
-with or without a mesh, as the reference's ``custom_vjp`` does.
+entry and each ``act_btd`` point to bf16 (:class:`_Bf16GradBarrier`), with
+or without a mesh, as the reference's ``custom_vjp`` does.
 """
 from __future__ import annotations
 
@@ -28,6 +38,8 @@ import math
 from typing import Any, Optional, Tuple
 
 import torch
+
+from . import comm
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,31 +60,22 @@ class ParallelPlan:
     # boundaries -> backward TP all-reduces run at half width
     grad_accum_dtype: str = "float32"  # bf16 halves the per-microbatch
     # gradient reduce-scatter wire bytes (and the accumulator memory)
-    manual_tp_psum: bool = False  # explicit bf16 TP reductions (mesh only)
+    manual_tp_psum: bool = False  # reduce row-parallel partial products in
+    # the model dtype (without it: in float32, then cast)
     decode_feature_shard: bool = False  # shard the feature dim over the fsdp
-    # axis at decode (mesh only)
+    # axis at decode (weight-stationary in the reference; not implemented:
+    # refused with fsdp_axes)
 
     def __post_init__(self):
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {self.kv_cache_dtype!r}")
         if self.remat not in ("none", "full", "dots"):
             raise ValueError(f"remat must be 'none', 'full' or 'dots', got {self.remat!r}")
-        if self.mesh is None:
-            return
-        sharded = [f"a '{self.model_axis}' axis of {self.tp}"] if self.tp > 1 else []
-        sharded += [name for name in ("fsdp_axes", "seq_axes", "manual_tp_psum", "decode_feature_shard")
-                    if getattr(self, name)]
-        present = [a for a in self.batch_axes if a in self.mesh.mesh_dim_names and self.axis_size(a) > 1]
-        if len(present) > 1:
-            sharded.append(f"data parallelism over {len(present)} axes {tuple(present)}")
-        others = [a for a in self.mesh.mesh_dim_names
-                  if a not in self.batch_axes and a != self.model_axis and self.axis_size(a) > 1]
-        sharded += [f"a mesh axis '{a}' of {self.axis_size(a)} outside the batch axes" for a in others]
-        if sharded:
+        if self.decode_feature_shard and self.fsdp_axes:
             raise NotImplementedError(
-                "sharded training (" + ", ".join(sharded) + ") is slice 11d of the port (ROADMAP.md): "
-                "this port runs data parallelism on a DeviceMesh whose model axis has size 1"
-            )
+                "decode_feature_shard (the weight-stationary decode, the residual stream's features sharded "
+                "over the FSDP axes) is not implemented: leave it off, and the decode gathers the weights "
+                "over the FSDP axes each step")
 
     def grad_compression(self):
         """The resolved gradient-compression JitPolicy, or None when off."""
@@ -96,33 +99,63 @@ class ParallelPlan:
     def dp(self) -> int:
         return math.prod(self.axis_size(a) for a in self.batch_axes)
 
-    def _dp_axis(self) -> Optional[str]:
-        """The mesh axis the batch is split over (one at most, see
-        ``__post_init__``), or None without one."""
+    def present(self, axes) -> Tuple[str, ...]:
+        """The axes of ``axes`` that this plan's mesh has."""
         if self.mesh is None:
-            return None
-        axes = [a for a in self.batch_axes if a in self.mesh.mesh_dim_names]
-        big = [a for a in axes if self.axis_size(a) > 1]
-        return (big or axes or [None])[0]
+            return ()
+        return tuple(a for a in axes if a in self.mesh.mesh_dim_names)
+
+    def groups(self, axes) -> list:
+        """The process groups of the mesh axes ``axes`` (a name or a tuple of
+        names, major first) that this mesh has."""
+        if isinstance(axes, str):
+            axes = (axes,)
+        return [self.mesh.get_group(a) for a in self.present(axes or ())]
+
+    def axis_rank(self, axes) -> int:
+        """This process's coordinate on ``axes`` (major first)."""
+        if isinstance(axes, str):
+            axes = (axes,)
+        r = 0
+        for a in self.present(axes or ()):
+            r = r * self.axis_size(a) + int(self.mesh.get_local_rank(a))
+        return r
+
+    @property
+    def tp_groups(self) -> list:
+        return self.groups(self.model_axis) if self.tp > 1 else []
+
+    @property
+    def tp_rank(self) -> int:
+        return self.axis_rank(self.model_axis) if self.model_axis else 0
+
+    def dp_groups(self) -> list:
+        """The process groups of the batch axes (their collectives run the
+        DP reduction)."""
+        return self.groups(self.batch_axes)
 
     def dp_group(self):
-        """The ``torch.distributed`` process group of the batch axis (its
-        collectives run the DP reduction)."""
-        axis = self._dp_axis()
-        if axis is None:
+        """The ``torch.distributed`` process group of the batch: one axis's
+        group, or one group over every batch axis of the mesh (flattened)."""
+        axes = self.present(self.batch_axes)
+        if not axes:
             raise ValueError("the data-parallel reduction needs a ParallelPlan with a mesh that has a batch axis")
-        return self.mesh.get_group(axis)
+        big = [a for a in axes if self.axis_size(a) > 1]
+        if len(big) <= 1:
+            return self.mesh.get_group((big or list(axes))[0])
+        return self.mesh[tuple(big)]._flatten().get_group()
 
     @property
     def dp_rank(self) -> int:
-        """This process's coordinate on the batch axis: it takes rows
+        """This process's coordinate on the batch axes: it takes rows
         ``[dp_rank * B / dp, (dp_rank + 1) * B / dp)`` of a global batch."""
-        axis = self._dp_axis()
-        return 0 if axis is None else int(self.mesh.get_local_rank(axis))
+        return self.axis_rank(self.batch_axes)
 
     def kv_repeat(self, n_kv: int, n_q: Optional[int] = None) -> int:
-        """Virtual KV-head duplication so kv-heads shard evenly over TP; 1
-        without tensor parallelism."""
+        """Virtual KV-head duplication so kv-heads shard evenly over TP
+        (GQA -> wider GQA; mathematically identical, standard TP practice).
+        Only applied when the duplicated head count still divides the query
+        heads (whisper's 12 heads on TP=16 stay unduplicated + unsharded)."""
         tp = self.tp
         if tp <= 1 or n_kv % tp == 0:
             return 1
@@ -144,15 +177,71 @@ class ParallelPlan:
             return ()
         return tuple(axes)
 
+    def placements(self, spec) -> list:
+        """The DTensor placements of ``spec`` on this plan's mesh: each
+        mesh axis named on a tensor dim is ``Shard(dim)``, every other axis
+        ``Replicate()``.  A tuple entry shards its dim over its axes major
+        to minor, which must be the mesh's order of them."""
+        from torch.distributed.tensor import Replicate, Shard
+
+        names = self.mesh.mesh_dim_names
+        out = [Replicate() for _ in names]
+        for dim, entry in enumerate(spec):
+            axes = (entry,) if isinstance(entry, str) else tuple(entry or ())
+            idx = [names.index(a) for a in axes if a in names]
+            if idx != sorted(idx):
+                raise ValueError(f"spec entry {entry!r} names mesh axes out of the mesh's order {names}")
+            for i in idx:
+                if not isinstance(out[i], Replicate):
+                    raise ValueError(f"mesh axis {names[i]!r} shards two dims of spec {spec!r}")
+                out[i] = Shard(dim)
+        return out
+
     def constrain(self, x: torch.Tensor, spec) -> torch.Tensor:
-        """The identity: without a mesh, and on a data-parallel mesh, where
-        every rank holds its activations whole."""
+        """The identity: the port's layouts are explicit (see the module
+        docstring)."""
         return x
+
+    # -- the residual stream's layout -----------------------------------------
+    def _seq_groups(self) -> list:
+        axes = self.present(self.seq_axes)
+        if not axes or all(self.axis_size(a) == 1 for a in axes):
+            return []
+        if len(axes) > 1 or axes[0] in self.batch_axes:
+            raise ValueError(f"sequence parallelism runs over one mesh axis outside the batch axes, got {axes}")
+        return self.groups(axes)
+
+    def _sp_over_model(self) -> bool:
+        return self.tp > 1 and self.present(self.seq_axes) == (self.model_axis,)
+
+    def seq_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The residual stream (B, S_local, d) whole along the sequence, for
+        the replicated compute of a block's entry (its norm)."""
+        return comm.gather_from(x, 1, self._seq_groups())
+
+    def to_stream(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated (B, S, d) activation in the stream's layout: this
+        rank's slice of the sequence under sequence parallelism."""
+        return comm.split_to(x, 1, self._seq_groups())
+
+    def reduce_to_stream(self, y: torch.Tensor) -> torch.Tensor:
+        """Partial sums over the model axis (B, S, d), summed into the
+        stream's layout: a reduce-scatter along the sequence under
+        sequence parallelism over the model axis, else an all-reduce."""
+        if self._sp_over_model():
+            return comm.scatter_from(y, 1, self.tp_groups)
+        return self.to_stream(comm.reduce_from(y, self.tp_groups))
+
+    def tp_enter(self, x: torch.Tensor) -> torch.Tensor:
+        """A replicated activation entering rank-specific compute (a
+        column-parallel product, this rank's experts): the identity, whose
+        backward sums the ranks' cotangents over the model axis."""
+        return comm.copy_to(x, self.tp_groups)
 
     # -- common activation constraints ---------------------------------------
     def act_btd(self, x: torch.Tensor) -> torch.Tensor:
-        """(batch, seq, d_model) activations."""
-        x = self.constrain(x, self.ps(self.b, None, None))
+        """(batch, seq, d_model) activations: already in the stream's layout
+        here; the bf16 cotangent barrier when ``bwd_cast_bf16``."""
         if self.bwd_cast_bf16:
             x = _bf16_grad_barrier(x)
         return x
@@ -165,12 +254,62 @@ class ParallelPlan:
         return x
 
     def tp_project(self, h: torch.Tensor, w: torch.Tensor, shardable: bool = True) -> torch.Tensor:
-        """Output projection ``h @ w`` (the reference's explicit TP psum is
-        slice 11d)."""
-        return h @ w
+        """Output projection ``h @ w`` into the stream's layout.
+
+        Under tensor parallelism with ``shardable``, ``h`` (..., F) holds
+        this rank's features and ``w`` (F, D) its rows: the local product's
+        partial sums are reduced over the model axis.  With
+        ``manual_tp_psum`` they are reduced in ``h.dtype`` (the reference's
+        explicit psum); without it the product keeps its float32
+        accumulator, which is reduced and then cast: what the reference's
+        partitioner does on the CPU.  Otherwise ``h @ w`` is whole on every
+        rank."""
+        if self.tp == 1 or not shardable:
+            return self.to_stream(h @ w)
+        if self.manual_tp_psum:
+            return self.reduce_to_stream(h @ w)
+        return self.reduce_to_stream(_float32_product(h, w)).to(h.dtype)
 
     def act_heads(self, x: torch.Tensor, shardable: bool = True) -> torch.Tensor:
-        return self.constrain(x, self.ps(self.b, None, self.model_axis if shardable else None, None))
+        """(batch, seq, heads, head_dim): this rank's heads where they
+        shard."""
+        return x
+
+
+class _Bf16ProductFloat32Out(torch.autograd.Function):
+    """``h @ w`` of 2-D bf16 operands with the float32 accumulator as the
+    output (cuBLAS's bf16 GEMM, ``mm`` with ``out_dtype``, which has no
+    derivative of its own).  Backward: bf16 GEMMs of the cotangent in
+    bf16, which is exact where the output is later cast to bf16, as in
+    :meth:`ParallelPlan.tp_project` (the cotangent is then a bf16 value)."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, ct):
+        h, w = ctx.saved_tensors
+        ct = ct.to(h.dtype)
+        dh = ct @ w.t() if ctx.needs_input_grad[0] else None
+        dw = h.t() @ ct if ctx.needs_input_grad[1] else None
+        return dh, dw
+
+
+def _float32_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``h @ w`` with its float32 accumulator as the output.  On the card
+    a bf16 product stays on the bf16 tensor-core path
+    (:class:`_Bf16ProductFloat32Out`); elsewhere, or where torch lacks
+    ``mm``'s ``out_dtype``, the operands are cast up, which gives the same
+    value: a product of two bf16 numbers is exact in float32, and both sum
+    in float32."""
+    if h.dtype == torch.float32 and w.dtype == torch.float32:
+        return h @ w
+    if h.is_cuda and h.dtype == w.dtype == torch.bfloat16 and hasattr(torch.ops.aten.mm, "dtype"):
+        y = _Bf16ProductFloat32Out.apply(h.reshape(-1, h.shape[-1]), w)
+        return y.reshape(*h.shape[:-1], w.shape[-1])
+    return torch.matmul(h.to(torch.float32), w.to(torch.float32))
 
 
 def single_device_plan(**kw) -> ParallelPlan:

@@ -1,12 +1,22 @@
-"""Serve-step factory: the single-token decode on one device.
+"""Serve-step factory: the single-token decode, on one device or a mesh.
 
 The JAX package's ``repro/serve/step.py`` jits the decode step with
 sharded (optionally int8) caches.  :func:`cache_specs` gives the
 reference's placement of each cache leaf (empty without a mesh), and
-:func:`jit_serve_step` returns the eager step: the port does not compile
-it (no ``torch.compile``).  The step runs
-under ``torch.no_grad`` and updates the cache in place (the reference
-donates it).
+:func:`jit_serve_step` returns the eager step (the port does not compile
+it; no ``torch.compile``).  The step runs under ``torch.no_grad`` and
+updates the cache in place (the reference donates it).
+
+On a mesh, :func:`jit_serve_step` holds the parameters in ``param_specs``
+placements and the cache in :func:`cache_specs` placements (DTensors;
+whole tensors given to it are placed at the first call).  Each step runs
+the model on this rank's rows and heads: attention K/V and the SSM
+state are this rank's heads; the conv state is gathered whole over the
+model axis for the step and cut back after it (``models/mamba2.py``).
+The logits come back whole on every rank.  The weights are gathered over
+the FSDP axes each step: the reference's weight-stationary decode
+(``decode_feature_shard``) is not implemented, and ``ParallelPlan``
+refuses it.
 """
 from __future__ import annotations
 
@@ -17,6 +27,7 @@ import torch
 from .. import models
 from .. import tree as tree_util
 from ..models.common import ModelConfig
+from ..models.lm import param_tree
 from ..parallel.plan import ParallelPlan
 from ..parallel.specs import heads_shardable
 
@@ -25,7 +36,7 @@ def cache_specs(cache, cfg: ModelConfig, plan: ParallelPlan):
     """The cache's structure with each leaf's spec (the reference's
     placements: batch over the DP axes, kv and ssm heads over the model
     axis where they divide it, ring and state dims whole).  Without a mesh
-    every spec is empty; the port serves on one device."""
+    every spec is empty."""
     b = plan.b
     m = plan.model_axis if heads_shardable(cfg, plan) else None
     ms = plan.model_axis  # ssm dims use their own divisibility
@@ -61,5 +72,73 @@ def make_serve_step(cfg: ModelConfig, plan: ParallelPlan):
     return serve_step
 
 
+#: cache leaves the step needs whole over the model axis: the conv state's
+#: channels are placed in pieces that cut across its x/B/C parts
+_WHOLE_OVER_MODEL = ("conv",)
+
+
+def _walk(fn, specs, *caches, name: str = ""):
+    """``fn(name, spec, *leaves)`` over the tensor fields of caches of one
+    structure (dataclasses nested), rebuilt as the first cache's
+    dataclasses."""
+    first = caches[0]
+    if dataclasses.is_dataclass(first):
+        return dataclasses.replace(first, **{
+            f.name: _walk(fn, getattr(specs, f.name), *(getattr(c, f.name) for c in caches), name=f.name)
+            for f in dataclasses.fields(first)})
+    return None if first is None else fn(name, specs, *caches)
+
+
 def jit_serve_step(serve_step, params, cache, cfg: ModelConfig, plan: ParallelPlan):
-    return serve_step
+    """The decode entry point: ``serve_step`` itself without a mesh; on a
+    mesh, a step ``(params, cache, tokens) -> (logits, cache)`` over the
+    parameters and cache in their placements (see the module docstring)
+    and the tokens whole or as a DTensor over the batch axes."""
+    if plan.mesh is None:
+        return serve_step
+    from ..parallel import comm
+    from ..parallel import specs as sp
+
+    pspecs = sp.param_specs(params, cfg, plan)
+    cspecs = cache_specs(cache, cfg, plan)
+    m = plan.model_axis
+
+    def place_params(ps):
+        tree = param_tree(ps)
+        flat = sp.spec_leaves(tree, pspecs)
+        if all(sp.is_dtensor(t) for _, t, _ in flat):
+            return tree
+        out = {p: (t if sp.is_dtensor(t) else sp.place(t, s, plan)) for p, t, s in flat}
+        return sp.map_paths(lambda path, _: out["/".join(path)], tree)
+
+    def place_cache(c):
+        return _walk(lambda _, s, t: t if sp.is_dtensor(t) else sp.place(t, s, plan), cspecs, c)
+
+    def view(name, spec, t):
+        local = t.to_local()
+        if name in _WHOLE_OVER_MODEL:
+            local = sp.gather_axes(local, tuple(e if e == m else None for e in spec), plan)
+        return local
+
+    def write_back(name, spec, dst, src):
+        local = dst.to_local()
+        if name in _WHOLE_OVER_MODEL:
+            src = sp.shard_local(src, tuple(e if e == m else None for e in spec), plan)
+        if src.data_ptr() != local.data_ptr():
+            local.copy_(src)
+
+    given, placed = params, place_params(params)
+
+    def step(params, cache, tokens):
+        params = placed if params is given else place_params(params)
+        cache = place_cache(cache)
+        local = _walk(view, cspecs, cache)
+        tok = tokens.to_local() if sp.is_dtensor(tokens) else comm.local_slice(tokens, 0, plan.dp_groups())
+        logits, out = serve_step(params, local, tok)
+        with torch.no_grad():
+            _walk(write_back, cspecs, cache, out)
+            logits = comm.all_gather(logits, 0, plan.dp_groups())
+        return logits, cache
+
+    return step
+

@@ -315,18 +315,6 @@ def test_capacity_and_the_deterministic_combine():
     assert y.dtype == torch.bfloat16 and y[:, 0].tolist() == [1.0, 3.0, 5.0]
 
 
-def test_moe_on_a_model_axis_raises_naming_slice_11d():
-    class _Mesh:
-        mesh_dim_names = ("data", "model")
-
-        def size(self, i):
-            return 1
-
-    cfg = t_configs.get_smoke("deepseek-moe-16b")
-    with pytest.raises(NotImplementedError, match="slice 11d"):
-        t_moe.apply_moe({}, torch.zeros(1, 1, cfg.d_model), cfg, TPlan(mesh=_Mesh()))
-
-
 # ---------------------------------------------------------------------------
 # the MoE int8 drift against the reference's (tools/moe_int8_drift.py)
 # ---------------------------------------------------------------------------

@@ -282,14 +282,17 @@ _DP2_WORKER = textwrap.dedent(r"""
             losses.append(float(m["loss"]))
         return losses
 
+    # on a mesh the state's leaves are DTensors: each rank compares its pieces
+    def pieces(state):
+        return [t.to_local() for t in tree_util.flatten(state["params"])[0] + [state["feedback"]]]
+
     result = {
         "base_losses": base.losses, "whole_losses": whole.losses, "resumed_start": resumed.start,
         "resumed_losses": resumed.losses, "traj_base": run(plain), "traj_comp": run(comp),
-        "same_resumed_state": all(torch.equal(a, b) for a, b in zip(
-            tree_util.flatten(whole.state["params"])[0] + [whole.state["feedback"]],
-            tree_util.flatten(resumed.state["params"])[0] + [resumed.state["feedback"]])),
+        "same_resumed_state": all(torch.equal(a, b) for a, b in zip(pieces(whole.state), pieces(resumed.state))),
     }
-    torch.save({k: v for k, v in tree_util.flatten_with_path(base.state["params"])[0]}, f"{out}/params{rank}.pt")
+    torch.save({k: v.to_local() for k, v in tree_util.flatten_with_path(base.state["params"])[0]},
+               f"{out}/params{rank}.pt")
     with open(f"{out}/result{rank}.json", "w") as f:
         json.dump(result, f)
 """)
@@ -341,7 +344,7 @@ def test_two_gloo_ranks_match_one_process_and_keep_the_compressed_trajectory(tmp
 
 
 # ---------------------------------------------------------------------------
-# the plans' tables, and what slice 11d brings
+# the plans' tables, and the mesh
 # ---------------------------------------------------------------------------
 
 @needs_reference
@@ -352,24 +355,6 @@ def test_plan_tables_equal_the_references():
 
     for name in ("TRAIN_MICROBATCHES", "SEQ_SHARD_TRAIN", "COMPRESS_MOMENTS", "KV_INT8_DECODE"):
         assert getattr(t_plans, name) == getattr(r_plans, name), name
-
-
-def _sharded_entry_points():
-    from repro_torch.launch import mesh, plans
-    from repro_torch.parallel import specs
-    from repro_torch.train import step
-
-    return {
-        "make_cell_plan": plans.make_cell_plan, "make_production_mesh": mesh.make_production_mesh,
-        "param_specs": specs.param_specs, "batch_specs": specs.batch_specs,
-        "state_specs": step.state_specs, "jit_train_step": step.jit_train_step,
-    }
-
-
-@pytest.mark.parametrize("name", sorted(_sharded_entry_points()))
-def test_sharded_training_raises_naming_slice_11d(name):
-    with pytest.raises(NotImplementedError, match="slice 11d"):
-        _sharded_entry_points()[name]()
 
 
 def test_a_mesh_needs_its_processes():

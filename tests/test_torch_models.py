@@ -487,13 +487,16 @@ class _Mesh:
 
 def test_training_and_meshes_raise_naming_their_slice():
     # dense training and data parallelism came with slice 11b, the other
-    # families with slice 11c; sharded training is slice 11d
-    with pytest.raises(NotImplementedError, match="slice 11d"):
-        TPlan(mesh=_Mesh(data=2, model=2))
-    with pytest.raises(NotImplementedError, match="slice 11d"):
-        TPlan(mesh=_Mesh(data=2, model=1), fsdp_axes=("data",))
-    with pytest.raises(NotImplementedError, match="slice 11d"):
-        TPlan(mesh=_Mesh(data=2), seq_axes=("data",))
+    # families with slice 11c, sharded training with slice 11d: the plans
+    # that raised before it now construct
+    plan = TPlan(mesh=_Mesh(data=2, model=2))
+    assert (plan.tp, plan.dp, plan.present(("data", "model")), plan.ps(plan.b, None, "model")) == \
+        (2, 2, ("data", "model"), ("data", None, "model"))
+    plan = TPlan(mesh=_Mesh(data=2, model=1), fsdp_axes=("data",))
+    assert (plan.tp, plan.dp, plan.fsdp_axes, plan.ps("model", "data")) == (1, 2, ("data",), ("model", "data"))
+    plan = TPlan(mesh=_Mesh(data=2), seq_axes=("data",))
+    assert (plan.tp, plan.dp, plan.seq_axes, plan.ps(plan.b, "data")) == (1, 2, ("data",), ("data", "data"))
+    assert TPlan(mesh=_Mesh(pod=2, data=4, model=2), batch_axes=("pod", "data")).dp == 8
     plan = TPlan(mesh=_Mesh(data=2, model=1), bwd_cast_bf16=True)
     assert (plan.dp, plan.tp, plan.ps("data", None)) == (2, 1, ("data", None))
 

@@ -428,6 +428,8 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.train.step, repro_torch.launch.serve, repro_torch.launch.train\n"
         "import repro_torch.launch.mesh\n"
         "import repro_torch.models.moe, repro_torch.models.mamba2, repro_torch.models.encdec\n"
+        "import repro_torch.parallel.comm, repro_torch.parallel.specs, repro_torch.launch.plans\n"
+        "import repro_torch.serve.step\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

@@ -235,7 +235,27 @@ Phases, one JSON line each:
    64 MB in the reference's leaf order (the leaf that does not fit cut to
    its leading layers) through ``offload_cache`` (chunked, strict verify),
    launches equal to the chunks routed to each kernel, every leaf decoded
-   on the card within its bound.
+   on the card within its bound;
+20. elastic restore (``elastic``, run right after ``checkpoint``): that
+   phase's sync checkpoint restored through ``ft.elastic.restore_resharded``
+   onto the card's elastic mesh ((1, 1), ``make_elastic_mesh``) under a plan
+   without FSDP, where the embedding's spec is (model, None): every leaf
+   bit-equal to the plain restore placed in its spec, every chunked leaf
+   whose spec shards nothing past dim 0 read by chunk range, decode-kernel
+   launches equal to the chunks routed to ``decode_1d``, ``decode_2d`` and
+   the transform's ``inv``, the rest as the plain restore's, seconds beside
+   the plain restore's; then ``ChunkRangeReader.rows`` over rows [n/4, n/2)
+   of the largest chunked leaf (an embedding moment, 151,936 x 1,024),
+   equal to the full decode's rows, reading about a quarter of its
+   container;
+21. dry run (``dryrun``): ``launch/dryrun.py`` in two CPU-only
+   subprocesses started before ``train`` and read after it, the CLI's
+   Qwen1.5-0.5B ``train_4k`` cell on a fake 16 x 16 group and the train
+   phase's own shapes (batch 8, seq 4096) on a fake (1, 1) mesh, whose
+   counted dot FLOPs must be within 1% of ``torch.profiler``'s
+   (``with_flops``) over one real step of ``train`` (the calls that
+   launched a kernel), its counted peak beside that phase's
+   ``max_memory_allocated`` and its compute term beside the step p50.
 
 Each main path must launch its kernels (the launch counters are zeroed just
 before the path and read just after; the chunked engine exactly once per
@@ -2770,13 +2790,16 @@ def _ckpt_plain_sample(manifest: dict, files: dict, leaves: dict) -> dict:
     return {"whole_leaves": sorted(by_codec.values()), "chunks": chunk_checks}
 
 
-def phase_checkpoint(seed: int, launches_total: dict) -> None:
+def phase_checkpoint(seed: int, launches_total: dict) -> dict:
     """Qwen1.5-0.5B's train state (2 layers) saved under the default policy,
     sync and async (params ``add_(1)`` in place after the async save
     returns), then restored onto the card from a meta-device template:
     lossless leaves bit for bit, lossy ones within their recorded bound,
     sampled blobs equal to the plain route's, launches equal to the chunks
-    routed to the Lorenzo kernels."""
+    routed to the Lorenzo kernels.  Returns what :func:`phase_elastic`
+    reuses: the sync checkpoint (its directory is the caller's to remove),
+    the template, the restored state and the restore's seconds and
+    launches."""
     import shutil
     import tempfile
 
@@ -2879,10 +2902,261 @@ def phase_checkpoint(seed: int, launches_total: dict) -> None:
                       if save_launches[k] + restore_launches[k]},
             expected_launches={k: v for k, v in expected.items() if v},
         )
-    finally:
+    except BaseException:
         shutil.rmtree(tmp, ignore_errors=True)
+        raise
     del state, saved, leaves
     torch.cuda.empty_cache()
+    return {"tmp": tmp, "dir": tmp / "sync", "template": template, "restored": restored, "restore_s": t_restore,
+            "restore_launches": restore_launches, "picks": picks}
+
+
+#: decode launches of a restore for each chunk (or whole lossy leaf) that
+#: takes its pipeline's kernel route: one decode of a Lorenzo chunk, one
+#: inverse product of a transform chunk (2-D: the checkpoint's leaves are
+#: stored as (rows, -1))
+_RESTORE_DECODES = {"sz3_lorenzo": {"decode_2d": 1}, "sz3_transform": {"transform_inv_2d": 1}}
+_RESTORE_DECODE_NAMES = ("decode_1d", "decode_2d", "transform_inv_2d")
+#: the quarter read's rows of the largest chunked leaf, and the share of its
+#: container it may read (its chunks hold 1024 rows each: about a quarter)
+ELASTIC_QUARTER = (1 / 4, 1 / 2)
+ELASTIC_QUARTER_FRAC = (0.2, 0.3)
+
+
+def _restore_decodes(picks) -> dict:
+    """Decode-kernel launches of one restore of chunks ``picks`` ((pipeline,
+    elements) each)."""
+    out = {name: 0 for name in _RESTORE_DECODE_NAMES}
+    for pipeline, n in picks:
+        if _takes_kernel_route(pipeline, n):
+            for name, k in _RESTORE_DECODES.get(pipeline, {}).items():
+                out[name] += k
+    return out
+
+
+def phase_elastic(ckpt: dict, launches_total: dict) -> None:
+    """The checkpoint phase's sync checkpoint restored through
+    ``ft.elastic.restore_resharded`` onto the card's elastic mesh (one
+    card: (1, 1), ``make_elastic_mesh``) under a plan without FSDP, where
+    the embedding's spec is (model, None): every leaf bit-equal to the
+    plain restore placed in its spec (``parallel.specs.place``), every
+    chunked leaf whose spec shards nothing past dim 0 read by chunk range,
+    decode-kernel launches equal to the chunks routed to each kernel, the
+    rest as the plain restore's; then ``ChunkRangeReader.rows`` over a
+    quarter of the rows of the largest chunked leaf, equal to the full
+    decode's rows, reading about a quarter of its container.  Removes the
+    checkpoint."""
+    import shutil
+
+    import torch.distributed as dist
+
+    import repro_torch.core as tc
+    from repro_torch import configs
+    from repro_torch import tree as tree_util
+    from repro_torch.ft import CheckpointManager
+    from repro_torch.ft.elastic import (_CHUNKED_CODECS, ChunkRangeReader, _axis0_only, make_elastic_mesh, replan,
+                                        restore_resharded)
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.parallel import ParallelPlan
+    from repro_torch.parallel import specs as sp
+    from repro_torch.train.step import state_specs
+
+    try:
+        cfg = dataclasses.replace(configs.get(TRAIN_ARCH), n_layers=CKPT_LAYERS)
+        step_dir = ckpt["dir"] / "step_1"
+        manifest = json.loads((step_dir / "manifest.json").read_text())
+        mesh = make_elastic_mesh(device="cuda")
+        plan = replan(cfg, ParallelPlan(batch_axes=("data",)), mesh)
+        if tuple(mesh.shape) != (1, 1) or plan.fsdp_axes or list(mesh.get_coordinate()) != [0, 0]:
+            raise AssertionError(f"elastic: the one-card mesh is {mesh}, the plan {plan}")
+        specs = state_specs(ckpt["template"], cfg, plan, AdamWConfig())
+        mgr = CheckpointManager(ckpt["dir"], use_async=False)
+        reset_all_launches()
+        (state, extra, report), t_elastic = _timed(lambda: restore_resharded(mgr, ckpt["template"], specs, plan))
+        launches = all_launches()
+        whole = dict(tree_util.flatten_with_path(ckpt["restored"])[0])
+        modes = collections.Counter()
+        for path, got in tree_util.flatten_with_path(state)[0]:
+            spec, meta = sp.spec_at(specs, path), manifest["leaves"][path]
+            want = sp.shard_local(whole[path], spec, plan)
+            if list(got.placements) != plan.placements(spec) or not same_bits(got.to_local(), want):
+                raise AssertionError(f"elastic: {path} differs from the plain restore placed as {spec}")
+            mode = report.leaves[path].mode
+            if meta["codec"] in _CHUNKED_CODECS and _axis0_only(spec, len(meta["shape"])) and mode != "chunk-range":
+                raise AssertionError(f"elastic: chunked leaf {path} under {spec} restored {mode}")
+            modes[(meta["codec"], mode)] += 1
+        embed = report.leaves["opt/m/embed"]
+        if sp.spec_at(specs, "opt/m/embed") != ("model", None) or embed.mode != "chunk-range":
+            raise AssertionError(f"elastic: the embedding's moment under {sp.spec_at(specs, 'opt/m/embed')}: {embed}")
+        expected = _restore_decodes(ckpt["picks"])
+        for name, want in expected.items():
+            if launches[name] != want:
+                raise AssertionError(f"elastic: kernel {name} launched {launches[name]} times, expected {want} for "
+                                     "the chunks routed to it")
+            launches_total[name] += launches[name]
+        others = {k: (v, ckpt["restore_launches"][k]) for k, v in launches.items()
+                  if k not in expected and v != ckpt["restore_launches"][k]}
+        if others:
+            raise AssertionError(f"elastic: launches other than the plain restore's: {others}")
+        del state
+
+        # the quarter read: rows [n/4, n/2) of the largest chunked leaf
+        big = max((math.prod(m["shape"]), p) for p, m in manifest["leaves"].items()
+                  if m["codec"] in _CHUNKED_CODECS)[1]
+        meta = manifest["leaves"][big]
+        blob = (step_dir / meta["file"]).read_bytes()
+        n = meta["shape"][0]
+        r0, r1 = int(n * ELASTIC_QUARTER[0]), int(n * ELASTIC_QUARTER[1])
+        reset_all_launches()
+        reader = ChunkRangeReader(blob, device="cuda")
+        rows, t_quarter = _timed(lambda: reader.rows(r0, r1))
+        q_launches = all_launches()
+        got = rows.reshape((r1 - r0,) + tuple(meta["shape"][1:])).to(whole[big].dtype)
+        if not same_bits(got, whole[big][r0:r1]):
+            raise AssertionError(f"elastic: rows [{r0}, {r1}) of {big} differ from the full decode's")
+        header = tc.parse_header(blob)[0]
+        inner = math.prod(meta["shape"][1:])
+        starts = reader.row_starts
+        read = [i for i in range(len(starts) - 1) if starts[i] < r1 and starts[i + 1] > r0]
+        q_expected = _restore_decodes([(header["chunks"][i]["pipeline"], header["chunks"][i]["n0"] * inner)
+                                       for i in read])
+        for name, want in q_expected.items():
+            if q_launches[name] != want:
+                raise AssertionError(f"elastic quarter read: kernel {name} launched {q_launches[name]} times, "
+                                     f"expected {want}")
+            launches_total[name] += q_launches[name]
+        frac = reader.bytes_read / len(blob)
+        if not ELASTIC_QUARTER_FRAC[0] <= frac <= ELASTIC_QUARTER_FRAC[1]:
+            raise AssertionError(f"elastic quarter read: read {frac} of the container")
+        emit(
+            "elastic qwen1.5-0.5b train state",
+            mesh={"shape": list(mesh.shape), "axes": list(mesh.mesh_dim_names)},
+            plan={"batch_axes": list(plan.batch_axes), "fsdp_axes": list(plan.fsdp_axes)},
+            leaves=len(report.leaves),
+            modes={f"{c} {m}": k for (c, m), k in sorted(modes.items())},
+            bit_equal_to_restore_and_place=True,
+            extra=extra,
+            summary=report.summary(),
+            bytes_read=report.bytes_read,
+            bytes_full=report.bytes_full,
+            restore_resharded_s=t_elastic,
+            plain_restore_s=ckpt["restore_s"],
+            over_plain=t_elastic / ckpt["restore_s"],
+            launches={k: v for k, v in launches.items() if v},
+            expected_decode_launches=expected,
+            quarter_read={"leaf": big, "rows": [r0, r1], "of_rows": n, "chunks_read": len(read),
+                          "chunks": len(starts) - 1, "bytes_read": reader.bytes_read, "bytes": len(blob),
+                          "fraction": frac, "seconds": t_quarter, "launches": {k: v for k, v in q_launches.items() if v},
+                          "equal_to_full_decode": True},
+        )
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(ckpt["tmp"], ignore_errors=True)
+        ckpt.clear()
+    torch.cuda.empty_cache()
+
+
+#: the dry run (``launch/dryrun.py``) in subprocesses, started before the
+#: train phase and read after it: the CLI's Qwen1.5-0.5B ``train_4k`` cell
+#: on the fake 16 x 16 group, and the train phase's own shapes (batch 8,
+#: seq 4096, the cell plan on a fake (1, 1) mesh), whose counted dot FLOPs
+#: are held against the profiler's over one real step of the train phase
+DRYRUN_TIMEOUT_S = 900
+DRYRUN_DOT_RTOL = 0.01
+_DRYRUN_ONE = """
+import json, sys
+from torch.distributed.device_mesh import init_device_mesh
+from repro_torch.launch import dryrun
+with dryrun.fake_world(1):
+    mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("data", "model"))
+    res = dryrun.analyze_cell(sys.argv[1], "train_4k", mesh, False, batch=int(sys.argv[2]))
+json.dump(res, open(sys.argv[3], "w"), indent=1)
+"""
+
+
+def start_dryrun() -> dict:
+    """Start the dry run's two cells, each a CPU-only subprocess (a fake
+    process group cannot share a process with the card's), writing under
+    ``chiprun_out/dryrun_torch``."""
+    import os
+    import shutil
+
+    out = ROOT / "chiprun_out" / "dryrun_torch"
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src"), "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "1"}
+    cmds = {
+        "16x16": [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", TRAIN_ARCH, "--shape", "train_4k",
+                  "--out", str(out), "--force"],
+        "1x1": [sys.executable, "-c", _DRYRUN_ONE, TRAIN_ARCH, str(TRAIN_BATCH), str(out / "1x1.json")],
+    }
+    procs = {}
+    for name, cmd in cmds.items():
+        with open(out / f"{name}.log", "w") as log:
+            procs[name] = subprocess.Popen(cmd, env=env, cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    return {"procs": procs, "out": out, "t0": time.perf_counter()}
+
+
+def stop_dryrun(run: dict) -> None:
+    for p in run.get("procs", {}).values():
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+
+
+def phase_dryrun(run: dict) -> None:
+    """Wait for the dry run's cells and check them: the CLI's JSON for the
+    16 x 16 cell, and the (1, 1) cell's dot FLOPs within ``DRYRUN_DOT_RTOL``
+    of the profiler's over one real step of the train phase (the profiled
+    dot calls that launched a kernel), its counted peak against that
+    phase's ``max_memory_allocated``, its compute term against the measured
+    step p50."""
+    t0 = time.perf_counter()
+    try:
+        for name, p in run["procs"].items():
+            rc = p.wait(timeout=max(1.0, DRYRUN_TIMEOUT_S - (time.perf_counter() - run["t0"])))
+            if rc != 0:
+                log = (run["out"] / f"{name}.log").read_text()[-3000:]
+                raise AssertionError(f"dryrun: the {name} cell exited {rc}:\n{log}")
+    finally:
+        stop_dryrun(run)
+    waited = time.perf_counter() - t0
+    out = run["out"]
+    cli = out / "single" / f"{TRAIN_ARCH}__train_4k.json"
+    if not cli.exists():
+        err = cli.with_suffix(".error.json")
+        raise AssertionError(f"dryrun: no {cli.name}: {err.read_text()[-3000:] if err.exists() else 'no error file'}")
+    big, one = json.loads(cli.read_text()), json.loads((out / "1x1.json").read_text())
+    for res in (big, one):
+        c = res["counted"]
+        if not (c["dot_flops_per_chip"] > 0 and c["dtensor_ops_skipped"] == 0 and res["plain_kernels"] == []):
+            raise AssertionError(f"dryrun: cell {res['mesh_shape']} counted {c}, plain kernels {res['plain_kernels']}")
+    train = RESULTS["train qwen1.5-0.5b"]["plain"]
+    prof = train["profiler_flops"]
+    counted = one["counted"]["dot_flops_per_chip"]
+    if isinstance(prof.get("executed_dot_flops"), str):
+        raise AssertionError(f"dryrun: the profiler gave no FLOPs: {prof}")
+    rel = abs(counted - prof["executed_dot_flops"]) / prof["executed_dot_flops"]
+    if not rel <= DRYRUN_DOT_RTOL:
+        raise AssertionError(f"dryrun: the (1, 1) cell counts {counted} dot FLOPs, the profiler "
+                             f"{prof['executed_dot_flops']} over a real step ({rel})")
+    peak_counted = one["memory_analysis"]["peak_memory_in_bytes"] / 1e9
+    emit(
+        "dryrun qwen1.5-0.5b train_4k",
+        cells={"16x16": {k: big[k] for k in ("chips", "mesh_shape", "batch", "plan", "timing", "memory_analysis",
+                                              "counted", "roofline")},
+               "1x1": {k: one[k] for k in ("chips", "mesh_shape", "batch", "plan", "timing", "memory_analysis",
+                                            "counted", "roofline")}},
+        cli_json=str(cli.relative_to(ROOT)),
+        card_step={"dot_flops_counted": counted, "profiler": prof, "rel_diff": rel, "rtol": DRYRUN_DOT_RTOL,
+                   "peak_counted_GB": peak_counted, "peak_measured_GB": train["peak_memory_GB"],
+                   "peak_counted_over_measured": peak_counted / train["peak_memory_GB"],
+                   "compute_term_s": one["roofline"]["compute_s"], "step_p50_s": train["step_p50_s"],
+                   "compute_term_over_p50": one["roofline"]["compute_s"] / train["step_p50_s"]},
+        finished_before_train_ended=waited < 1.0,
+        waited_after_train_s=waited,
+    )
 
 
 #: KV pages: one layer's K or V for one sequence at a 4096-token window,
@@ -4160,6 +4434,54 @@ def _train_profile(cfg, plan, opt, state, batch) -> dict:
     }
 
 
+#: the profiler's FLOP-counted products (``with_flops``)
+_PROFILER_DOTS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::baddbmm", "aten::conv2d")
+
+
+def _train_flops(cfg, plan, opt, state, batch) -> dict:
+    """One more step of ``state`` under ``torch.profiler`` with
+    ``with_flops``: the products' FLOPs, those of the calls that launched a
+    kernel and those of the calls that did not.  The profiler records an
+    aten call where it is dispatched, before autograd: the non-reentrant
+    checkpoint's early stop aborts each block's last product in the
+    recompute once its inputs are saved, after that record and before the
+    kernel, so the sum over every record exceeds the work done.  A kernel
+    names the call that launched it (its linked correlation id); the raw
+    events are read, not ``prof.events()``, whose tree takes half a minute
+    to build at this step's 200,000 events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models.common import float32_bf16_reductions
+    from repro_torch.train.step import make_train_step
+
+    step = make_train_step(cfg, plan, opt, total_steps=TRAIN_STEPS)
+    t0 = time.perf_counter()
+    with float32_bf16_reductions():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], with_flops=True) as prof:
+            step(state, batch)
+            torch.cuda.synchronize()
+    t_step = time.perf_counter() - t0
+    raw = prof.profiler.kineto_results.events()
+    launched = {e.linked_correlation_id() for e in raw if e.device_type() == torch.autograd.DeviceType.CUDA}
+    done, aborted = collections.Counter(), collections.Counter()
+    n_aborted = 0
+    for e in raw:
+        if e.name() not in _PROFILER_DOTS or not e.flops() or e.device_type() != torch.autograd.DeviceType.CPU:
+            continue
+        if e.correlation_id() in launched:
+            done[e.name()] += e.flops()
+        else:
+            aborted[e.name()] += e.flops()
+            n_aborted += 1
+    out = {"executed_by_op": dict(done), "calls_without_a_kernel": n_aborted, "their_flops": sum(aborted.values()),
+           "recorded_dot_flops": sum(done.values()) + sum(aborted.values()), "kernels": len(launched),
+           "step_s": t_step, "read_s": time.perf_counter() - t0 - t_step}
+    out["executed_dot_flops"] = (sum(done.values()) if done else
+                                 "not measured (the profiler linked no kernel to a product)")
+    return out
+
+
 def _train_resume(cfg, plan, opt, tmp, launches_total, seed: int) -> dict:
     """(d) save and resume through the launcher on the smoke config: under
     the default policy, launches of a save and a restore equal the chunks
@@ -4283,6 +4605,7 @@ def phase_train(seed: int, launches_total: dict) -> None:
         plain, state = _train_run("plain", cfg, plan, opt, state, str(tmp / "plain"), n_params)
         batch_next = {k: torch.from_numpy(v).cuda() for k, v in pipe.batch_at(TRAIN_STEPS).items()}
         plain["profile"] = _train_profile(cfg, plan, opt, state, batch_next)
+        plain["profiler_flops"] = _train_flops(cfg, plan, opt, state, batch_next)
         del batch_next
         micro_check["plain_run_first_loss"] = plain["losses"][0]
         del state
@@ -4403,8 +4726,10 @@ def main() -> int:
     t_quality = time.perf_counter()
     phase_telemetry(x2d, launches)
     t_telemetry = time.perf_counter()
-    phase_checkpoint(args.seed, launches)
+    ckpt = phase_checkpoint(args.seed, launches)
     t_checkpoint = time.perf_counter()
+    phase_elastic(ckpt, launches)
+    t_elastic = time.perf_counter()
     phase_offload(args.seed, launches)
     t_offload = time.perf_counter()
     phase_dp_step(args.seed)
@@ -4415,7 +4740,13 @@ def main() -> int:
     t_serve = time.perf_counter()
     phase_families(args.seed, launches, cases, bw)
     t_families = time.perf_counter()
-    phase_train(args.seed, launches)
+    dry = start_dryrun()
+    try:
+        phase_train(args.seed, launches)
+        t_train = time.perf_counter()
+        phase_dryrun(dry)
+    finally:
+        stop_dryrun(dry)
     RESULTS["phase_seconds"] = {
         "environment, build, kernels": t_kernels - t0,
         "v1/v3/v6 and bitplane main paths": t_v1 - t_kernels,
@@ -4429,12 +4760,14 @@ def main() -> int:
         "quality": t_quality - t_auto,
         "telemetry": t_telemetry - t_quality,
         "checkpoint": t_checkpoint - t_telemetry,
-        "offload": t_offload - t_checkpoint,
+        "elastic": t_elastic - t_checkpoint,
+        "offload": t_offload - t_elastic,
         "dp step": t_dp - t_offload,
         "kv path": t_kv - t_dp,
         "serve": t_serve - t_kv,
         "families": t_families - t_serve,
-        "train": time.perf_counter() - t_families,
+        "train (the dry run's subprocesses beside it)": t_train - t_families,
+        "dryrun (its wait and checks after train)": time.perf_counter() - t_train,
     }
     summary = {
         "kernels": [

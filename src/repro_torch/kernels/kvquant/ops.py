@@ -1,7 +1,9 @@
 """Public wrappers around the KV-quantization kernels.
 
-A CPU tensor goes through the plain version (``ref.py``); any other tensor
-goes to the CUDA kernels, which launch or raise — there is no fallback.
+A CPU tensor goes through the plain version (``ref.py``), and so does a
+meta tensor, which holds no data (the dry run counts a step's ops on meta
+tensors, ``launch/dryrun.py``); any other tensor goes to the CUDA kernels,
+which launch or raise — there is no fallback.
 The CUDA kernels take any (T, C) and (M, K, N) with bounds checks at the
 ragged edges, so unlike the JAX package's wrappers nothing is padded to
 tile multiples.
@@ -17,11 +19,14 @@ from . import ref as _ref
 
 SCALE_FLOOR = _ref.SCALE_FLOOR
 
+#: devices whose tensors take the plain versions
+_PLAIN_DEVICES = ("cpu", "meta")
+
 
 def kv_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(T, C) -> (int8 codes (T, C), per-channel scale (C,)), on x's device."""
     x = x.to(torch.float32)
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN_DEVICES:
         return _ref.quantize(x)
     scale = _ref.scale_from_absmax(_k.absmax(x))  # an IEEE divide, on the card
     return _k.quantize_with_scale(x, scale), scale
@@ -35,13 +40,14 @@ def kv_quantize_append(k: torch.Tensor, v: torch.Tensor, k_cache: torch.Tensor, 
     the card for K and V together; tensors on mixed devices go to the
     kernel's wrapper, which refuses them."""
     args = (k, v, k_cache, v_cache, k_scale, v_scale, slot)
-    fn = _ref.quantize_append if all(t.device.type == "cpu" for t in args) else _k.quantize_append
+    plain = any(all(t.device.type == d for t in args) for d in _PLAIN_DEVICES)
+    fn = _ref.quantize_append if plain else _k.quantize_append
     fn(*args)
 
 
 def kv_dequant_matmul(a: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """a (M, K) @ dequant(q (K, N), scale (N,)) -> (M, N) f32, on a's device."""
-    fn = _ref.dequant_matmul if a.device.type == "cpu" else _k.dequant_matmul
+    fn = _ref.dequant_matmul if a.device.type in _PLAIN_DEVICES else _k.dequant_matmul
     return fn(a.to(torch.float32), q, scale)
 
 

@@ -430,6 +430,7 @@ def test_port_imports_neither_jax_nor_repro():
         "import repro_torch.models.moe, repro_torch.models.mamba2, repro_torch.models.encdec\n"
         "import repro_torch.parallel.comm, repro_torch.parallel.specs, repro_torch.launch.plans\n"
         "import repro_torch.serve.step\n"
+        "import repro_torch.ft.elastic, repro_torch.launch.cost, repro_torch.launch.dryrun\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )

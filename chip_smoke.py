@@ -180,7 +180,12 @@ Phases, one JSON line each:
    offload (the scales only: the codes are not float); tokens/s and step
    p50/p99 from ``sz3_decode_step_seconds``; the fused append and the
    standalone pair timed at the decode shape ((4, 1, 8, 128); the pair at
-   (128, 32));
+   (128, 32)); then the weight-stationary decode (``decode_feature_shard``
+   with FSDP over ``data``) of the same weights on a one-card NCCL mesh
+   through ``jit_serve_step``, bf16 and int8, 16 greedy tokens from the
+   same prompt: tokens and last logits equal to the plain runs' bit for
+   bit, ``quantize_append`` 40 x 16 more times, step p50/p99 beside the
+   plain runs';
 18. training (``train``): the launcher's ``train`` (``launch/train.py``)
    at Qwen1.5-0.5B's full width and depth (24 layers, d_model 1024, 16/16
    heads, d_ff 2816, vocab 151936 padded to 152064, tied embedding, QKV
@@ -3420,6 +3425,91 @@ def _offload_recorded(offload, cache) -> tuple:
     return n_in, n_out, seconds, streams, all_launches()
 
 
+#: the weight-stationary sub-run: the plain runs' granite-3-8b on a one-card
+#: NCCL mesh (data 1 x model 1), FSDP over data and decode_feature_shard,
+#: the plain runs' greedy steps from the same prompt tokens.  Every group
+#: has one rank, so every collective is skipped and each feature-sharded
+#: product is the plain product: the ops are the plain decode's, and the
+#: tokens and last logits are held equal to its, bit for bit
+SERVE_STATIONARY_ATOL = 0.0
+
+
+def _serve_stationary(cfg, params, seed: int, plain: dict, launches_total: dict) -> dict:
+    """``jit_serve_step`` under the weight-stationary plan on a one-card
+    mesh, for each of ``plain``'s runs (``{"bf16": (ServeResult, its step
+    latencies), "int8": ...}``): the parameters placed as DTensors (no copy on one card), the
+    cache in ``cache_specs`` placements, ``SERVE_TOKENS`` greedy steps from
+    the launcher's prompt tokens, each step timed as the launcher times it.
+    Holds the tokens and the last logits against the plain run's and the
+    int8 run's ``quantize_append`` launches at one per layer and token.
+    Tears the process group down."""
+    import torch.distributed as dist
+
+    from repro_torch import models
+    from repro_torch.core import telemetry
+    from repro_torch.launch.mesh import make_debug_mesh
+    from repro_torch.models.common import float32_bf16_reductions
+    from repro_torch.parallel import ParallelPlan
+    from repro_torch.serve.step import jit_serve_step, make_serve_step
+
+    B, T = SERVE_BATCH, SERVE_TOKENS
+    t_all = time.perf_counter()
+    mesh = make_debug_mesh((1, 1), ("data", "model"), device="cuda")
+    out = {"mesh": {"shape": [1, 1], "axes": ["data", "model"], "backend": dist.get_backend()},
+           "scope": "every group has one rank: no collective runs; tools/sharded_cards.py runs the decode across "
+                    "four cards"}
+    try:
+        for kv, (ref, ref_lat) in plain.items():
+            plan = ParallelPlan(mesh=mesh, fsdp_axes=("data",), kv_cache_dtype=kv, decode_feature_shard=True)
+            if not plan.weight_stationary:
+                raise AssertionError(f"serve stationary: the plan {plan} is not weight-stationary")
+            telemetry.reset_metrics()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            reset_all_launches()
+            with float32_bf16_reductions():
+                cache = models.init_cache(params, cfg, plan, B, T + 8)
+                step = jit_serve_step(make_serve_step(cfg, plan), params, cache, cfg, plan)
+                gen = torch.Generator(device="cuda").manual_seed(seed + 2)
+                tok = torch.randint(0, cfg.vocab, (B, 1), generator=gen, device="cuda", dtype=torch.int32)
+                seq, t0 = [tok], time.perf_counter()
+                for _ in range(T):
+                    ts = time.perf_counter()
+                    logits, cache = step(params, cache, tok)
+                    tok = torch.argmax(logits, -1, keepdim=True).to(torch.int32)
+                    torch.cuda.synchronize()
+                    telemetry.metric_observe("sz3_decode_step_seconds", time.perf_counter() - ts)
+                    seq.append(tok)
+                seconds = time.perf_counter() - t0
+            launched = all_launches()
+            want = cfg.n_layers * T if kv == "int8" else 0
+            others = {k: v for k, v in launched.items() if v and k != "quantize_append"}
+            if launched["quantize_append"] != want or others:
+                raise AssertionError(f"serve stationary {kv}: quantize_append launched {launched['quantize_append']} "
+                                     f"times, expected {want}; other kernels {others}")
+            launches_total["quantize_append"] += want
+            seq = torch.cat(seq, dim=1).cpu().numpy()
+            err = float((logits - ref.logits).abs().max())
+            tokens_equal = bool((seq == ref.sequences).all())
+            if not (tokens_equal and err <= SERVE_STATIONARY_ATOL and bool(torch.isfinite(logits).all())):
+                raise AssertionError(f"serve stationary {kv}: tokens equal {tokens_equal}, last logits "
+                                     f"{err} from the plain decode's (bound {SERVE_STATIONARY_ATOL})")
+            lat = _step_latency()
+            out[kv] = {"tok_per_s": B * T / seconds, "seconds": seconds, **lat,
+                       "plain_step_p50_s": ref_lat["step_p50_s"], "plain_step_p99_s": ref_lat["step_p99_s"],
+                       "p50_over_plain_p50": lat["step_p50_s"] / ref_lat["step_p50_s"],
+                       "launches": {k: v for k, v in launched.items() if v},
+                       "tokens_equal_plain": tokens_equal, "logits_max_abs_vs_plain": err,
+                       "logits_bit_equal_plain": bool(torch.equal(logits, ref.logits)),
+                       "peak_memory_GB": torch.cuda.max_memory_allocated() / 1e9}
+            del cache, step
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t_all
+    return out
+
+
 def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None:
     """``repro_torch.launch.serve.serve`` at granite-3-8b's full size: 16
     greedy bf16 steps, prefill against the last step, the bf16 cache through
@@ -3428,8 +3518,10 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
     route's), then 16 int8 steps (``quantize_append`` 40 x 16 times, the
     standalone pair never), the int8 drift from bf16 on the same tokens,
     ``_quantize_token`` on the bf16 cache's K and V against its plain
-    version, the fused append against the sequence it replaced, and the
-    int8 cache's offload (its scales only)."""
+    version, the fused append against the sequence it replaced, the int8
+    cache's offload (its scales only), and both runs again through the
+    weight-stationary decode on a one-card mesh (:func:`_serve_stationary`:
+    ``quantize_append`` 40 x 16 more times)."""
     import repro_torch.core as tc
     from repro_torch import configs, models
     from repro_torch.core import chunking, telemetry
@@ -3578,6 +3670,10 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
                                  f"expected {expected8[name]}")
         launches_total[name] += off8_launches[name]
 
+    # the weight-stationary decode of both runs, from their prompt tokens
+    peak_plain = torch.cuda.max_memory_allocated() / 1e9
+    stationary = _serve_stationary(cfg, params, seed, {"bf16": (bf, bf_lat), "int8": (i8, i8_lat)}, launches_total)
+
     # the kvquant kernels at the decode shape: the fused append on layer 0's
     # token at slot 0 (bf16, as served) into the int8 cache, and the
     # standalone pair on (hd, B * KV) per call
@@ -3650,7 +3746,8 @@ def phase_serve(seed: int, launches_total: dict, cases: dict, bw: float) -> None
         int8_offload={"n_in": n8_in, "n_out": n8_out, "ratio": n8_in / n8_out, "seconds": t8_off,
                       "leaves": 2, "skipped": 4,
                       "launches": {k: v for k, v in off8_launches.items() if v}},
-        peak_memory_GB=torch.cuda.max_memory_allocated() / 1e9,
+        weight_stationary=stationary,
+        peak_memory_GB=max(peak_plain, torch.cuda.max_memory_allocated() / 1e9),
     )
     del params, bf, i8, cache8
     torch.cuda.empty_cache()

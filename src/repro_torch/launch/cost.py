@@ -22,7 +22,8 @@ reference's figures are per device:
                       rule does
   collective_bytes -- each ``c10d`` op charged with the reference's ring
                       model (:func:`_collective_wire_bytes`) at its own
-                      process group's size
+                      process group's size; ``log`` lists each one's kind,
+                      input and output bytes and group size, in order
 
 The reference multiplies a while loop's body by its trip count, because
 XLA's cost analysis visits the body once.  Eager mode runs every trip, so
@@ -38,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 from collections import defaultdict
-from typing import Any, Callable, Dict, Tuple
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -76,7 +77,8 @@ _COLLECTIVE_KINDS = {
 @dataclasses.dataclass
 class Cost:
     """Per-rank counts of one call (the reference's ``Cost`` without
-    ``while_trips``; ``collectives`` counts the ops of each kind)."""
+    ``while_trips``; ``collectives`` counts the ops of each kind, ``log``
+    holds ``(kind, input bytes, output bytes, group size)`` of each)."""
 
     flops: float = 0.0
     dot_flops: float = 0.0
@@ -84,6 +86,7 @@ class Cost:
     collective_bytes: float = 0.0
     per_collective: Dict[str, float] = dataclasses.field(default_factory=lambda: defaultdict(float))
     collectives: Dict[str, int] = dataclasses.field(default_factory=lambda: defaultdict(int))
+    log: List[Tuple[str, int, int, int]] = dataclasses.field(default_factory=list)
     dtensor_ops: int = 0
 
     def scaled(self, k: float) -> "Cost":
@@ -102,6 +105,7 @@ class Cost:
             self.per_collective[kk] += v
         for kk, v in other.collectives.items():
             self.collectives[kk] += v
+        self.log.extend(other.log)
         self.dtensor_ops += other.dtensor_ops
 
 
@@ -200,10 +204,12 @@ class CostMode(TorchDispatchMode):
             if kind is None:  # barriers, waits
                 return
             ins, outs = _collective_io(func, args, kwargs, out)
-            wire = _collective_wire_bytes(kind, ins, outs, _group_size(func, args, kwargs))
+            group = _group_size(func, args, kwargs)
+            wire = _collective_wire_bytes(kind, ins, outs, group)
             c.collective_bytes += wire
             c.per_collective[kind] += wire
             c.collectives[kind] += 1
+            c.log.append((kind, ins, outs, group))
             c.hbm_bytes += ins + outs
             return
         if func.is_view or name in _SKIP_NAMES or func.namespace not in ("aten", "prims"):

@@ -14,7 +14,9 @@ return at once), takes ``make_production_mesh(device="cpu")`` over it and
 the cell's plan from ``launch/plans.py``, builds the state (or the
 parameters and the cache) on the meta device, and runs one train step,
 prefill or serve step of rank 0 under ``launch/cost.py``'s counter and a
-live-storage tracker (``torch.distributed._tools.mem_tracker.MemTracker``).
+live-storage tracker (``torch.distributed._tools.mem_tracker.MemTracker``)
+that knows the arguments' storages: the peak is the arguments' bytes plus
+the most the step held beside them, as XLA's memory analysis gives it.
 The step sees its own rows of the global batch, as every rank does.  The
 hand kernels have no meta form, so their plain versions run and are
 counted; a cell's ``plain_kernels`` names them.
@@ -149,25 +151,44 @@ def lower_cell(arch: str, shape: str, mesh, multi_pod: bool, overrides=None, bat
     cache = _walk(lambda _, s, t: sp.place(t, s, plan), cache_specs(cache, cfg, plan), cache)
     step = jit_serve_step(make_serve_step(cfg, plan), placed, cache, cfg, plan)
     tokens = specs["tokens"]
-    args_bytes = _local_bytes(placed) + _local_bytes(cache) + _local_bytes(local_rows({"t": tokens}, plan))
+    rows = tokens if plan.weight_stationary else local_rows({"t": tokens}, plan)  # the whole batch on every rank
+    args_bytes = _local_bytes(placed) + _local_bytes(cache) + _local_bytes(rows)
     return step, (placed, cache, tokens), args_bytes, cfg, cell, plan
+
+
+def arguments_tracker(args):
+    """A live-storage tracker that knows the storages of ``args`` (the
+    local tensors of a nest of them): a view of an argument taken in the
+    tracked block is not counted as a new storage (it is the tracker's
+    "Other", which :func:`temp_bytes` leaves out)."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    tracker = MemTracker()
+    tracker.track_external(*(sp.local(t) for t in _leaves(args)))
+    return tracker
+
+
+def temp_bytes(tracker) -> int:
+    """The most bytes the tracked block held beside its arguments."""
+    from torch.distributed._tools.mem_tracker import _MemRefType
+
+    return sum(d.get("Total", 0) - d.get(_MemRefType.OTH, 0) for d in tracker.get_tracker_snapshot("peak").values())
 
 
 def analyze_cell(arch, shape, mesh, multi_pod, overrides=None, batch=None) -> Dict[str, Any]:
     """Count one cell's step on ``mesh`` (a ``DeviceMesh`` over a fake
     group) and price it on the H100."""
-    from torch.distributed._tools.mem_tracker import MemTracker
 
     t0 = time.time()
     fn, args, arg_bytes, cfg, cell, plan = lower_cell(arch, shape, mesh, multi_pod, overrides, batch)
     t_lower = time.time() - t0
     plain: set = set()
-    tracker = MemTracker()
+    tracker = arguments_tracker(args)
     t0 = time.time()
     with _plain_kernel_calls(plain), tracker:
         _, cost = cost_mod.count(fn, *args)
     t_count = time.time() - t0
-    temp_peak = sum(d.get("Total", 0) for d in tracker.get_tracker_snapshot("peak").values())
+    temp_peak = temp_bytes(tracker)
 
     chips = mesh.size()
     compute_s = cost.flops / PEAK_FLOPS
@@ -199,6 +220,7 @@ def analyze_cell(arch, shape, mesh, multi_pod, overrides=None, batch=None) -> Di
             "microbatches": plan.microbatches,
             "kv_cache_dtype": plan.kv_cache_dtype,
             "remat": plan.remat,
+            "decode_feature_shard": plan.decode_feature_shard,
         },
         "timing": {"lower_s": t_lower, "count_s": t_count},
         "memory_analysis": {

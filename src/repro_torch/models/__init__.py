@@ -13,7 +13,9 @@ rank or as DTensors in ``param_specs`` placements, and run on this rank's
 view of them (``parallel.specs.model_local``); ``local=True`` says the
 tree is that view already (the train step's ``parallel.specs.fsdp_view``,
 whose stacked layer leaves the layer loop gathers).  The batch is this
-rank's rows.
+rank's rows, except in the weight-stationary decode
+(``ParallelPlan.weight_stationary``), which keeps every weight at its
+shard and takes the whole batch (:func:`decode_step`).
 """
 from __future__ import annotations
 
@@ -116,8 +118,16 @@ def init_cache(params, cfg: ModelConfig, plan: ParallelPlan, batch: int, max_len
 def decode_step(params, cache, tokens: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan, local: bool = False):
     """One decode step (``lm_decode_step`` or ``encdec_decode_step``): the
     cache's tensors are this rank's view, as ``serve.step.jit_serve_step``
-    gives them."""
-    params = _view(params, cfg, plan, local)
+    gives them.  Under ``plan.weight_stationary`` the step runs on
+    ``parallel.specs.stationary_local``'s view (every weight at its shard;
+    ``local=True``: the tree is that view already) and ``tokens`` is the
+    whole batch."""
+    if plan.weight_stationary and not local:
+        from ..parallel.specs import stationary_local
+
+        params = stationary_local(params, cfg, plan)
+    else:
+        params = _view(params, cfg, plan, local)
     if cfg.family == "encdec":
         return _encdec.encdec_decode_step(params, cache, tokens, cfg, plan)
     return _lm.lm_decode_step(params, cache, tokens, cfg, plan)

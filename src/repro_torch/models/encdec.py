@@ -19,7 +19,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from ..parallel.plan import ParallelPlan
+from ..parallel.plan import ParallelPlan, feature_product
 from .common import ModelConfig
 from .layers import (
     apply_mlp,
@@ -192,13 +192,20 @@ def encdec_decode_step(params, cache: EncDecCache, tokens: torch.Tensor, cfg: Mo
                        plan: ParallelPlan) -> Tuple[torch.Tensor, EncDecCache]:
     """One serve step of the decoder: self-attention against the ring cache
     (updated in place), dense cross-attention over the cached encoder K/V.
-    Returns the logits (B, vocab) float32 and the same cache, advanced."""
+    Returns the logits (B, vocab) float32 and the same cache, advanced.
+    Under ``plan.weight_stationary`` the stream holds the whole batch and
+    this rank's features, as ``lm.lm_decode_step``'s does: the layernorms
+    sum over the features' groups, and cross-attention's query is cut to
+    the cache's rows, its output gathered over the batch axes before
+    ``wo``."""
+    from ..parallel import comm
     from ..parallel.specs import heads_shardable
 
     params = param_tree(params)
     plan = decode_plan(plan)
+    fs = plan.feature_groups() if plan.weight_stationary else None
+    rows = plan.dp_groups() if fs is not None else None
     shardable = heads_shardable(cfg, plan)
-    B = tokens.shape[0]
     h = embed_tokens(params, tokens, cfg, plan)
     sc = cache.self_cache
     length = sc.length
@@ -209,25 +216,27 @@ def encdec_decode_step(params, cache: EncDecCache, tokens: torch.Tensor, cfg: Mo
     for i in range(cfg.n_layers):
         lp = _layer(params["dec_blocks"], i)
         lc = (sc.k[i], sc.v[i], sc.k_scale[i] if int8 else None, sc.v_scale[i] if int8 else None, sc.pos)
-        o, (_, _, _, _, new_pos) = _decode_attn(lp["self_attn"], apply_norm(lp["ln1"], h), lc, length, slot, cfg,
-                                                plan)
+        o, (_, _, _, _, new_pos) = _decode_attn(lp["self_attn"], apply_norm(lp["ln1"], h, features=fs), lc, length,
+                                                slot, cfg, plan, fs)
         h = h + o
         # cross attention (dense over the encoder frames), float32
-        hn = apply_norm(lp["lnx"], h)
+        hn = apply_norm(lp["lnx"], h, features=fs)
         if shardable:
             hn = plan.tp_enter(hn)
         xp = lp["cross_attn"]
-        q = (hn @ xp["wq"]).reshape(B, 1, -1, dims.hd)
+        q = feature_product(hn, xp["wq"], fs).reshape(h.shape[0], 1, -1, dims.hd)
         if "bq" in xp:
             q = q + xp["bq"].reshape(1, 1, -1, dims.hd)
+        q = comm.local_slice(q, 0, rows)  # the cache's rows
+        B = q.shape[0]
         qg = q.reshape(B, -1, dims.group, dims.hd).to(torch.float32) / math.sqrt(dims.hd)
         s = torch.einsum("bkgh,bskh->bkgs", qg, cache.cross_k[i].to(torch.float32))
         w = torch.softmax(s, dim=-1)
         o = torch.einsum("bkgs,bskh->bkgh", w, cache.cross_v[i].to(torch.float32))
-        o = o.reshape(B, 1, -1).to(h.dtype)
+        o = comm.all_gather(o.reshape(B, 1, -1).to(h.dtype), 0, rows)
         h = h + plan.tp_project(o, xp["wo"], shardable)
-        h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h), cfg, plan)
+        h = h + apply_mlp(lp["mlp"], apply_norm(lp["ln2"], h, features=fs), cfg, plan, fs)
     sc.pos = new_pos
     sc.length = length + 1
-    h = apply_norm(params["final_norm"], h)
-    return full_logits(h, unembed_matrix(params, cfg), cfg, plan)[:, 0], cache
+    h = apply_norm(params["final_norm"], h, features=fs)
+    return full_logits(h, unembed_matrix(params, cfg), cfg, plan, fs)[:, 0], cache

@@ -22,7 +22,8 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..parallel.plan import ParallelPlan
+from ..parallel import comm
+from ..parallel.plan import ParallelPlan, feature_product, feature_products
 from .common import ModelConfig
 
 NEG_INF = -1e30
@@ -69,16 +70,31 @@ def init_norm(cfg: ModelConfig, with_bias: Optional[bool] = None, device=None) -
     return {"w": w}
 
 
-def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+def apply_norm(p: Params, x: torch.Tensor, eps: float = 1e-6, features=None) -> torch.Tensor:
     """RMSnorm, or layernorm exactly when ``p`` has a bias ``"b"``; in
-    float32, cast back to ``x``'s dtype."""
+    float32, cast back to ``x``'s dtype.
+
+    ``features``: the process groups over which ``x``'s last dim is split
+    (the weight-stationary decode's stream, with ``p`` cut to this rank's
+    features): the sums over the features (the mean square; the mean and
+    the centred sum of squares) are all-reduced over them.  None, or of one
+    rank: the plain norm."""
     xf = x.to(torch.float32)
+    n = comm.group_size(features)
+    if n == 1:
+        def mean(t):
+            return t.mean(-1, keepdim=True)
+    else:
+        d = x.shape[-1] * n
+
+        def mean(t):
+            return comm.all_reduce_(t.sum(-1, keepdim=True), features) / d
     if "b" in p:  # layernorm
-        mu = xf.mean(-1, keepdim=True)
-        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        mu = mean(xf)
+        var = mean((xf - mu) ** 2)
         y = (xf - mu) * torch.rsqrt(var + eps)
         return (y * p["w"].to(torch.float32) + p["b"].to(torch.float32)).to(x.dtype)
-    ms = (xf * xf).mean(-1, keepdim=True)
+    ms = mean(xf * xf)
     y = xf * torch.rsqrt(ms + eps)
     return (y * p["w"].to(torch.float32)).to(x.dtype)
 
@@ -314,16 +330,20 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig, d_ff: Optional[int] = None)
     return {"w1": dense_init(gen, (d, f), dt), "w2": dense_init(gen, (f, d), dt)}
 
 
-def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan) -> torch.Tensor:
+def apply_mlp(p: Params, x: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan, features=None) -> torch.Tensor:
     """Column-parallel ``w1``/``w3`` and row-parallel ``w2`` under tensor
-    parallelism (this rank's hidden units)."""
+    parallelism (this rank's hidden units).  ``features``: ``x`` holds this
+    rank's piece of the features split over these groups, and so do
+    ``w1``/``w3``'s rows and ``w2``'s columns (the weight-stationary
+    decode): ``w1``/``w3``'s partial products are summed over them
+    (``feature_products``), ``w2`` writes this rank's features."""
     x = plan.tp_enter(x)
-    h = x @ p["w1"]
     if cfg.mlp_act == "swiglu":
-        h = F.silu(h) * (x @ p["w3"])
+        h, g = feature_products(x, [p["w1"], p["w3"]], features)
+        h = F.silu(h) * g
     elif cfg.mlp_act == "relu2":
-        r = F.relu(h)
+        r = F.relu(feature_product(x, p["w1"], features))
         h = r * r
     else:  # gelu, tanh approximation as jax.nn.gelu's default
-        h = F.gelu(h, approximate="tanh")
+        h = F.gelu(feature_product(x, p["w1"], features), approximate="tanh")
     return plan.act_btd(plan.tp_project(h.to(x.dtype), p["w2"]))

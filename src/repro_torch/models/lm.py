@@ -57,7 +57,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from .. import tree as tree_util
 from ..kernels.kvquant.ops import kv_quantize, kv_quantize_append
 from ..parallel import comm
-from ..parallel.plan import ParallelPlan
+from ..parallel.plan import ParallelPlan, feature_product, feature_products
 from .common import ModelConfig
 from .layers import (
     apply_mlp,
@@ -341,10 +341,12 @@ def _vocab_parallel_lse_gold(logits: torch.Tensor, y: torch.Tensor, mask: torch.
     return lse, gold
 
 
-def full_logits(h: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan) -> torch.Tensor:
+def full_logits(h: torch.Tensor, w: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan, features=None) -> torch.Tensor:
     """``h @ w`` in float32 over the real vocabulary: under tensor
-    parallelism each rank's columns gathered over the model axis."""
-    logits = comm.all_gather((h @ w).to(torch.float32), -1 % h.ndim, plan.tp_groups)
+    parallelism each rank's columns gathered over the model axis.
+    ``features``: ``h`` and ``w``'s rows hold this rank's features (the
+    weight-stationary decode), whose partial products are summed first."""
+    logits = comm.all_gather(feature_product(h, w, features).to(torch.float32), -1 % h.ndim, plan.tp_groups)
     return logits[..., : cfg.vocab]
 
 
@@ -512,7 +514,7 @@ def _quantize_token(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return q.T.reshape(x.shape), scale.reshape(x.shape[:-1])
 
 
-def _decode_attn(p, x, layer_cache, length, pos_slot, cfg: ModelConfig, plan: ParallelPlan):
+def _decode_attn(p, x, layer_cache, length, pos_slot, cfg: ModelConfig, plan: ParallelPlan, features=None):
     """Single-token attention against the (possibly int8) ring cache.
 
     ``layer_cache`` is (k, v, k_scale, v_scale, pos) of one layer; the new
@@ -520,7 +522,13 @@ def _decode_attn(p, x, layer_cache, length, pos_slot, cfg: ModelConfig, plan: Pa
     ``pos_slot`` (a 1-element int64 tensor), at int8 quantized per token
     and head by ``kv_quantize_append`` (what two :func:`_quantize_token`
     calls and four ``index_copy_`` would write).  Returns the output and
-    (k, v, k_scale, v_scale, new_pos)."""
+    (k, v, k_scale, v_scale, new_pos).
+
+    ``features`` (the weight-stationary decode): ``x`` is the whole batch
+    with this rank's features, split over these groups.  q, k and v are
+    ``feature_products`` (one all-reduce), cut to this rank's batch rows
+    (the cache's); the attention output is gathered over the batch axes
+    before ``wo``, which writes this rank's features."""
     from ..parallel.specs import heads_shardable
 
     B = x.shape[0]
@@ -530,13 +538,14 @@ def _decode_attn(p, x, layer_cache, length, pos_slot, cfg: ModelConfig, plan: Pa
     if shardable:  # this rank's heads, as its cache holds them
         x = plan.tp_enter(x)
     k_c, v_c, ks_c, vs_c, pos_c = layer_cache
-    q = (x @ p["wq"]).reshape(B, 1, -1, hd)
-    k = (x @ p["wk"]).reshape(B, 1, -1, hd)
-    v = (x @ p["wv"]).reshape(B, 1, -1, hd)
+    q, k, v = (t.reshape(B, 1, -1, hd) for t in feature_products(x, [p["wq"], p["wk"], p["wv"]], features))
     if "bq" in p:
         q = q + p["bq"].reshape(1, 1, -1, hd)
         k = k + p["bk"].reshape(1, 1, -1, hd)
         v = v + p["bv"].reshape(1, 1, -1, hd)
+    if features is not None:
+        q, k, v = (comm.local_slice(t, 0, plan.dp_groups()) for t in (q, k, v))
+        B = q.shape[0]
     posv = length.reshape(1, 1)
     q = apply_rope(q, posv, cfg.rope_theta)
     k = apply_rope(k, posv, cfg.rope_theta)
@@ -562,6 +571,8 @@ def _decode_attn(p, x, layer_cache, length, pos_slot, cfg: ModelConfig, plan: Pa
     w = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgw,bwkh->bkgh", w.to(kf.dtype).to(torch.float32), vf.to(torch.float32))
     o = o.reshape(B, 1, -1).to(x.dtype)
+    if features is not None:
+        o = comm.all_gather(o, 0, plan.dp_groups())
     return plan.tp_project(o, p["wo"], shardable), (k_c, v_c, ks_c, vs_c, new_pos)
 
 
@@ -577,9 +588,16 @@ def lm_decode_step(
     launcher donates it: its tensors are updated in place and the same
     object comes back with ``pos`` and ``length`` advanced.  The hybrid
     family's shared block reads and writes attention cache ``g`` at its
-    ``g``-th application."""
+    ``g``-th application.
+
+    Under ``plan.weight_stationary`` the parameters are
+    ``parallel.specs.stationary_local``'s shards and ``tokens`` the whole
+    batch: the stream holds every row and this rank's features, attention
+    and the SSM recurrence run on the cache's rows (this rank's), and the
+    logits come back whole."""
     params = param_tree(params)
     plan = decode_plan(plan)
+    fs = plan.feature_groups() if plan.weight_stationary else None
     h = embed_tokens(params, tokens, cfg, plan)
     length = cache.length
     int8 = cache.k_scale is not None
@@ -589,18 +607,19 @@ def lm_decode_step(
     def attn_layer(h, lp, i):
         lc = (cache.k[i], cache.v[i], cache.k_scale[i] if int8 else None,
               cache.v_scale[i] if int8 else None, cache.pos)
-        o, (_, _, _, _, new_pos) = _decode_attn(lp["attn"], apply_norm(lp["ln1"], h), lc, length, slot, cfg, plan)
+        o, (_, _, _, _, new_pos) = _decode_attn(lp["attn"], apply_norm(lp["ln1"], h, features=fs), lc, length, slot,
+                                                cfg, plan, fs)
         h = h + o
-        hn = apply_norm(lp["ln2"], h)
+        hn = apply_norm(lp["ln2"], h, features=fs)
         if "moe" in lp:
-            y, _ = apply_moe(lp["moe"], hn, cfg, plan)
+            y, _ = apply_moe(lp["moe"], hn, cfg, plan, fs)
             return h + y, new_pos
-        return h + apply_mlp(lp["mlp"], hn, cfg, plan), new_pos
+        return h + apply_mlp(lp["mlp"], hn, cfg, plan, fs), new_pos
 
     def ssm_layer(h, i):
         lp = _layer(params["blocks"], i)
-        o, (ssm, conv) = mamba2_decode_step(lp["ssm"], apply_norm(lp["ln"], h), (cache.ssm[i], cache.conv[i]),
-                                            cfg, plan)
+        o, (ssm, conv) = mamba2_decode_step(lp["ssm"], apply_norm(lp["ln"], h, features=fs),
+                                            (cache.ssm[i], cache.conv[i]), cfg, plan, fs)
         cache.ssm[i].copy_(ssm)
         cache.conv[i].copy_(conv)
         return h + o
@@ -627,5 +646,5 @@ def lm_decode_step(
         raise ValueError(cfg.family)
     cache.pos = new_pos
     cache.length = length + 1
-    h = apply_norm(params["final_norm"], h)
-    return full_logits(h, unembed_matrix(params, cfg), cfg, plan)[:, 0], cache
+    h = apply_norm(params["final_norm"], h, features=fs)
+    return full_logits(h, unembed_matrix(params, cfg), cfg, plan, fs)[:, 0], cache

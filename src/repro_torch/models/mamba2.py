@@ -14,7 +14,9 @@ Tensor parallelism splits the heads over ``model``, as the reference's
 ``xh`` constraint does: each rank runs the SSD scan on its heads, with the
 one group's B and C on every rank, the gated RMSnorm sums its mean square
 over the axis, and ``out_proj`` is row-parallel (:func:`_tp_view`).  Heads
-that do not divide the axis run whole on every rank.
+that do not divide the axis run whole on every rank.  The weight-stationary
+decode gathers activations instead of ``in_proj`` and the conv's weights
+(:func:`_decode_stationary`).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import comm
-from ..parallel.plan import ParallelPlan
+from ..parallel.plan import ParallelPlan, feature_product
 from .common import ModelConfig
 from .layers import apply_norm, dense_init, draw
 
@@ -207,14 +209,17 @@ def mamba2_decode_step(
     state: Tuple[torch.Tensor, torch.Tensor],  # (ssm (B,H,P,N), conv (B,K-1,C))
     cfg: ModelConfig,
     plan: ParallelPlan,
+    features=None,
 ):
     """One token through the recurrence: returns (y (B, 1, d), (ssm, conv)).
     Under tensor parallelism with this rank's heads, ``ssm`` holds them and
     ``conv`` is whole (this rank's channels taken from it, and the other
-    ranks' gathered back into the new state)."""
+    ranks' gathered back into the new state).  ``features``: the
+    weight-stationary decode (:func:`_decode_stationary`)."""
+    if features is not None:
+        return _decode_stationary(p, x, state, cfg, plan, features)
     p, nh = _tp_view(p, cfg, plan)
     local = _heads_local(cfg, plan)
-    B = x.shape[0]
     G, N, P = cfg.ssm_groups, cfg.ssm_state, cfg.ssm_head_dim
     dl = nh * P
     h_prev, conv_state = state
@@ -227,6 +232,16 @@ def mamba2_decode_step(
     if local:
         conv_state = torch.cat([comm.all_gather(conv_state[..., :dl], -1, plan.tp_groups), conv_state[..., dl:]], -1)
     xs, Bc, Cc = torch.split(conv_out, [dl, G * N, G * N], dim=-1)
+    y, h_new = _recur(p, z, xs, Bc, Cc, dt, h_prev, cfg, plan, x.dtype)
+    return plan.tp_project(y, p["out_proj"], shardable=local), (h_new, conv_state)
+
+
+def _recur(p, z, xs, Bc, Cc, dt, h_prev, cfg: ModelConfig, plan: ParallelPlan, dtype):
+    """The recurrence of one token on ``nh = dt.shape[-1]`` heads, then the
+    gate and the gated RMSnorm: returns (y (B, 1, nh·P) in ``dtype``, the
+    new ssm state)."""
+    B, nh = dt.shape[0], dt.shape[-1]
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
     dt = softplus(dt.to(torch.float32) + p["dt_bias"])[:, 0]  # (B,H)
     A = -torch.exp(p["A_log"])
     a = torch.exp(dt * A[None, :])  # (B,H)
@@ -235,9 +250,41 @@ def mamba2_decode_step(
     ck = Cc.reshape(B, N).to(torch.float32)
     h_new = h_prev * a[:, :, None, None] + torch.einsum("bn,bhp,bh->bhpn", bk, xh, dt)
     y = torch.einsum("bn,bhpn->bhp", ck, h_new) + xh * p["D"][None, :, None]
-    y = y.reshape(B, 1, dl) * F.silu(z.to(torch.float32))
-    y = _gated_norm(y.to(x.dtype), p["norm_w"], cfg, plan)
-    return plan.tp_project(y, p["out_proj"], shardable=local), (h_new, conv_state)
+    y = y.reshape(B, 1, nh * P) * F.silu(z.to(torch.float32))
+    return _gated_norm(y.to(dtype), p["norm_w"], cfg, plan), h_new
+
+
+def _decode_stationary(p, x, state, cfg: ModelConfig, plan: ParallelPlan, features):
+    """The weight-stationary decode step: ``x`` is the whole batch with
+    this rank's features (split over ``features``), ``p`` this rank's
+    shards, the state this rank's batch rows (``conv`` whole over the model
+    axis).  No weight is gathered: ``in_proj``'s partial products are
+    summed over ``features`` into this rank's contiguous piece of the
+    z/x/B/C/dt columns, which is gathered over the model axis (an
+    activation); the depthwise conv runs on the channels whose ``conv_w``
+    and ``conv_b`` this rank holds and its output is gathered the same way;
+    the recurrence runs on this rank's rows and heads, whose output is
+    gathered over the batch axes before ``out_proj``, which writes this
+    rank's features."""
+    local = _heads_local(cfg, plan)
+    if plan.tp > 1 and not local:
+        raise ValueError(f"{cfg.ssm_heads} SSM heads do not split over a model axis of {plan.tp}")
+    g, rows = plan.tp_groups, plan.dp_groups()
+    di, GN, P = cfg.d_inner, cfg.ssm_groups * cfg.ssm_state, cfg.ssm_head_dim
+    nh = cfg.ssm_heads // plan.tp
+    h0 = plan.tp_rank * nh
+    h_prev, conv_state = state
+    zxbcdt = comm.all_gather(feature_product(plan.tp_enter(x), p["in_proj"], features), -1, g)
+    z, xs, Bc, Cc, dt = _split_proj(comm.local_slice(zxbcdt, 0, rows), cfg, cfg.ssm_heads)
+    xbc = torch.cat([xs, Bc, Cc], dim=-1)
+    piece, _ = _causal_conv(comm.local_slice(xbc, -1, g), p["conv_w"], p["conv_b"],
+                            comm.local_slice(conv_state, -1, g))
+    xs, Bc, Cc = torch.split(comm.all_gather(piece, -1, g), [di, GN, GN], dim=-1)
+    new_conv = torch.cat([conv_state, xbc.to(conv_state.dtype)], dim=1)[:, 1:]
+    cols = slice(h0 * P, (h0 + nh) * P)
+    y, h_new = _recur(p, z[..., cols], xs[..., cols], Bc, Cc, dt[..., h0 : h0 + nh], h_prev, cfg, plan, x.dtype)
+    y = comm.all_gather(y, 0, rows)
+    return plan.tp_project(y, p["out_proj"], shardable=local), (h_new, new_conv)
 
 
 def init_ssm_state(cfg: ModelConfig, batch: int, device=None):

@@ -25,6 +25,13 @@ does), runs its experts and combines their outputs; the ranks' partial
 combines are summed over the axis in the model dtype.  The shared experts
 are column/row-parallel like the dense MLP.  ``aux`` is averaged over the
 batch axes (it is equal over the model axis already).
+
+The weight-stationary decode (``features``) keeps the experts at their FSDP
+shards: every rank routes every row, the router's and the experts' first
+products summing float32 partial products over the FSDP axes, ``w2``
+writing this rank's features.  Its tokens are dispatched in the
+reference's data-parallel blocks, each at its own capacity, so the drops
+are the reference's with the batch replicated or over ``data``.
 """
 from __future__ import annotations
 
@@ -35,7 +42,7 @@ import torch
 import torch.nn.functional as F
 
 from ..parallel import comm
-from ..parallel.plan import ParallelPlan
+from ..parallel.plan import ParallelPlan, feature_product, feature_products
 from .common import ModelConfig
 from .layers import dense_init
 
@@ -68,18 +75,22 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
     return p
 
 
-def _expert_ffn(w1, w3, w2, x):
-    """Batched per-expert SwiGLU: x (E, C, d) -> (E, C, d)."""
-    h = torch.bmm(x, w1)
-    g = torch.bmm(x, w3)
+def _expert_ffn(w1, w3, w2, x, features=None):
+    """Batched per-expert SwiGLU: x (E, C, d) -> (E, C, d).  ``features``:
+    ``x``'s d holds this rank's features split over these groups, and so
+    do ``w1``/``w3``'s rows and ``w2``'s columns: the first two products'
+    partial sums are summed over them, ``w2`` writes this rank's features."""
+    h, g = feature_products(x, [w1, w3], features)
     return torch.bmm(F.silu(h) * g, w2)
 
 
-def _route(x: torch.Tensor, router: torch.Tensor, top_k: int):
+def _route(x: torch.Tensor, router: torch.Tensor, top_k: int, features=None):
     """Float32 router logits, softmax, top-k (ties to the lower expert, as
     ``lax.top_k``) and the gates renormalized over the k picks.  Returns
-    (probs (T, E), gates (T, k), idx (T, k))."""
-    probs = torch.softmax(x.to(torch.float32) @ router, dim=-1)
+    (probs (T, E), gates (T, k), idx (T, k)).  ``features``: ``x`` and the
+    router's rows hold this rank's features, whose float32 partial logits
+    are summed over these groups, so every rank picks the same experts."""
+    probs = torch.softmax(feature_product(x.to(torch.float32), router, features), dim=-1)
     gates, idx = torch.topk(probs, top_k, dim=-1, sorted=True)
     gates = gates / torch.clamp_min(gates.sum(-1, keepdim=True), 1e-9)
     return probs, gates, idx
@@ -131,34 +142,72 @@ def _combine(ye: torch.Tensor, token_row: torch.Tensor, T: int, top_k: int) -> t
     return y
 
 
-def _moe_local(x, router, w1, w3, w2, *, top_k: int, n_experts: int, plan: ParallelPlan = None):
+def _aux_loss(probs: torch.Tensor, idx: torch.Tensor, n_experts: int) -> torch.Tensor:
+    """The Switch load-balance loss ``E * sum_e f_e * p_e`` of T tokens;
+    the counts are integers, exact in any order."""
+    T, top_k = idx.shape
+    me = probs.mean(0)
+    counts = torch.zeros(n_experts, dtype=torch.float32, device=probs.device)
+    counts = counts.index_add(0, idx.reshape(-1), torch.ones(T * top_k, dtype=torch.float32, device=probs.device))
+    return n_experts * torch.sum(me * (counts / (T * top_k)))
+
+
+def _dispatch_blocks(idx: torch.Tensor, gates: torch.Tensor, n_experts: int, C: int, blocks: int):
+    """:func:`_dispatch` of each of ``blocks`` equal row blocks of the
+    (T, k) assignments on its own, at capacity ``C`` each, as the reference
+    dispatches each data-parallel shard's tokens: the blocks' slots side by
+    side in an (E, blocks · C) map, ``token_row`` indexing the whole T
+    (T where empty).  A token's slots all lie in its block's columns, in
+    the order its block gives them, so :func:`_combine` adds them as the
+    block's own combine does."""
+    if blocks == 1:
+        return _dispatch(idx, gates, n_experts, C)
+    T = idx.shape[0]
+    Tb = T // blocks
+    rows, vals, keeps = [], [], []
+    for j in range(blocks):
+        tr, gv, kp = _dispatch(idx[j * Tb:(j + 1) * Tb], gates[j * Tb:(j + 1) * Tb], n_experts, C)
+        rows.append(torch.where(tr < Tb, tr + j * Tb, T).reshape(n_experts, C))
+        vals.append(gv.reshape(n_experts, C))
+        keeps.append(kp)
+    return torch.cat(rows, 1).reshape(-1), torch.cat(vals, 1).reshape(-1), torch.cat(keeps)
+
+
+def _moe_local(x, router, w1, w3, w2, *, top_k: int, n_experts: int, plan: ParallelPlan = None, features=None,
+               blocks: int = 1):
     """x (T, d) -> (y (T, d), aux, dropped share) over this rank's
     ``E_loc = w1.shape[0]`` experts: all of them without expert
     parallelism, else ``plan``'s model-axis rank's, whose partial combine
     the caller sums over the axis.  On a mesh with a model axis the
     expert-parallel dispatch runs at any size of the axis (at size 1 its
-    discard bucket stays empty)."""
+    discard bucket stays empty).
+
+    The weight-stationary decode (``features``, the groups over which
+    ``x``'s d and the experts' d are split) routes the whole batch on every
+    rank: the router's partial logits and the experts' partial products
+    are summed over the groups, and the T tokens are dispatched in
+    ``blocks`` row blocks (the reference's data-parallel shards), each at
+    its own capacity; ``aux`` is the blocks' mean."""
     T, d = x.shape
     E = w1.shape[0]
-    probs, gates, idx = _route(x, router, top_k)
+    probs, gates, idx = _route(x, router, top_k, features)
+    Tb = T // blocks
+    if blocks == 1:
+        aux = _aux_loss(probs, idx, n_experts)
+    else:
+        aux = torch.stack([_aux_loss(probs[j * Tb:(j + 1) * Tb], idx[j * Tb:(j + 1) * Tb], n_experts)
+                           for j in range(blocks)]).mean()
 
-    # aux load-balance loss (Switch): E * sum_e f_e * p_e; the counts are
-    # integers, exact in any order
-    me = probs.mean(0)
-    counts = torch.zeros(n_experts, dtype=torch.float32, device=x.device)
-    counts = counts.index_add(0, idx.reshape(-1), torch.ones(T * top_k, dtype=torch.float32, device=x.device))
-    aux = n_experts * torch.sum(me * (counts / (T * top_k)))
-
-    C = capacity(T, top_k, n_experts)
+    C = capacity(Tb, top_k, n_experts)
     if plan is not None and plan.present((plan.model_axis,)):
         # expert parallel: other ranks' assignments go to a discard bucket E
         e0 = plan.tp_rank * E
         idx = torch.where((idx >= e0) & (idx < e0 + E), idx - e0, E)
         gates, x = plan.tp_enter(gates), plan.tp_enter(x)
-    token_row, gate_val, keep = _dispatch(idx, gates, E, C)
+    token_row, gate_val, keep = _dispatch_blocks(idx, gates, E, C, blocks)
     xp = torch.cat([x, x.new_zeros((1, d))], dim=0)
-    gx = xp[token_row].reshape(E, C, d)
-    ye = _expert_ffn(w1, w3, w2, gx).reshape(E * C, d)
+    gx = xp[token_row].reshape(E, blocks * C, d)
+    ye = _expert_ffn(w1, w3, w2, gx, features).reshape(E * blocks * C, d)
     ye = ye * gate_val[:, None].to(ye.dtype)
     # combine in the model dtype, as the reference's (half-width) combine
     y = _combine(ye.to(x.dtype), token_row, T, top_k)
@@ -166,19 +215,25 @@ def _moe_local(x, router, w1, w3, w2, *, top_k: int, n_experts: int, plan: Paral
     return y.to(x.dtype), aux, dropped
 
 
-def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan) -> Tuple[torch.Tensor, torch.Tensor]:
+def apply_moe(p, x: torch.Tensor, cfg: ModelConfig, plan: ParallelPlan,
+              features=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y, aux_loss).  Capacity and drops are per call over
-    its B·S tokens."""
+    its B·S tokens.  ``features`` (the weight-stationary decode): ``x``
+    holds the whole batch and this rank's features, split over these
+    groups; the tokens are routed in ``plan.dp`` blocks, the reference's
+    data-parallel shards, each at its own capacity (:func:`_moe_local`),
+    and ``aux`` is equal on every rank already."""
     B, S, d = x.shape
     y, aux, _ = _moe_local(x.reshape(B * S, d), p["router"], p["w1"], p["w3"], p["w2"],
-                           top_k=cfg.top_k, n_experts=cfg.n_experts, plan=plan)
+                           top_k=cfg.top_k, n_experts=cfg.n_experts, plan=plan, features=features,
+                           blocks=1 if features is None else plan.dp)
     y = plan.to_stream(comm.reduce_from(y.reshape(B, S, d), plan.tp_groups))
-    if plan.mesh is not None:
+    if plan.mesh is not None and features is None:
         aux = comm.mean_from(aux, plan.dp_groups())
     if "shared" in p:
         sh = p["shared"]
         xs = plan.tp_enter(x)
-        h = xs @ sh["w1"]
-        h = (F.silu(h) * (xs @ sh["w3"])).to(x.dtype)
+        h, g = feature_products(xs, [sh["w1"], sh["w3"]], features)
+        h = (F.silu(h) * g).to(x.dtype)
         y = y + plan.tp_project(h, sh["w2"])
     return y, aux

@@ -94,6 +94,14 @@ def all_reduce(x: torch.Tensor, groups: Groups, op=None) -> torch.Tensor:
     return out
 
 
+def all_reduce_(x: torch.Tensor, groups: Groups) -> torch.Tensor:
+    """``x`` itself, summed in place over the groups (a contiguous tensor
+    the caller owns: no copy)."""
+    for g in _groups(groups):
+        dist.all_reduce(x, group=g)
+    return x
+
+
 def all_gather(x: torch.Tensor, dim: int, groups: Groups) -> torch.Tensor:
     """The pieces of every rank concatenated along ``dim`` (``x`` itself
     on a group of one)."""

@@ -20,7 +20,15 @@ process per device, and the model code runs on each rank's local shards:
   * ``seq_axes`` (sequence parallelism over the model axis): between
     blocks the residual stream holds this rank's slice of the sequence; a
     block gathers it at entry (:meth:`seq_gather`) and its output
-    projection reduce-scatters instead of all-reducing.
+    projection reduce-scatters instead of all-reducing;
+  * ``decode_feature_shard`` with ``fsdp_axes`` (the weight-stationary
+    decode, :attr:`weight_stationary`): a decode step keeps every weight
+    at its FSDP shard.  The residual stream holds the whole batch and this
+    rank's features (:meth:`feature_groups`); a product that contracts the
+    features sums its float32 partial products over the FSDP axes
+    (:func:`feature_product`), one whose output is the features writes
+    this rank's slice, and the KV cache and SSM states keep their batch
+    rows.  Prefill, the loss and the train step keep the gathered route.
 
 Every collective goes through :mod:`.comm`, which pairs it with its
 conjugate in backward.  On a group of one rank each is the identity, so a
@@ -63,19 +71,14 @@ class ParallelPlan:
     manual_tp_psum: bool = False  # reduce row-parallel partial products in
     # the model dtype (without it: in float32, then cast)
     decode_feature_shard: bool = False  # shard the feature dim over the fsdp
-    # axis at decode (weight-stationary in the reference; not implemented:
-    # refused with fsdp_axes)
+    # axis at decode: products sum small partial activations over the axis
+    # instead of gathering the weight shards every token (weight-stationary)
 
     def __post_init__(self):
         if self.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype must be 'bf16' or 'int8', got {self.kv_cache_dtype!r}")
         if self.remat not in ("none", "full", "dots"):
             raise ValueError(f"remat must be 'none', 'full' or 'dots', got {self.remat!r}")
-        if self.decode_feature_shard and self.fsdp_axes:
-            raise NotImplementedError(
-                "decode_feature_shard (the weight-stationary decode, the residual stream's features sharded "
-                "over the FSDP axes) is not implemented: leave it off, and the decode gathers the weights "
-                "over the FSDP axes each step")
 
     def grad_compression(self):
         """The resolved gradient-compression JitPolicy, or None when off."""
@@ -86,10 +89,19 @@ class ParallelPlan:
         return None
 
     # -- mesh facts ----------------------------------------------------------
+    def _memo(self, key, fn):
+        """``fn()`` once per ``key`` for this plan: the mesh facts below are
+        read many times a decode step (a cache beside the frozen fields,
+        outside equality and ``dataclasses.replace``)."""
+        memo = self.__dict__.setdefault("_mesh_memo", {})
+        if key not in memo:
+            memo[key] = fn()
+        return memo[key]
+
     def axis_size(self, name: Optional[str]) -> int:
         if self.mesh is None or name is None or name not in self.mesh.mesh_dim_names:
             return 1
-        return int(self.mesh.size(self.mesh.mesh_dim_names.index(name)))
+        return self._memo(("size", name), lambda: int(self.mesh.size(self.mesh.mesh_dim_names.index(name))))
 
     @property
     def tp(self) -> int:
@@ -107,19 +119,23 @@ class ParallelPlan:
 
     def groups(self, axes) -> list:
         """The process groups of the mesh axes ``axes`` (a name or a tuple of
-        names, major first) that this mesh has."""
-        if isinstance(axes, str):
-            axes = (axes,)
-        return [self.mesh.get_group(a) for a in self.present(axes or ())]
+        names, major first) that this mesh has with more than one rank (a
+        collective over one rank is the identity, ``comm``'s convention)."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        return list(self._memo(("groups", axes), lambda: [
+            self.mesh.get_group(a) for a in self.present(axes) if self.axis_size(a) > 1]))
 
     def axis_rank(self, axes) -> int:
         """This process's coordinate on ``axes`` (major first)."""
-        if isinstance(axes, str):
-            axes = (axes,)
-        r = 0
-        for a in self.present(axes or ()):
-            r = r * self.axis_size(a) + int(self.mesh.get_local_rank(a))
-        return r
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+
+        def rank():
+            r = 0
+            for a in self.present(axes):
+                r = r * self.axis_size(a) + int(self.mesh.get_local_rank(a))
+            return r
+
+        return self._memo(("rank", axes), rank)
 
     @property
     def tp_groups(self) -> list:
@@ -275,6 +291,22 @@ class ParallelPlan:
         shard."""
         return x
 
+    # -- the weight-stationary decode -----------------------------------------
+    @property
+    def weight_stationary(self) -> bool:
+        """Whether a decode step keeps every weight at its FSDP shard (the
+        reference's ``act_btd`` under ``decode_feature_shard``): the flag,
+        with FSDP axes on this plan's mesh."""
+        return bool(self.decode_feature_shard and self.present(self.fsdp_axes))
+
+    def feature_groups(self) -> list:
+        """The groups of the FSDP axes (major first; those of one rank
+        left out), over which the weight-stationary decode's stream splits
+        its features: this rank holds the piece ``comm.local_slice(x, -1,
+        feature_groups())``, where ``param_specs`` puts its shard of every
+        weight."""
+        return self.groups(self.fsdp_axes)
+
 
 class _Bf16ProductFloat32Out(torch.autograd.Function):
     """``h @ w`` of 2-D bf16 operands with the float32 accumulator as the
@@ -299,17 +331,41 @@ class _Bf16ProductFloat32Out(torch.autograd.Function):
 
 def _float32_product(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """``h @ w`` with its float32 accumulator as the output.  On the card
-    a bf16 product stays on the bf16 tensor-core path
-    (:class:`_Bf16ProductFloat32Out`); elsewhere, or where torch lacks
-    ``mm``'s ``out_dtype``, the operands are cast up, which gives the same
+    a bf16 product with a 2-D ``w`` stays on the bf16 tensor-core path
+    (:class:`_Bf16ProductFloat32Out`); elsewhere (a batched ``w``, the CPU,
+    a torch without ``mm``'s ``out_dtype``) the operands are cast up, which gives the same
     value: a product of two bf16 numbers is exact in float32, and both sum
     in float32."""
     if h.dtype == torch.float32 and w.dtype == torch.float32:
         return h @ w
-    if h.is_cuda and h.dtype == w.dtype == torch.bfloat16 and hasattr(torch.ops.aten.mm, "dtype"):
-        y = _Bf16ProductFloat32Out.apply(h.reshape(-1, h.shape[-1]), w)
+    if h.is_cuda and w.ndim == 2 and h.dtype == w.dtype == torch.bfloat16 and hasattr(torch.ops.aten.mm, "dtype"):
+        h2 = h.reshape(-1, h.shape[-1])
+        y = _Bf16ProductFloat32Out.apply(h2, w) if torch.is_grad_enabled() else \
+            torch.mm(h2, w, out_dtype=torch.float32)
         return y.reshape(*h.shape[:-1], w.shape[-1])
     return torch.matmul(h.to(torch.float32), w.to(torch.float32))
+
+
+def feature_product(x: torch.Tensor, w: torch.Tensor, groups=None) -> torch.Tensor:
+    """``x @ w`` where ``x`` (..., F) holds this rank's piece of the
+    features split over ``groups`` and ``w`` (..., F, N) the matching rows
+    (the weight-stationary decode, ``ParallelPlan.feature_groups``): this
+    rank's partial product keeps its float32 accumulator, is summed over
+    the groups, then cast to ``x``'s dtype, as
+    :meth:`ParallelPlan.tp_project` sums its partial products (no autograd:
+    the decode runs under ``no_grad``).  ``groups`` None, or of one rank:
+    ``x @ w`` itself."""
+    return feature_products(x, [w], groups)[0]
+
+
+def feature_products(x: torch.Tensor, ws, groups=None) -> list:
+    """:func:`feature_product` of ``x`` with each of ``ws`` (the same
+    leading dims), their partial products summed in one all-reduce."""
+    if comm.group_size(groups) == 1:
+        return [x @ w for w in ws]
+    parts = [_float32_product(x, w) for w in ws]
+    total = comm.all_reduce_(torch.cat(parts, dim=-1) if len(parts) > 1 else parts[0].contiguous(), groups)
+    return [t.to(x.dtype) for t in torch.split(total, [p.shape[-1] for p in parts], dim=-1)]
 
 
 def single_device_plan(**kw) -> ParallelPlan:

@@ -15,7 +15,8 @@ the specs).  :func:`spec_leaves` pairs it with a tree's leaves;
 :func:`place` turns a whole tensor into a DTensor with the spec's
 placements (``ParallelPlan.placements``), cutting this rank's piece
 locally; :func:`model_local` is what the model computes on: a parameter
-whole over every axis but the model axis.
+whole over every axis but the model axis; :func:`stationary_local` is what
+the weight-stationary decode computes on: every parameter at its shard.
 """
 from __future__ import annotations
 
@@ -236,5 +237,35 @@ def model_local(params, cfg: ModelConfig, plan: ParallelPlan):
             return gather_axes(leaf.to_local(), spec, plan, keep=m)
         model_only = tuple(e if e == m else None for e in spec)
         return shard_local(leaf, model_only, plan)
+
+    return map_paths(view, params)
+
+
+#: replicated leaves that act on the residual stream's features, and the dim
+#: that holds them: the norms' weights and biases, the MoE router's rows
+_STREAM_DIMS = {"w": -1, "b": -1, "router": -2}
+
+
+def stationary_local(params, cfg: ModelConfig, plan: ParallelPlan):
+    """What the weight-stationary decode computes on
+    (``plan.weight_stationary``): each parameter at its shard in
+    ``param_specs`` placements, along the FSDP and the model axes alike (a
+    DTensor's local tensor, no collective; a plain tensor, taken as whole
+    on every rank, is cut to it).  A leaf that is whole over the FSDP axes
+    but acts on the stream's features (:data:`_STREAM_DIMS`) is cut to
+    this rank's features."""
+    from ..models.lm import param_tree
+
+    params = param_tree(params)
+    specs = param_specs(params, cfg, plan)
+    features = plan.feature_groups()
+
+    def view(path, leaf):
+        spec = spec_at(specs, "/".join(path))
+        x = leaf.to_local() if is_dtensor(leaf) else shard_local(leaf, spec, plan)
+        dim = _STREAM_DIMS.get(path[-1])
+        if dim is not None:
+            x = comm.local_slice(x, dim % x.ndim, features)
+        return x
 
     return map_paths(view, params)

@@ -9,14 +9,23 @@ updates the cache in place (the reference donates it).
 
 On a mesh, :func:`jit_serve_step` holds the parameters in ``param_specs``
 placements and the cache in :func:`cache_specs` placements (DTensors;
-whole tensors given to it are placed at the first call).  Each step runs
-the model on this rank's rows and heads: attention K/V and the SSM
-state are this rank's heads; the conv state is gathered whole over the
-model axis for the step and cut back after it (``models/mamba2.py``).
-The logits come back whole on every rank.  The weights are gathered over
-the FSDP axes each step: the reference's weight-stationary decode
-(``decode_feature_shard``) is not implemented, and ``ParallelPlan``
-refuses it.
+whole tensors given to it are placed at the first call).  The cache's
+tensors are this rank's rows and heads: attention K/V and the SSM state
+are this rank's heads; the conv state is gathered whole over the model
+axis for the step and cut back after it (``models/mamba2.py``).  The
+logits come back whole on every rank.  Each step runs one of two ways:
+
+  * gathered (the default): the weights are gathered over the FSDP axes
+    each step (``parallel.specs.model_local``) and the model runs on this
+    rank's rows of the tokens;
+  * weight-stationary (``decode_feature_shard`` with ``fsdp_axes``,
+    ``ParallelPlan.weight_stationary``): no weight is gathered.  The
+    tokens go whole to every rank and the residual stream holds every row
+    and this rank's features; products that contract the features sum
+    float32 partial products over the FSDP axes, attention and the SSM
+    recurrence run on the cache's rows and their outputs are gathered over
+    the batch axes (``models/lm.py``, ``moe.py``, ``mamba2.py``,
+    ``encdec.py``).
 """
 from __future__ import annotations
 
@@ -133,11 +142,15 @@ def jit_serve_step(serve_step, params, cache, cfg: ModelConfig, plan: ParallelPl
         params = placed if params is given else place_params(params)
         cache = place_cache(cache)
         local = _walk(view, cspecs, cache)
-        tok = tokens.to_local() if sp.is_dtensor(tokens) else comm.local_slice(tokens, 0, plan.dp_groups())
+        if plan.weight_stationary:  # every row on every rank
+            tok = tokens.full_tensor() if sp.is_dtensor(tokens) else tokens
+        else:
+            tok = tokens.to_local() if sp.is_dtensor(tokens) else comm.local_slice(tokens, 0, plan.dp_groups())
         logits, out = serve_step(params, local, tok)
         with torch.no_grad():
             _walk(write_back, cspecs, cache, out)
-            logits = comm.all_gather(logits, 0, plan.dp_groups())
+            if not plan.weight_stationary:
+                logits = comm.all_gather(logits, 0, plan.dp_groups())
         return logits, cache
 
     return step

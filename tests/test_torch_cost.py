@@ -39,6 +39,10 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 #: smoke train steps on a (2, 2) mesh, FSDP over data, batch 8 x 64: Qwen
 #: (dense), granite (tensor parallel), deepseek-moe (expert parallel)
 STEP_ARCHS = ("qwen1.5-0.5b", "granite-3-8b", "deepseek-moe-16b")
+#: smoke decode steps on (2, 2), FSDP over data, gathering against
+#: weight-stationary (``decode_feature_shard``): dense, TP with GQA, the
+#: MoE's experts, Mamba2
+DECODE_ARCHS = ("qwen1.5-0.5b", "granite-3-8b", "deepseek-moe-16b", "mamba2-2.7b")
 #: the counts agree to the FLOP on these steps (measured); held at the
 #: analytic cases' 1%
 DOT_RTOL = 0.01
@@ -126,8 +130,38 @@ _PORT_STEPS = textwrap.dedent(r"""
             _, c = cost.count(collectives, group)
             res[f"wire|{name}"] = {"per_collective": dict(c.per_collective), "collectives": dict(c.collectives),
                                    "collective_bytes": c.collective_bytes, "hbm_bytes": c.hbm_bytes}
+
+        # a smoke decode step (batch 8, FSDP over data), gathering and
+        # weight-stationary: its all-gathers' input bytes and the bytes of
+        # every FSDP shard of a weight (a stacked one's, and one layer's)
+        from repro_torch import models
+        from repro_torch import tree as tree_util
+        from repro_torch.parallel import specs as sp
+        from repro_torch.serve.step import _walk, cache_specs, jit_serve_step, make_serve_step
+        for arch in %(decode_archs)r:
+            cfg = configs.get_smoke(arch)
+            for ws in (False, True):
+                plan = ParallelPlan(mesh=mesh, batch_axes=("data",), fsdp_axes=("data",), decode_feature_shard=ws)
+                params = models.init_params(0, cfg, plan, device="meta").tree()
+                pspecs = sp.param_specs(params, cfg, plan)
+                placed = sp.map_paths(lambda path, t: sp.place(t, sp.spec_at(pspecs, "/".join(path)), plan), params)
+                cache = models.init_cache(params, cfg, plan, 8, 64)
+                cache = _walk(lambda _, sp_, t: sp.place(t, sp_, plan), cache_specs(cache, cfg, plan), cache)
+                step = jit_serve_step(make_serve_step(cfg, plan), placed, cache, cfg, plan)
+                tokens = torch.zeros((8, 1), dtype=torch.int32, device="meta")
+                _, c = cost.count(step, placed, cache, tokens)
+                shards = set()
+                for path, t, spec in sp.spec_leaves(placed, pspecs):
+                    if any("data" in axes for axes in sp.spec_entries(spec, t.ndim)):
+                        local = t.to_local()
+                        shards.add(local.numel() * local.element_size())
+                        if path.split("/")[0].endswith("blocks"):  # a stacked leaf: one layer's too
+                            shards.add(local[0].numel() * local.element_size())
+                res[f"decode|{arch}|{ws}"] = {
+                    "collective_bytes": c.collective_bytes, "collectives": dict(c.collectives),
+                    "gather_inputs": [i for kind, i, o, g in c.log if kind == "all-gather"], "shards": sorted(shards)}
     json.dump(res, open(sys.argv[1], "w"))
-""") % {"archs": STEP_ARCHS}
+""") % {"archs": STEP_ARCHS, "decode_archs": DECODE_ARCHS}
 
 
 @pytest.fixture(scope="module")
@@ -282,6 +316,23 @@ def test_train_step_dot_flops_equal_the_references_hlo_cost(runs, arch):
     assert port["flops"] > port["dot_flops"]
 
 
+@pytest.mark.parametrize("arch", DECODE_ARCHS)
+def test_a_weight_stationary_decode_step_moves_fewer_collective_bytes(runs, arch):
+    """The weight-stationary decode step sums activations where the
+    gathering step gathers weights: fewer collective bytes, and no
+    all-gather the size of a weight's FSDP shard (the gathering step's
+    are)."""
+    out, _ = runs
+    res = json.loads((out / "port_steps.json").read_text())
+    gathering, stationary = res[f"decode|{arch}|False"], res[f"decode|{arch}|True"]
+    shards = set(gathering["shards"])
+    assert stationary["shards"] == gathering["shards"]  # the same placements
+    assert shards & set(gathering["gather_inputs"]), gathering
+    assert not shards & set(stationary["gather_inputs"]), stationary
+    assert stationary["collectives"]["all-reduce"] > 0
+    assert 0 < stationary["collective_bytes"] < gathering["collective_bytes"], (stationary, gathering)
+
+
 # ---------------------------------------------------------------------------
 # the dry run's CLI
 # ---------------------------------------------------------------------------
@@ -325,6 +376,30 @@ def test_dryrun_skipped_and_failed_cells_are_recorded(runs):
     err = json.loads((out / "dr" / "single" / "qwen1.5-0.5b__prefill_32k__bad.error.json").read_text())
     assert "remat" in err["error"] and "Traceback" in err["traceback"]
     assert not (out / "dr" / "single" / "qwen1.5-0.5b__prefill_32k__bad.json").exists()
+
+
+def test_the_dry_runs_peak_counts_a_viewed_argument_once():
+    """A step that views its arguments (a cache's layer, a parameter's
+    shard) holds no new storage for them: the temporaries are what the
+    step makes.  Without the arguments registered, a view's storage was
+    counted as new, once more beside the argument bytes."""
+    from torch.distributed._tools.mem_tracker import MemTracker
+
+    from repro_torch.launch import dryrun
+
+    cache = {"k": torch.empty(4, 1000, device="meta"), "v": torch.empty(4, 1000, device="meta")}
+
+    def step(c):
+        return c["k"][1] * 2.0 + c["v"][2]  # two views, two temporaries of 1,000 floats
+
+    tracker = dryrun.arguments_tracker((cache,))
+    with tracker:
+        step(cache)
+    assert dryrun.temp_bytes(tracker) == 2 * 4000
+    unregistered = MemTracker()
+    with unregistered:
+        step(cache)
+    assert dryrun.temp_bytes(unregistered) == 2 * 16000 + 2 * 4000  # what the peak double-counted
 
 
 def test_a_checkpointed_block_counts_the_products_that_run():

@@ -20,9 +20,8 @@ package's on the CPU.
 * configs and parameter paths: all ten architectures' values, shape cells
   and input specs equal the reference's; the model's leaf paths and shapes
   equal the reference tree's;
-* the plans of later slices raise ``NotImplementedError`` naming their
-  slice, and without a card the default device raises (the other families
-  are ``tests/test_torch_families.py``'s).
+* without a card the default device raises (the other families are
+  ``tests/test_torch_families.py``'s).
 
 Tolerances, float32 smoke configs: logits within 1e-4 absolute (XLA and
 torch sum, divide and take transcendentals in different orders and

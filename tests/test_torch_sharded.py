@@ -25,7 +25,12 @@ does.  All of them start together when the first test asks for one.
       and ``bwd_cast_bf16``, compressed gradients with a model axis,
       compressed moments, a lossless checkpoint of a sharded state and its
       resume, the launcher's ``--mesh data=2,model=2`` and the sharded
-      decode step.
+      decode step;
+  (e) the weight-stationary decode (``decode_feature_shard``): on the four
+      ranks, every family against the port's one process and its gathering
+      decode, no collective reading a parameter, and against the
+      reference's own weight-stationary ``jit_serve_step`` on its weights
+      (4 XLA devices); on the eight, TP 4 and a (pod, data) batch.
 """
 from __future__ import annotations
 
@@ -83,6 +88,31 @@ CMOM_PARAM_ATOL = 2e-4
 #: the sharded decode step's logits against one process's, over 5 tokens
 #: (measured at most 6.7e-6, deepseek-moe's)
 DECODE_ATOL = 2e-5
+
+#: the weight-stationary decode (``decode_feature_shard``, FSDP over data)
+#: on (2, 2), "arch/kv": every arch's batch over data but the MoE's,
+#: replicated unless "/data" says over data; against the port's one-process
+#: decode within DECODE_ATOL (over data, the MoE's one process decodes each
+#: data shard's rows on their own: capacity is per shard, as in the
+#: reference)
+STATIONARY_CASES = ["qwen1.5-0.5b/bf16", "qwen1.5-0.5b/int8", "granite-3-8b/bf16", "granite-3-8b/int8",
+                    "deepseek-moe-16b/bf16", "deepseek-moe-16b/bf16/data", "mamba2-2.7b/bf16", "zamba2-7b/bf16",
+                    "whisper-small/bf16"]
+#: the same plans against the reference's own weight-stationary decode
+#: (``jit_serve_step`` on 4 XLA devices) on its weights and tokens
+STATIONARY_REF_CASES = ["qwen1.5-0.5b/bf16", "granite-3-8b/bf16", "granite-3-8b/int8", "deepseek-moe-16b/bf16",
+                        "deepseek-moe-16b/bf16/data", "qwen3-moe-30b-a3b/bf16/data", "mamba2-2.7b/bf16",
+                        "zamba2-7b/bf16", "whisper-small/bf16"]
+#: on eight ranks, "mesh/arch/kv": TP 4 (granite's kv heads widened by
+#: kv_repeat 2; whisper cut to 2 heads, which TP 4 leaves whole on every
+#: rank) and a (pod, data) batch with FSDP over data only
+STATIONARY_8_CASES = ["2x4/granite-3-8b/bf16", "2x4/whisper-small-2heads/bf16", "2x2x2/qwen1.5-0.5b/bf16",
+                      "2x2x2/zamba2-7b/bf16"]
+#: the port's weight-stationary logits against the reference's on the same
+#: weights and tokens (measured at most 4.0e-6 for a bf16 cache, 1.3e-6 for
+#: int8): the bounds the one-process decode holds against the reference
+#: (an int8 code that rounds the other way moves a logit by about 1e-3)
+STATIONARY_REF_ATOL = {"bf16": 1e-4, "int8": 1e-2}
 
 _TIMEOUT = 300
 
@@ -269,6 +299,49 @@ _REF_GRANITE = textwrap.dedent(r"""
     json.dump({"loss": loss}, open(sys.argv[1] + "/granite_tp4.json", "w"))
 """)
 
+_REF_STATIONARY = textwrap.dedent(r"""
+    import os, sys, traceback
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as P
+    import repro.configs as configs
+    from repro import models
+    from repro.parallel import ParallelPlan, compat
+    from repro.serve.step import cache_specs, jit_serve_step, make_serve_step
+    out = sys.argv[1]
+    try:
+        mesh = compat.make_mesh((2, 2), ("data", "model"), auto_axis_types=True)
+        for case in %(cases)r:
+            arch, kv, *over = case.split("/")
+            cfg = configs.get_smoke(arch)
+            plan = ParallelPlan(mesh=mesh, batch_axes=("data",) if cfg.family != "moe" or over else (),
+                                fsdp_axes=("data",), kv_cache_dtype=kv, decode_feature_shard=True)
+            params = models.init_params(jax.random.PRNGKey(0), cfg, plan)
+            rng = np.random.default_rng(1)
+            frames = rng.standard_normal((4, cfg.enc_seq, cfg.d_model)).astype(np.float32) \
+                if cfg.family == "encdec" else None
+            tokens = rng.integers(0, cfg.vocab, (5, 4, 1)).astype(np.int32)
+            cache = models.init_cache(params, cfg, plan, 4, 16, enc_frames=None if frames is None else jnp.asarray(frames))
+            # the jitted step takes the cache in its placements (whisper's
+            # cross K/V come out of init_cache placed otherwise)
+            cache = jax.device_put(cache, jax.tree.map(lambda s: NamedSharding(mesh, s), cache_specs(cache, cfg, plan),
+                                                       is_leaf=lambda s: isinstance(s, P)))
+            step = jit_serve_step(make_serve_step(cfg, plan), params, cache, cfg, plan)
+            logits = []
+            for t in range(len(tokens)):
+                l, cache = step(params, cache, jnp.asarray(tokens[t]))
+                logits.append(np.asarray(l))
+            flat = {"p/" + "/".join(str(k.key) for k in path): np.asarray(leaf)
+                    for path, leaf in jax.tree_util.tree_flatten_with_path(params)[0]}
+            extra = {} if frames is None else {"frames": frames}
+            name = f"{out}/ws_{case.replace('/', '_')}"
+            np.savez(name + ".part.npz", tokens=tokens, logits=np.stack(logits), **extra, **flat)
+            os.replace(name + ".part.npz", name + ".npz")
+    except Exception:
+        open(f"{out}/ws_failed.txt", "w").write(traceback.format_exc())
+        raise
+""") % {"cases": STATIONARY_REF_CASES}
+
 _COMMON = textwrap.dedent(r"""
     import dataclasses, json, os, sys, time
     import numpy as np
@@ -321,6 +394,79 @@ _COMMON = textwrap.dedent(r"""
         par = max(float((whole(x) - whole(y)).abs().max())
                   for x, y in zip(tree_util.flatten(a["params"])[0], tree_util.flatten(b["params"])[0]))
         return {"loss_rel": loss, "norm_rel": norm, "param_abs": par, "losses": [x[0] for x in mb]}
+
+    def collectives_logged():
+        # the input's storage of every collective of parallel.comm, in order
+        from repro_torch.parallel import comm
+        seen = []
+
+        def logged(fn):
+            def call(x, *a, **k):
+                seen.append(x.untyped_storage().data_ptr())
+                return fn(x, *a, **k)
+            return call
+
+        for name in ("all_reduce", "all_gather", "reduce_scatter"):
+            setattr(comm, name, logged(getattr(comm, name)))
+        return seen
+
+    def placed(params, cfg, plan):
+        # the parameters as DTensors in param_specs placements
+        from repro_torch.models.lm import param_tree
+        from repro_torch.parallel import specs as sp
+        pspecs = sp.param_specs(params, cfg, plan)
+        return sp.map_paths(lambda path, t: sp.place(t, sp.spec_at(pspecs, "/".join(path)), plan), param_tree(params))
+
+    def stationary_decode(cfg, kv, mesh, batch_axes, cfg_one=None, steps=5, seen=None):
+        # the weight-stationary decode and the gathering one on mesh, against
+        # the port's one process (the MoE's batch over data: each data
+        # shard's rows on their own, capacity being per shard); with seen,
+        # how many collectives of each step took a parameter's storage
+        from repro_torch.serve.step import jit_serve_step, make_serve_step
+        kw = dict(mesh=mesh, fsdp_axes=("data",), kv_cache_dtype=kv, batch_axes=batch_axes)
+        ws, gat, one = ParallelPlan(**kw, decode_feature_shard=True), ParallelPlan(**kw), ParallelPlan(kv_cache_dtype=kv)
+        cfg_one = cfg_one or cfg
+        params = models.init_params(0, cfg, ws, device="cpu")
+        tree = placed(params, cfg, ws)
+        stores = {t.to_local().untyped_storage().data_ptr() for t in tree_util.flatten(tree)[0]}
+        g = torch.Generator().manual_seed(1)
+        frames = torch.randn((4, cfg.enc_seq, cfg.d_model), generator=g) if cfg.family == "encdec" else None
+        blocks = ws.dp if cfg.family == "moe" else 1
+        rows = 4 // blocks
+        c1 = [models.init_cache(params, cfg_one, one, rows, 16,
+                                enc_frames=None if frames is None else frames[j * rows:(j + 1) * rows])
+              for j in range(blocks)]
+        cw = models.init_cache(params, cfg, ws, 4, 16, enc_frames=frames)
+        cg = models.init_cache(params, cfg, gat, 4, 16, enc_frames=frames)
+        s1 = make_serve_step(cfg_one, one)
+        sw = jit_serve_step(make_serve_step(cfg, ws), tree, cw, cfg, ws)
+        sg = jit_serve_step(make_serve_step(cfg, gat), tree, cg, cfg, gat)
+        worst = worst_g = 0.0
+        on_params = {"stationary": 0, "gathering": 0, "collectives": 0}
+        for t in range(steps):
+            tok = torch.randint(0, cfg.vocab, (4, 1), generator=g)
+            l1 = []
+            for j in range(blocks):
+                l, c1[j] = s1(params, c1[j], tok[j * rows:(j + 1) * rows])
+                l1.append(l)
+            l1 = torch.cat(l1)
+            if seen is not None:
+                seen.clear()
+            lw, cw = sw(tree, cw, tok)
+            if seen is not None:
+                on_params["stationary"] += sum(p in stores for p in seen)
+                on_params["collectives"] += len(seen)
+                seen.clear()
+            lg, cg = sg(tree, cg, tok)
+            if seen is not None:
+                on_params["gathering"] += sum(p in stores for p in seen)
+            worst = max(worst, float((l1 - lw).abs().max()))
+            worst_g = max(worst_g, float((lg - lw).abs().max()))
+        out = {"max_abs": worst, "against_gathering": worst_g, "shape": list(lw.shape), "vocab": cfg.vocab,
+               "weight_stationary": ws.weight_stationary}
+        if seen is not None:
+            out["collective_inputs_on_params"] = on_params
+        return out
 
     def finish():
         RES["rank"] = dist.get_rank()
@@ -406,8 +552,23 @@ _WORKER8 = _COMMON + textwrap.dedent(r"""
     dist.all_reduce(l, group=plan8.dp_group())
     RES["granite"] = {"shapes_equal": shapes == want, "wk": shapes["blocks/attn/wk"], "kv_repeat":
                       plan8.kv_repeat(cfg.n_kv_heads, cfg.n_heads), "loss": float(l) / plan8.dp}
+
+    # the weight-stationary decode at TP 4 and over a (pod, data) batch
+    from repro_torch.parallel.specs import heads_shardable
+    RES["stationary"] = {}
+    for case in %(cases)r:
+        mname, arch, kv = case.split("/")
+        on = mesh if mname == "2x4" else pods
+        cfg = configs.get_smoke(arch.removesuffix("-2heads"))
+        if arch.endswith("-2heads"):
+            cfg = dataclasses.replace(cfg, n_heads=2, n_kv_heads=2)
+        ws = ParallelPlan(mesh=on, fsdp_axes=("data",), decode_feature_shard=True)
+        rep = ws.kv_repeat(cfg.n_kv_heads, cfg.n_heads)  # the one process holds the widened heads
+        r = stationary_decode(cfg, kv, on, ("pod", "data") if mname == "2x2x2" else ("data",),
+                              cfg_one=dataclasses.replace(cfg, n_kv_heads=cfg.n_kv_heads * rep))
+        RES["stationary"][case] = {**r, "kv_repeat": rep, "heads_shardable": heads_shardable(cfg, ws)}
     finish()
-""")
+""" % {"cases": STATIONARY_8_CASES})
 
 _WORKER4 = _COMMON + textwrap.dedent(r"""
     from repro_torch.ft import CheckpointManager, CheckpointPolicy, LeafPolicy
@@ -521,8 +682,53 @@ _WORKER4 = _COMMON + textwrap.dedent(r"""
             lm, cm = sm(params, cm, tok)
             worst = max(worst, float((l1 - lm).abs().max()))
         RES["decode"][f"{arch}/{kv}"] = {"max_abs": worst, "shape": list(lm.shape), "vocab": cfg.vocab}
+
+    # the weight-stationary decode against one process and the gathering
+    # decode, and the storage each of its collectives read
+    seen = collectives_logged()
+    RES["stationary"] = {}
+    for case in %(cases)r:
+        arch, kv, *over = case.split("/")
+        cfg = configs.get_smoke(arch)
+        RES["stationary"][case] = stationary_decode(
+            cfg, kv, mesh, ("data",) if cfg.family != "moe" or over else (), seen=seen)
+
+    # the reference's weight-stationary decode: its weights and tokens
+    RES["stationary_ref"] = {}
+    ref = sys.argv[2] if len(sys.argv) > 2 else ""
+    from repro_torch.serve.step import jit_serve_step, make_serve_step
+    for case in (%(ref_cases)r if ref else []):
+        path = f"{ref}/ws_{case.replace('/', '_')}.npz"
+        deadline = time.time() + 240
+        while not os.path.exists(path) and not os.path.exists(f"{ref}/ws_failed.txt") and time.time() < deadline:
+            time.sleep(0.2)
+        if not os.path.exists(path):
+            RES["stationary_ref"][case] = {"error": "the reference wrote no result"}
+            continue
+        arch, kv, *over = case.split("/")
+        cfg = configs.get_smoke(arch)
+        z = np.load(path)
+        tree = {}
+        for key in z.files:
+            if key.startswith("p/"):
+                node = tree
+                *keys, last = key[2:].split("/")
+                for k in keys:
+                    node = node.setdefault(k, {})
+                node[last] = z[key]
+        params = models.params_from_numpy(tree, cfg, device="cpu")
+        plan = ParallelPlan(mesh=mesh, batch_axes=("data",) if cfg.family != "moe" or over else (),
+                            fsdp_axes=("data",), kv_cache_dtype=kv, decode_feature_shard=True)
+        frames = torch.from_numpy(z["frames"]) if "frames" in z.files else None
+        cache = models.init_cache(params, cfg, plan, 4, 16, enc_frames=frames)
+        step = jit_serve_step(make_serve_step(cfg, plan), params, cache, cfg, plan)
+        worst = 0.0
+        for t in range(len(z["tokens"])):
+            logits, cache = step(params, cache, torch.from_numpy(z["tokens"][t]))
+            worst = max(worst, float(np.abs(logits.numpy() - z["logits"][t]).max()))
+        RES["stationary_ref"][case] = {"max_abs": worst, "shape": list(logits.shape)}
     finish()
-""")
+""" % {"cases": STATIONARY_CASES, "ref_cases": STATIONARY_REF_CASES})
 
 
 # ---------------------------------------------------------------------------
@@ -534,14 +740,15 @@ def runs(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("sharded")
     scripts = {}
     for name, body in (("ref_specs", _REF_SPECS), ("port_specs", _PORT_SPECS), ("ref_granite", _REF_GRANITE),
-                       ("w8", _WORKER8), ("w4", _WORKER4)):
+                       ("ref_stationary", _REF_STATIONARY), ("w8", _WORKER8), ("w4", _WORKER4)):
         scripts[name] = tmp / f"{name}.py"
         scripts[name].write_text(body)
     for d in ("w8", "w4", "ref"):
         (tmp / d).mkdir()
     procs = {"port_specs": [_spawn(scripts["port_specs"], [tmp / "port_specs.json"])],
-             "w4": _spawn_group(4, scripts["w4"], [tmp / "w4"])}
+             "w4": _spawn_group(4, scripts["w4"], [tmp / "w4", tmp / "ref" if HAVE_JAX else ""])}
     if HAVE_JAX:
+        procs["ref_stationary"] = [_spawn(scripts["ref_stationary"], [tmp / "ref"])]
         procs["ref_granite"] = [_spawn(scripts["ref_granite"], [tmp / "ref"])]
         procs["ref_specs"] = [_spawn(scripts["ref_specs"], [tmp / "ref_specs.json"])]
         procs["w8"] = _spawn_group(8, scripts["w8"], [tmp / "w8", tmp / "ref"])
@@ -814,6 +1021,51 @@ def test_the_sharded_decode_step_matches_one_process(w4, case):
     assert all(x["decode"][case] == r for x in res)  # the logits come back whole on every rank
 
 
+@pytest.mark.parametrize("case", STATIONARY_CASES)
+def test_the_weight_stationary_decode_matches_one_process(w4, case):
+    res, _ = w4
+    r = res[0]["stationary"][case]
+    assert r["weight_stationary"] and r["shape"] == [4, r["vocab"]], r
+    assert r["max_abs"] <= DECODE_ATOL and r["against_gathering"] <= DECODE_ATOL, r
+    assert all(x["stationary"][case] == r for x in res)  # the logits come back whole on every rank
+
+
+def test_no_collective_of_a_weight_stationary_step_reads_a_parameter(w4):
+    """Every collective of ``parallel.comm`` in a weight-stationary step
+    reads an activation: none takes a parameter's storage, over five
+    steps of each case; the gathering step's FSDP gathers do, which shows
+    the log sees a parameter where one is gathered."""
+    res, _ = w4
+    for case, r in res[0]["stationary"].items():
+        c = r["collective_inputs_on_params"]
+        assert c["stationary"] == 0 and c["collectives"] > 0, (case, c)
+        assert c["gathering"] > 0, (case, c)
+
+
+@needs_reference
+@pytest.mark.parametrize("case", STATIONARY_REF_CASES)
+def test_the_weight_stationary_decode_matches_the_references(w4, runs, case):
+    runs[1]("ref_stationary")
+    res, _ = w4
+    r = res[0]["stationary_ref"][case]
+    assert "error" not in r and r["shape"][0] == 4, r
+    assert r["max_abs"] <= STATIONARY_REF_ATOL[case.split("/")[1]], r
+
+
+@needs_reference
+@pytest.mark.parametrize("case", STATIONARY_8_CASES)
+def test_the_weight_stationary_decode_on_eight_ranks(w8, case):
+    res, _ = w8
+    r = res[0]["stationary"][case]
+    assert r["weight_stationary"] and r["shape"] == [4, r["vocab"]], r
+    assert r["max_abs"] <= DECODE_ATOL and r["against_gathering"] <= DECODE_ATOL, r
+    if case.startswith("2x4/granite"):
+        assert r["kv_repeat"] == 2 and r["heads_shardable"], r
+    if "2heads" in case:
+        assert not r["heads_shardable"], r
+    assert all(x["stationary"][case] == r for x in res)
+
+
 # ---------------------------------------------------------------------------
 # a reference fault the port repairs
 # ---------------------------------------------------------------------------
@@ -846,14 +1098,54 @@ def test_batch_specs_of_a_replicated_batch():
         r_batch_specs({"tokens": jax.ShapeDtypeStruct((1, 1), "int32")}, RPlan(mesh=mesh, batch_axes=()))
 
 
-def test_decode_feature_shard_is_refused_with_fsdp_axes():
-    """The weight-stationary decode is not implemented: a plan that asks
-    for it with FSDP axes raises rather than silently gathering weights."""
+class _GroupMesh(_Mesh):
+    """A stand-in whose axes' groups are their names."""
+
+    def get_group(self, name):
+        return f"group:{name}"
+
+
+def test_a_weight_stationary_plan_builds_and_reports_its_feature_groups():
+    """``decode_feature_shard`` with FSDP axes builds a plan whose decode
+    keeps the weights at their shards, its stream's features over the
+    FSDP axes that the mesh has; without FSDP axes or a mesh the flag
+    changes nothing."""
     from repro_torch.parallel import ParallelPlan
 
-    with pytest.raises(NotImplementedError, match="decode_feature_shard"):
-        ParallelPlan(mesh=_Mesh(), fsdp_axes=("data",), decode_feature_shard=True)
-    assert ParallelPlan(mesh=_Mesh(), decode_feature_shard=True).decode_feature_shard
+    plan = ParallelPlan(mesh=_GroupMesh(), fsdp_axes=("data",), decode_feature_shard=True)
+    assert plan.weight_stationary and plan.feature_groups() == ["group:data"]
+    pods = ParallelPlan(mesh=_GroupMesh(), batch_axes=("pod", "data"), fsdp_axes=("pod", "data"),
+                        decode_feature_shard=True)
+    assert pods.weight_stationary and pods.feature_groups() == ["group:data"]  # the axes the mesh has
+    assert not ParallelPlan(mesh=_GroupMesh(), decode_feature_shard=True).weight_stationary
+    assert not ParallelPlan(mesh=_GroupMesh(), fsdp_axes=("data",)).weight_stationary
+    assert not ParallelPlan(fsdp_axes=("data",), decode_feature_shard=True).weight_stationary
+
+
+@pytest.mark.parametrize("factor", [1.25, 16.0])
+def test_a_dispatch_in_blocks_is_each_blocks_own_dispatch(monkeypatch, factor):
+    """The weight-stationary decode routes every row on every rank in the
+    reference's data-parallel blocks: two blocks give what each half of
+    the tokens gives on its own (outputs bit for bit, the aux loss their
+    mean, the share dropped theirs), at the default capacity and
+    drop-free."""
+    from repro_torch.models import moe
+
+    monkeypatch.setattr(moe, "CAPACITY_FACTOR", factor)
+    g = torch.Generator().manual_seed(2)
+    T, d, E, f, k = 40, 16, 8, 12, 2
+    x = torch.randn(T, d, generator=g) + 1.0
+    router = torch.randn(d, E, generator=g)
+    router[:, 0] = 1.0  # most tokens pick expert 0: past its capacity at the default
+    w1, w3 = torch.randn(E, d, f, generator=g), torch.randn(E, d, f, generator=g)
+    w2 = torch.randn(E, f, d, generator=g)
+    y, aux, dropped = moe._moe_local(x, router, w1, w3, w2, top_k=k, n_experts=E, blocks=2)
+    halves = [moe._moe_local(x[i:i + T // 2], router, w1, w3, w2, top_k=k, n_experts=E) for i in (0, T // 2)]
+    assert torch.equal(y, torch.cat([h[0] for h in halves]))
+    torch.testing.assert_close(aux, (halves[0][1] + halves[1][1]) / 2)
+    torch.testing.assert_close(dropped, (halves[0][2] + halves[1][2]) / 2)
+    if factor == 1.25:
+        assert float(dropped) > 0  # the capacity of a block of 20 tokens drops some
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])

@@ -98,8 +98,8 @@ def port_routing(pin=None):
     real = moe._route
     calls, pins = [], list(pin or [])
 
-    def route(x, router, top_k):
-        probs, gates, idx = real(x, router, top_k)
+    def route(x, router, top_k, *rest):
+        probs, gates, idx = real(x, router, top_k, *rest)
         if pin is not None:
             idx = torch.as_tensor(np.asarray(pins.pop(0)), device=idx.device, dtype=idx.dtype)
             gates = torch.gather(probs, -1, idx)

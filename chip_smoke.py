@@ -7,7 +7,8 @@ Phases, one JSON line each:
 1. environment: the card, torch and CUDA versions, which host packages
    import (they decide the container's lossless backend and checksum);
 2. build: compile the five CUDA sources under
-   ``src/repro_torch/kernels/*/csrc`` (one ``nvcc`` each, all at once);
+   ``src/repro_torch/kernels/*/csrc`` and the transform's baseline (one
+   ``nvcc`` each, all at once);
 3. kernels: each kernel against its plain version on the card, bit for bit
    (NaN equal to NaN), at the main paths' shapes and ragged ones, with its
    time, the plain version's time, a PyTorch library call's time and its
@@ -16,10 +17,15 @@ Phases, one JSON line each:
    sums that wrap int32; ``decode_2d`` also at the chunk shapes (291, 3600)
    and (54, 3600), on (1, 5000), (5000, 1), (2, 4099), (65, 129) and on
    wrapping sums (3, 70001) and (300, 1000); chunk shapes timed over
-   ``CHUNK_REPS`` calls), the float32 transform (``fwd``/``inv``,
+   ``CHUNK_REPS`` calls), the transform rotation (``fwd``/``inv``,
    1d and 2d modes; also, over 101 calls, at the ``checkpoint`` phase's
    chunks (1024, 1024) and 1-row chunks padded to (4, 2^20) and
-   (4, 2883584)), the float64 transform axis product (against numpy's
+   (4, 2883584); bit for bit for every pair of float32 and float64 input
+   and output at those shapes, 1800x3600 and (1, 2^24+4), where it is also
+   timed in turns against the kernel it replaced (``tools/baseline/``,
+   built beside the port's sources), and the coder's float64 stage, one
+   launch, against the cast, kernel, cast sequence it replaced), the
+   float64 transform axis product (against numpy's
    product on the host), the fast tier's ``block_stats`` (bs 128, 256;
    also at the throughput tier's chunk 4096x256, on 1 and 8003 blocks and
    on NaN and +-inf inside blocks and as whole blocks) and
@@ -270,7 +276,10 @@ on the CPU within the bound.
 
 The last three lines are the ``{"kernels": [...]}`` summary (with
 ``chunk_*`` and ``row_chunk_*`` fields where a kernel was also timed at a
-chunk shape, ``serve_*`` fields for the kvquant append kernels at the decode
+chunk shape, ``parent_ms``, ``stage_ms``, ``old_stage_ms`` and
+``stage_bound_ms`` (and their ``chunk_``/``row_chunk_`` forms) for the
+transform rotation's turns against the kernel and the stage it replaced,
+``serve_*`` fields for the kvquant append kernels at the decode
 shape, whose ``launches`` include the serve phase's, and ``families_*``
 fields with their launches and times per family), the card's name
 and power limit as ``nvidia-smi`` prints them, and
@@ -284,7 +293,9 @@ import argparse
 import collections
 import concurrent.futures
 import contextlib
+import ctypes
 import dataclasses
+import functools
 import importlib
 import json
 import math
@@ -313,6 +324,8 @@ _TRANSFORM_SRC = "src/repro_torch/kernels/transform/csrc/transform.cu"
 _FASTMODE_SRC = "src/repro_torch/kernels/fastmode/csrc/fastmode.cu"
 _KVQUANT_SRC = "src/repro_torch/kernels/kvquant/csrc/kvquant.cu"
 _BITPLANE_SRC = "src/repro_torch/kernels/bitplane/csrc/bitplane.cu"
+#: the transform rotation's first design, the yardstick of its turns
+_TRANSFORM_BASELINE_SRC = "tools/baseline/transform_baseline.cu"
 #: summary name -> (source, the TPU kernel or host code it replaces)
 _KERNELS = {
     "encode_1d": (_LORENZO_SRC, "src/repro/kernels/lorenzo/kernel.py:107"),
@@ -476,9 +489,25 @@ def _kernel_modules():
     return {"lorenzo": LK, "transform": TK, "fastmode": FK, "kvquant": KK, "bitplane": BK}
 
 
+def _declare_transform_baseline(lib) -> None:
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    lib.transform_f32.argtypes = [p, p, i64, i64, p, i32, p]
+    lib.transform_f32.restype = ctypes.c_int
+
+
+@functools.cache
+def transform_baseline():
+    """The transform rotation's first design (float32 only), built like the
+    port's sources into ``tools/build/``; no path of the port calls it."""
+    from repro_torch.kernels._build import CudaLibrary
+
+    return CudaLibrary(ROOT / _TRANSFORM_BASELINE_SRC, "transform_baseline", _declare_transform_baseline)
+
+
 def phase_build() -> None:
-    """Build the five CUDA sources at once: one nvcc process each."""
-    mods = _kernel_modules()
+    """Build the five CUDA sources and the transform's baseline at once: one
+    nvcc process each."""
+    mods = dict(_kernel_modules(), transform_baseline=transform_baseline())
     t0 = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(mods)) as pool:
         paths = dict(zip(mods, pool.map(lambda m: m.build(), mods.values())))
@@ -821,7 +850,98 @@ def transform_kernels(timer, bw: float, x2d: torch.Tensor, x1d: torch.Tensor) ->
                 _check_case(f"transform_axis_f64 {label} axis {ax} {mname}", case)
                 if label == "2-D" and ax == 1 and mname == "MAT^T":
                     cases["transform_axis_f64"] = case
+    for name, turns in transform_turns(bw).items():
+        cases[name].update(turns)
     return cases
+
+
+#: where the rotation is timed in turns: (label, mode, shape), the
+#: checkpoint's chunks and the main paths' padded shapes
+TRANSFORM_TURNS = (
+    ("chunk", "2d", TRANSFORM_CHUNKS["chunk"]),
+    ("row_chunk_attn", "2d", TRANSFORM_CHUNKS["row_chunk_attn"]),
+    ("row_chunk", "2d", TRANSFORM_CHUNKS["row_chunk"]),
+    ("main", "2d", SHAPE2D),
+    ("main", "1d", (1, N1D + 1)),
+)
+#: summary-field prefix of each label's turns
+_TURN_PREFIX = {"main": "", "chunk": "chunk_", "row_chunk": "row_chunk_"}
+
+
+def baseline_rotate(x: torch.Tensor, mat: np.ndarray, mode: str) -> torch.Tensor:
+    """The baseline kernel on a contiguous float32 CUDA tensor."""
+    from repro_torch.kernels._build import check_launch, stream
+
+    lib = transform_baseline().load()
+    out = torch.empty_like(x)
+    rows, cols = x.shape
+    err = lib.transform_f32(x.data_ptr(), out.data_ptr(), rows, cols, mat.ctypes.data, int(mode == "2d"), stream())
+    check_launch(err, "transform baseline")
+    return out
+
+
+def in_turns(timer, old, new) -> tuple:
+    """Median times of ``old`` and ``new``, each taken twice, in the order
+    old, new, new, old."""
+    first, n1, n2, last = timer(old), timer(new), timer(new), timer(old)
+    return [first, last], [n1, n2]
+
+
+def transform_turns(bw: float) -> dict:
+    """At each of ``TRANSFORM_TURNS``: the rotation bit for bit against its
+    plain version for every pair of float32 and float64 input and output
+    (float64 values that float32 does not hold), the baseline kernel's
+    float32 result bit for bit too; then, L2 flushed, the rotation against
+    the baseline (float32 in and out) and the coder's float64 stage, one
+    launch, against the stage it replaced (cast to float32, the baseline,
+    cast back), each in turns.  Returns summary fields by case name."""
+    from repro_torch.kernels.transform import kernel as K
+    from repro_torch.kernels.transform import ref as R
+
+    timer = Timer(reps=CHUNK_REPS, warmup=5)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    f32, f64 = torch.float32, torch.float64
+    fields: dict = {}
+    for label, mode, shape in TRANSFORM_TURNS:
+        x64 = torch.randn(shape, generator=g, device="cuda", dtype=f64) * (100 / 3)
+        x32 = x64.to(f32)
+        rows, cols = shape
+        n = x64.numel()
+        ops = (14 if mode == "2d" else 7) * n
+        for name, kfn, rfn, mat in (("fwd", K.fwd, R.fwd, K._FWD), ("inv", K.inv, R.inv, K._INV)):
+            what = f"transform_{name}_{mode} {label} {rows}x{cols}"
+            for src in (x32, x64):
+                for dst in (f32, f64):
+                    got = kfn(src, mode, out_dtype=dst)
+                    torch.cuda.synchronize()
+                    if not same_bits(got, rfn(src, mode, out_dtype=dst)):
+                        raise AssertionError(f"{what}: {src.dtype} in, {dst} out differs from the plain version")
+            if not same_bits(baseline_rotate(x32, mat, mode), kfn(x32, mode)):
+                raise AssertionError(f"{what}: the baseline kernel's bits differ")
+            parent_ms, ms = in_turns(timer, lambda: baseline_rotate(x32, mat, mode), lambda: kfn(x32, mode))
+            old_stage_ms, stage_ms = in_turns(
+                timer, lambda: baseline_rotate(x64.to(f32), mat, mode).to(f64), lambda: kfn(x64, mode, out_dtype=f64))
+            kb, sb = bound(8 * n, ops, bw), bound(16 * n, ops, bw)
+            line = {
+                "shape": [rows, cols], "mode": mode, "dtype_pairs_bit_identical": True,
+                "parent_ms": parent_ms, "ms": ms, "bound_ms": kb["bound_ms"], "bound_by": kb["bound_by"],
+                "old_stage_ms": old_stage_ms, "stage_ms": stage_ms, "stage_bound_ms": sb["bound_ms"],
+                "stage_bound_by": sb["bound_by"],
+                "bound_share": kb["bound_ms"] / statistics.mean(ms),
+                "parent_bound_share": kb["bound_ms"] / statistics.mean(parent_ms),
+                "stage_bound_share": sb["bound_ms"] / statistics.mean(stage_ms),
+                "old_stage_bound_share": sb["bound_ms"] / statistics.mean(old_stage_ms),
+            }
+            emit(f"transform turns {what}", **line)
+            if label in _TURN_PREFIX:
+                pre = _TURN_PREFIX[label]
+                fields.setdefault(f"transform_{name}_{mode}", {}).update({
+                    pre + "parent_ms": statistics.mean(parent_ms),
+                    pre + "stage_ms": statistics.mean(stage_ms),
+                    pre + "old_stage_ms": statistics.mean(old_stage_ms),
+                    pre + "stage_bound_ms": sb["bound_ms"],
+                })
+    return fields
 
 
 def block_stats_kernels(timer, bw: float, x2d: torch.Tensor, x1d: torch.Tensor) -> dict:
@@ -1451,6 +1571,25 @@ def _nfail(header) -> int:
     raise KeyError("no fail-channel count in the header")
 
 
+@contextlib.contextmanager
+def recorded_rotations():
+    """(input dtype, output dtype) of each transform rotation launched inside."""
+    from repro_torch.kernels.transform import kernel as TK
+
+    seen = []
+    rotate = TK._rotate
+
+    def spy(name, x, mat, mode, out_dtype):
+        seen.append((str(x.dtype), str(out_dtype)))
+        return rotate(name, x, mat, mode, out_dtype)
+
+    TK._rotate = spy
+    try:
+        yield seen
+    finally:
+        TK._rotate = rotate
+
+
 def phase_main_path(pipeline: str, label: str, x: torch.Tensor, launches_total) -> None:
     import repro_torch.core as tc
 
@@ -1460,9 +1599,13 @@ def phase_main_path(pipeline: str, label: str, x: torch.Tensor, launches_total) 
     comp = factory()
     comp.compress(x[:64].contiguous() if x.ndim == 2 else x[: 1 << 17], conf)  # warm-up
     reset_all_launches()
-    res, t_c = _timed(lambda: comp.compress(x, conf))
-    out, t_d = _timed(lambda: tc.decompress(res.blob))
+    with recorded_rotations() as rotations:
+        res, t_c = _timed(lambda: comp.compress(x, conf))
+        out, t_d = _timed(lambda: tc.decompress(res.blob))
     launches = all_launches()
+    # the coder hands the rotation its float64 grids: no cast pass around it
+    if any(src != "torch.float64" for src, _ in rotations):
+        raise AssertionError(f"{pipeline} {label}: a transform rotation was given {rotations}, not float64 grids")
     for name, want in expected.items():
         if launches[name] == 0 or (want is not None and launches[name] != want):
             raise AssertionError(
@@ -1504,6 +1647,7 @@ def phase_main_path(pipeline: str, label: str, x: torch.Tensor, launches_total) 
         lossless=header["spec"]["lossless"],
         same_bytes_as_plain=True,
         launches={k: v for k, v in launches.items() if v},
+        rotation_dtypes=rotations,
         stages=stage_breakdown(pipeline, x, conf),
     )
 
@@ -1749,7 +1893,7 @@ def _stage_patches(pipeline: str):
             (tops, "fwd_pipeline", "forward transform (device)"),
             (transform, "_quantize_coeffs", "quantize (device)"),
             (transform, "_inv_host", "float64 inverse (device)"),
-            (tops, "inv_pipeline", "float32 inverse (device)"),
+            (tops, "inv_pipeline", "float32 inverse kernel (device)"),
             (transform, "_encode_bands", "bitplane encode (host)"),
             (transform, "_decode_bands", "bitplane decode (host)"),
             (transform, "to_host", "copies to the host"),
@@ -4880,7 +5024,8 @@ def main() -> int:
                 "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"],
                 "library_ms": c["library_ms"],
-                **{k: v for k, v in c.items() if k.startswith(("chunk_", "row_chunk_", "serve_", "families_"))},
+                **{k: v for k, v in c.items()
+                   if k.startswith(("chunk_", "row_chunk_", "serve_", "families_", "parent_", "stage_", "old_stage_"))},
             }
             for name, c in cases.items()
         ]

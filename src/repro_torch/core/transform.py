@@ -25,9 +25,11 @@ lossless stage run on the host.  Two routes compute the coefficients:
     float64 axis kernel (rounded as numpy rounds) on CUDA tensors, so the
     blob equals the JAX package's host-route blob byte for byte.
   * kernel route — 1-D/2-D float32 data of at least 4096 elements: the
-    float32 ``fwd``/``inv`` kernels (``kernels/transform``).  Compress
-    verifies the reconstruction against the float64 host inverse AND the
-    float32 kernel inverse and patches stragglers, then tags the blob
+    ``fwd``/``inv`` kernels (``kernels/transform``), which compute in
+    float32 and read and write the coder's float64 grids themselves, one
+    launch each with no cast pass around it.  Compress verifies the
+    reconstruction against the float64 host inverse AND the float32 kernel
+    inverse and patches stragglers, then tags the blob
     ``device_backend = "repro_torch"``.
 
 ``route="auto"`` takes the kernel route for CUDA tensors only, ``"force"``
@@ -262,7 +264,7 @@ class TransformCompressor:
         kernel = self._kernel_ok(x)
         if kernel:
             with tel.span("device_transfer", bytes=xp.numel() * 8):
-                c = tops.fwd_pipeline(xp.to(torch.float32)).to(torch.float64)
+                c = tops.fwd_pipeline(xp, out_dtype=torch.float64)
         else:
             with tel.span("predict", bytes=xp.numel() * 8):  # decorrelating stage
                 c = _fwd_host(xp)
@@ -279,8 +281,9 @@ class TransformCompressor:
         recon_cast = recon.to(data.dtype).to(torch.float64)
         fail = ~finite | ((recon_cast - x64).abs() > abs_eb)
         if kernel:
-            recon_k = tops.inv_pipeline(kstep.to(torch.float32)).to(torch.float64)[crop]
-            recon_k = recon_k.to(data.dtype).to(torch.float64)
+            # float32 values widened: the cast to the float32 data's dtype
+            # and back is the identity
+            recon_k = tops.inv_pipeline(kstep, out_dtype=torch.float64)[crop]
             fail |= (recon_k - x64).abs() > abs_eb
             meta["device"] = 1
             # the float32-inverse verification above covers this package's
@@ -367,8 +370,10 @@ class TransformCompressor:
         crop = tuple(slice(0, s) for s in crop_shape)
         if meta.get("device") and meta.get("device_backend") == BACKEND_TAG and len(pshape) in (1, 2):
             # compress verified this blob against the float32 inverse, whose
-            # kernel and plain version are bit-identical
-            out = tops.inv_pipeline(kstep.to(torch.float32)).to(torch.float64)[crop]
+            # kernel and plain version are bit-identical; a float32 blob takes
+            # it in float32, which the final cast leaves as it is
+            out_dtype = torch.float32 if dtype == torch.float32 else torch.float64
+            out = tops.inv_pipeline(kstep, out_dtype=out_dtype)[crop]
         else:
             out = _inv_host(kstep)[crop]
         if meta.get("nfail"):
@@ -380,7 +385,8 @@ class TransformCompressor:
                     f"values for {int(mask.sum())} masked points"
                 )
             out = out.reshape(-1).clone()
-            out[mask] = torch.from_numpy(vals.copy()).to(device)
+            # rounded to a float32 ``out`` as the final cast would round them
+            out[mask] = torch.from_numpy(vals.copy()).to(device, out.dtype)
         return out.to(dtype).reshape(shape)
 
 

@@ -4,11 +4,12 @@ The source is built at first launch by :mod:`.._build` (``nvcc`` for
 ``sm_90a``, a plain C interface loaded with ``ctypes``, into ``build/``
 beside this file).  Nothing is built or loaded at import.
 
-Each wrapper takes CUDA tensors only, checks device, dtype, shape and
-contiguity, allocates its output with ``torch.empty``, launches on
-``torch.cuda.current_stream()``, raises if the launch reports an error, and
-adds one to its entry in :data:`LAUNCHES`.  The choice between a kernel and
-its plain version (``ref.py``) is made in ``ops.py``, by the tensor's device.
+Each wrapper takes CUDA tensors only, checks device, dtype, shape,
+contiguity and alignment, allocates its output with ``torch.empty``,
+launches on ``torch.cuda.current_stream()``, raises if the launch reports an
+error, and adds one to its entry in :data:`LAUNCHES`.  The choice between a
+kernel and its plain version (``ref.py``) is made in ``ops.py``, by the
+tensor's device.
 """
 from __future__ import annotations
 
@@ -44,8 +45,8 @@ def reset_launches() -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-    lib.transform_f32.argtypes = [p, p, i64, i64, p, i32, p]
-    lib.transform_f32.restype = ctypes.c_int
+    lib.transform_rotate.argtypes = [p, p, i64, i64, p, i32, i32, i32, p]
+    lib.transform_rotate.restype = ctypes.c_int
     lib.transform_axis_f64.argtypes = [p, p, i64, i64, i64, p, i32, p]
     lib.transform_axis_f64.restype = ctypes.c_int
 
@@ -56,45 +57,48 @@ load = LIBRARY.load
 library_path = LIBRARY.library_path
 
 
-def _check(t: torch.Tensor, dtype: torch.dtype, what: str) -> torch.Tensor:
+def _check(t: torch.Tensor, dtypes, what: str) -> torch.Tensor:
+    if t.dtype not in dtypes:
+        raise ValueError(f"{what}: expected one of {dtypes}, got {t.dtype}")
     if t.device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel needs a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise ValueError(f"{what}: expected {dtype}, got {t.dtype}")
     t = t.contiguous()
-    if t.data_ptr() % 16:  # float4 loads need 16-byte alignment
+    if t.data_ptr() % 16:  # 16-byte vector loads need 16-byte alignment
         t = t.clone()
     return t
 
 
-def _rotate(name: str, x: torch.Tensor, mat: np.ndarray, mode: str) -> torch.Tensor:
+def _rotate(name: str, x: torch.Tensor, mat: np.ndarray, mode: str, out_dtype: torch.dtype) -> torch.Tensor:
     if mode not in _MODES:
         raise ValueError(f"mode must be one of {_MODES}, got {mode!r}")
     what = f"{name}_{mode}"
-    x = _check(x, torch.float32, what)
+    _ref.check_dtypes(x.dtype, out_dtype, what)
+    x = _check(x, _ref.DTYPES, what)
     if x.ndim != 2 or x.shape[1] % 4 or (mode == "2d" and x.shape[0] % 4):
         raise ValueError(f"{what}: shape {tuple(x.shape)} is not a whole number of blocks")
     rows, cols = x.shape
     lib = load()
-    out = torch.empty_like(x)
+    out = torch.empty(x.shape, dtype=out_dtype, device=x.device)
     with torch.cuda.device(x.device):
-        err = lib.transform_f32(
-            x.data_ptr(), out.data_ptr(), rows, cols, mat.ctypes.data,
-            int(mode == "2d"), stream(),
+        err = lib.transform_rotate(
+            x.data_ptr(), out.data_ptr(), rows, cols, mat.ctypes.data, int(mode == "2d"),
+            int(x.dtype == torch.float64), int(out_dtype == torch.float64), stream(),
         )
     check_launch(err, what)
     count_launch(LAUNCHES, what)
     return out
 
 
-def fwd(x: torch.Tensor, mode: str = "2d") -> torch.Tensor:
-    """(R, C) float32, transformed axes multiples of 4 -> coefficients."""
-    return _rotate("fwd", x, _FWD, mode)
+def fwd(x: torch.Tensor, mode: str = "2d", out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(R, C) float32 or float64, transformed axes multiples of 4 ->
+    coefficients, computed in float32 (a float64 input is rounded to float32
+    on load), written as ``out_dtype`` (float32 or float64)."""
+    return _rotate("fwd", x, _FWD, mode, out_dtype)
 
 
-def inv(c: torch.Tensor, mode: str = "2d") -> torch.Tensor:
-    """Inverse rotation (MAT^T) of a coefficient grid."""
-    return _rotate("inv", c, _INV, mode)
+def inv(c: torch.Tensor, mode: str = "2d", out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse rotation (MAT^T) of a coefficient grid, as :func:`fwd`."""
+    return _rotate("inv", c, _INV, mode, out_dtype)
 
 
 def axis_f64(x: torch.Tensor, m: np.ndarray, ax: int) -> torch.Tensor:
@@ -103,7 +107,7 @@ def axis_f64(x: torch.Tensor, m: np.ndarray, ax: int) -> torch.Tensor:
     axis pattern and matrix (:func:`ref.numpy_rounding`, one of
     :data:`ref.ORDERS`, see ``csrc/transform.cu``); an error where numpy
     uses none of them."""
-    x = _check(x, torch.float64, "axis_f64")
+    x = _check(x, (torch.float64,), "axis_f64")
     if not 0 <= ax < x.ndim or x.shape[ax] % 4:
         raise ValueError(f"axis_f64: axis {ax} of {tuple(x.shape)} is not a whole number of blocks")
     order = _ref.numpy_rounding(tuple(x.shape), ax, m)

@@ -17,15 +17,16 @@ AMP_1AXIS = _ref.AMP_1AXIS
 MAT = _ref.MAT
 
 
-def transform_fwd(x: torch.Tensor, *, mode: str = "2d") -> torch.Tensor:
-    """(R, C) float32, transformed axes multiples of 4 -> coefficient grid."""
+def transform_fwd(x: torch.Tensor, *, mode: str = "2d", out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(R, C) float32 or float64, transformed axes multiples of 4 ->
+    coefficient grid, computed in float32 and written as ``out_dtype``."""
     fn = _ref.fwd if x.device.type == "cpu" else _k.fwd
-    return fn(x, mode=mode)
+    return fn(x, mode=mode, out_dtype=out_dtype)
 
 
-def transform_inv(c: torch.Tensor, *, mode: str = "2d") -> torch.Tensor:
+def transform_inv(c: torch.Tensor, *, mode: str = "2d", out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
     fn = _ref.inv if c.device.type == "cpu" else _k.inv
-    return fn(c, mode=mode)
+    return fn(c, mode=mode, out_dtype=out_dtype)
 
 
 def _as_rows(t: torch.Tensor):
@@ -35,18 +36,21 @@ def _as_rows(t: torch.Tensor):
     return t.reshape(1, -1), "1d"
 
 
-def fwd_pipeline(x: torch.Tensor) -> torch.Tensor:
-    """Forward float32 transform for the coder: 1-D or 2-D, already padded
-    to multiples of 4 along the transformed axes (``core/transform.py`` owns
-    the edge padding), on the input's device."""
-    x2, mode = _as_rows(x.to(torch.float32))
-    return transform_fwd(x2, mode=mode).reshape(x.shape)
+def fwd_pipeline(x: torch.Tensor, *, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Forward transform for the coder: 1-D or 2-D float32 or float64,
+    already padded to multiples of 4 along the transformed axes
+    (``core/transform.py`` owns the edge padding), on the input's device.
+    The coder hands over its float64 grid and asks for float64 coefficients:
+    one launch, which rounds to float32 on load as the JAX package's
+    pipeline does before its kernel."""
+    x2, mode = _as_rows(x)
+    return transform_fwd(x2, mode=mode, out_dtype=out_dtype).reshape(x.shape)
 
 
-def inv_pipeline(c: torch.Tensor) -> torch.Tensor:
-    """Inverse float32 transform for the coder (1-D or 2-D)."""
-    c2, mode = _as_rows(c.to(torch.float32))
-    return transform_inv(c2, mode=mode).reshape(c.shape)
+def inv_pipeline(c: torch.Tensor, *, out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse transform for the coder (1-D or 2-D), as :func:`fwd_pipeline`."""
+    c2, mode = _as_rows(c)
+    return transform_inv(c2, mode=mode, out_dtype=out_dtype).reshape(c.shape)
 
 
 def apply_axis_f64(x: torch.Tensor, m: np.ndarray, ax: int) -> torch.Tensor:

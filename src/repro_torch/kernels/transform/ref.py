@@ -5,12 +5,16 @@ the coder (``core/transform.py``), the CUDA kernels and these plain versions
 all share, so the error-bound analysis (the L_inf amplification of ``MAT^T``)
 holds on every route.  It is pure numpy, identical to the JAX package's.
 
-``fwd``/``inv`` repeat the float32 kernels' arithmetic with ordinary torch
-ops: each output is ``((m0*b0 + m1*b1) + m2*b2) + m3*b3`` in float32 with
-``MAT`` rounded to float32, last axis first, then the rows.  Separate torch
+``fwd``/``inv`` repeat the rotation kernel's arithmetic with ordinary torch
+ops: the input (float32 or float64) is rounded to float32, each output is
+``((m0*b0 + m1*b1) + m2*b2) + m3*b3`` in float32 with ``MAT`` rounded to
+float32, last axis first, then the rows, and the result is written as
+``out_dtype`` (float32, or float64 widened exactly).  Separate torch
 multiplies and adds round once each on CPU and CUDA, as ``__fmul_rn`` and
-``__fadd_rn`` do, so the kernels equal these bit for bit.  They differ from
-the JAX package's float32 kernel, which XLA reassociates, within rounding.
+``__fadd_rn`` do, and ``Tensor.to(torch.float32)`` rounds as
+``__double2float_rn``, so the kernel equals these bit for bit.  They differ
+from the JAX package's float32 kernel, which XLA reassociates, within
+rounding.
 
 ``apply_axis_f64`` is the plain version of the float64 axis kernel: the JAX
 package's numpy product itself, so the host route matches it byte for byte.
@@ -59,7 +63,20 @@ def _rotate(b: List[torch.Tensor], m) -> List[torch.Tensor]:
     return [((b[0] * m[k][0] + b[1] * m[k][1]) + b[2] * m[k][2]) + b[3] * m[k][3] for k in range(4)]
 
 
-def _call(x: torch.Tensor, m, mode: str) -> torch.Tensor:
+#: the dtypes the rotation reads and writes
+DTYPES = (torch.float32, torch.float64)
+
+
+def check_dtypes(x_dtype: torch.dtype, out_dtype: torch.dtype, what: str) -> None:
+    """Raise unless the rotation takes ``x_dtype`` in and ``out_dtype`` out."""
+    if x_dtype not in DTYPES:
+        raise ValueError(f"{what}: expected a float32 or float64 input, got {x_dtype}")
+    if out_dtype not in DTYPES:
+        raise ValueError(f"{what}: out_dtype must be torch.float32 or torch.float64, got {out_dtype}")
+
+
+def _call(x: torch.Tensor, m, mode: str, out_dtype: torch.dtype) -> torch.Tensor:
+    check_dtypes(x.dtype, out_dtype, "transform")
     if x.ndim != 2 or x.shape[1] % BLOCK or (mode == "2d" and x.shape[0] % BLOCK):
         raise ValueError(f"transform: shape {tuple(x.shape)} is not a whole number of blocks for {mode!r}")
     rows, cols = x.shape
@@ -68,17 +85,18 @@ def _call(x: torch.Tensor, m, mode: str) -> torch.Tensor:
     if mode == "2d":
         v = t.reshape(rows // BLOCK, BLOCK, cols)
         t = torch.stack(_rotate([v[:, j] for j in range(4)], m), dim=1).reshape(rows, cols)
-    return t
+    return t.to(out_dtype)
 
 
-def fwd(x: torch.Tensor, mode: str = "2d") -> torch.Tensor:
-    """(R, C) float32 with the transformed axes multiples of 4 -> coefficients."""
-    return _call(x, FWD_F32, mode)
+def fwd(x: torch.Tensor, mode: str = "2d", out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """(R, C) float32 or float64 with the transformed axes multiples of 4 ->
+    coefficients, computed in float32, written as ``out_dtype``."""
+    return _call(x, FWD_F32, mode, out_dtype)
 
 
-def inv(c: torch.Tensor, mode: str = "2d") -> torch.Tensor:
-    """Inverse rotation (MAT^T)."""
-    return _call(c, INV_F32, mode)
+def inv(c: torch.Tensor, mode: str = "2d", out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Inverse rotation (MAT^T), as :func:`fwd`."""
+    return _call(c, INV_F32, mode, out_dtype)
 
 
 def apply_axis_f64(x: torch.Tensor, m: np.ndarray, ax: int) -> torch.Tensor:

@@ -13,7 +13,12 @@ package, on the CPU.
   JAX backend name); their bands differ from the reference's
   ``device="force"`` bands only by one, where the reference's scaled
   coefficient lies within the tolerance of a rounding tie;
-* committed v3 fixtures and fault fixtures behave as pinned.
+* committed v3 fixtures and fault fixtures behave as pinned;
+* the rotation reads float32 or float64 and writes either (``out_dtype``):
+  on float64 grids with values float32 does not hold, +-inf and
+  subnormals it equals the JAX pipelines (which cast to float32 first)
+  within the same tolerance, equals the old cast, rotate, cast sequence bit
+  for bit, and the coder hands it its float64 grids with no cast around it.
 
 The ``cuda``-marked tests hold the CUDA kernels against their plain versions
 and run on a card (``python -m pytest -q -m cuda tests/test_torch_transform.py``).
@@ -237,6 +242,114 @@ def test_pipeline_wrappers_run_1d_data_as_one_row():
     assert torch.equal(tops.inv_pipeline(c), tref.inv(c.reshape(1, -1), "1d")[0])
 
 
+def _awkward_f64(shape, seed):
+    """A float64 grid of whole blocks: values float32 does not hold (thirds,
+    tenths, 1e39 that overflows it, 1e-50 that underflows it), float32
+    subnormals in a block of their own, +inf, -inf and both in one block."""
+    rng = np.random.default_rng(seed)
+    x = np.cumsum(rng.normal(size=shape), axis=-1) * 10 / 3 + 0.1
+    flat = x.reshape(-1)
+    specials = [1e-40, -3e-41, 7e-39, 1e-45, np.inf, 0, 0, 0, 0, -np.inf, 0, 0, 0, np.inf, -np.inf]
+    for i, v in enumerate(specials[: flat.size - 2]):
+        if v:
+            flat[i] = v
+    flat[-1], flat[-2] = 1e39, 1e-50
+    return x
+
+
+def _close_with_non_finite(got: np.ndarray, want: np.ndarray, tol: float) -> None:
+    """Non-finite values at the same places with the same sign, finite ones
+    within ``tol``."""
+    got, want = got.astype(np.float64), want.astype(np.float64)
+    for test in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(test(got), test(want))
+    fin = np.isfinite(want)
+    assert np.max(np.abs(got[fin] - want[fin])) <= tol
+
+
+#: 2-D grids run in "2d" mode and 1-D ones in "1d", as the pipelines choose
+F64_SHAPES = [(12, 20), (64, 96), (260, 516), (44,), (4096,), (5004,)]
+OUT_DTYPES = {"f32": torch.float32, "f64": torch.float64}
+
+
+@pytest.mark.filterwarnings("ignore:overflow encountered in cast:RuntimeWarning")  # 1e39 to float32
+@pytest.mark.parametrize("out", list(OUT_DTYPES))
+@pytest.mark.parametrize("shape", F64_SHAPES, ids=str)
+def test_plain_transform_on_float64_matches_jax_pipelines(shape, out):
+    """The plain version reads the float64 grid and writes ``out_dtype``;
+    the JAX pipelines cast to float32 first, as their kernel does inside.
+    Same tolerance as ``test_plain_transform_matches_jax_kernel``, against
+    the largest finite float32 input; non-finite outputs sit where the
+    JAX pipelines' do."""
+    from repro.kernels.compat import HAS_PALLAS_TPU
+
+    if not HAS_PALLAS_TPU:
+        pytest.skip("jax.experimental.pallas.tpu is not importable in this JAX build")
+    from repro.kernels.transform import ops as jops
+
+    out_dtype = OUT_DTYPES[out]
+    x = _awkward_f64(shape, sum(shape))
+    with np.errstate(over="ignore"):
+        x32 = x.astype(np.float32)
+    tol = TOL * float(np.abs(x32[np.isfinite(x32)]).max())
+    for jfn, tfn in ((jops.fwd_pipeline, tops.fwd_pipeline), (jops.inv_pipeline, tops.inv_pipeline)):
+        want = np.asarray(jfn(x, interpret=True))
+        got = tfn(torch.from_numpy(x), out_dtype=out_dtype)
+        assert got.dtype == out_dtype and tuple(got.shape) == shape
+        _close_with_non_finite(got.numpy(), want, tol)
+
+
+@pytest.mark.parametrize("out", list(OUT_DTYPES))
+@pytest.mark.parametrize("src", list(OUT_DTYPES))
+@pytest.mark.parametrize("mode,shape", [("2d", (12, 20)), ("2d", (260, 516)), ("1d", (3, 44)), ("1d", (1, 5004))])
+def test_out_dtype_equals_the_cast_rotate_cast_sequence(mode, shape, src, out):
+    """One call that reads ``src`` and writes ``out`` gives the bits of the
+    sequence the coder ran before: cast to float32, rotate, cast."""
+    x = torch.from_numpy(_awkward_f64(shape, 3)).to(OUT_DTYPES[src])
+    for one, rot in ((tops.transform_fwd, tref.fwd), (tops.transform_inv, tref.inv)):
+        got = one(x, mode=mode, out_dtype=OUT_DTYPES[out])
+        _same_bits(got.numpy(), rot(x.to(torch.float32), mode).to(OUT_DTYPES[out]).numpy())
+
+
+def test_kernel_route_hands_the_rotation_float64_grids(monkeypatch):
+    """The coder's forward, its float32-inverse check and the tagged decode
+    each call the rotation once on the float64 grid, asking for the dtype
+    they use next; no cast runs around it."""
+    seen = []
+    for name in ("fwd_pipeline", "inv_pipeline"):
+        fn = getattr(tops, name)
+
+        def spy(x, *, out_dtype=torch.float32, _fn=fn, _name=name):
+            seen.append((_name, x.dtype, out_dtype))
+            return _fn(x, out_dtype=out_dtype)
+
+        monkeypatch.setattr(t_tr.tops, name, spy)
+    conf = _confs("abs")[1]
+    blob = _port(FIELDS["nan"], conf, route="force").blob
+    assert seen == [("fwd_pipeline", torch.float64, torch.float64), ("inv_pipeline", torch.float64, torch.float64)]
+    seen.clear()
+    out = tc.decompress(blob, device=CPU)
+    assert seen == [("inv_pipeline", torch.float64, torch.float32)]
+    assert out.dtype == torch.float32
+
+
+@pytest.mark.parametrize("bad", [torch.float16, torch.bfloat16, torch.int32, torch.complex64])
+@pytest.mark.parametrize("name", ["fwd", "inv"])
+def test_rotation_refuses_other_dtypes(name, bad):
+    """The kernel wrapper and the plain version take float32 or float64 in
+    and out and nothing else; the wrapper says so before it looks at the
+    device, so a CPU tensor shows it here."""
+    good = torch.zeros((4, 8), dtype=torch.float32)
+    for fn in (getattr(K, name), getattr(tref, name), getattr(tops, f"transform_{name}")):
+        with pytest.raises(ValueError, match="float32 or float64"):
+            fn(good.to(bad), mode="2d")
+        with pytest.raises(ValueError, match="out_dtype"):
+            fn(good, mode="2d", out_dtype=bad)
+    pipe = getattr(tops, f"{name}_pipeline")
+    with pytest.raises(ValueError, match="out_dtype"):
+        pipe(good.double(), out_dtype=bad)
+
+
 def test_cpu_tensors_use_the_plain_versions_and_count_no_launch():
     K.reset_launches()
     x = torch.from_numpy(FIELDS["2d"])
@@ -453,3 +566,41 @@ def test_cuda_pipeline_writes_the_plain_versions_bytes(cuda_device, field):
     for device in (cuda_device, "cpu"):
         out = tc.decompress(card, device=device).cpu().numpy()
         assert np.max(np.abs(out[fin].astype(np.float64) - x[fin])) <= abs_eb
+
+
+def _bits_equal_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit identity, with any NaN equal to any NaN."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    ints = a.view(torch.int64 if a.dtype == torch.float64 else torch.int32)
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    return bool((both_nan | (ints == b.view(ints.dtype))).all())
+
+
+#: the main paths' and the checkpoint's shapes, then tails: partial column
+#: strips (1804, 3596), (8, 132), 4 rows of 1 block, and "1d" rows whose
+#: strip counts (2^24+4 values: 32,769 strips; 40,000 strips and 37 groups)
+#: leave a partial round of the grid and a partial strip
+CARD_DTYPE_SHAPES = [
+    ("2d", (1024, 1024)), ("2d", (4, 1 << 20)), ("2d", (4, 2883584)), ("2d", (1800, 3600)),
+    ("1d", (1, (1 << 24) + 4)), ("2d", (1804, 3596)), ("2d", (8, 132)), ("2d", (4, 4)),
+    ("1d", (1, 4 * (128 * 40000 + 37))), ("1d", (3, 44)), ("1d", (1, 4)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("out", list(OUT_DTYPES))
+@pytest.mark.parametrize("src", list(OUT_DTYPES))
+@pytest.mark.parametrize("mode,shape", CARD_DTYPE_SHAPES, ids=str)
+def test_cuda_rotation_equals_plain_version_for_every_dtype_pair(cuda_device, mode, shape, src, out):
+    """float32 or float64 in, float32 or float64 out: the kernel's bits are
+    the plain version's on the card, non-finite values and subnormals
+    included, one launch a call."""
+    x = torch.from_numpy(_awkward_f64(shape, shape[1] % 1000)).to(cuda_device, OUT_DTYPES[src])
+    for name in ("fwd", "inv"):
+        K.reset_launches()
+        got = getattr(K, name)(x, mode, out_dtype=OUT_DTYPES[out])
+        torch.cuda.synchronize()
+        assert K.LAUNCHES[f"{name}_{mode}"] == 1 and sum(K.LAUNCHES.values()) == 1
+        want = getattr(tref, name)(x, mode, out_dtype=OUT_DTYPES[out])
+        assert _bits_equal_nan(got, want), (name, mode, shape, src, out)

@@ -1,0 +1,5 @@
+"""The benchmark of the PyTorch and CUDA port (``repro_torch``).
+
+``python3 portbench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>``
+from the root of a checkout; ``portbench/README.md`` says what each file is.
+"""

@@ -381,7 +381,8 @@ class BlockHybridCompressor:
         q_len = guard_alloc(header["q_len"], "q_len")
         tag_len = guard_alloc(header["tag_len"], "tag_len")
         total = guard_alloc(enc_len + q_len + tag_len, "hybrid body")
-        body = ll_mod.make(spec["lossless"]).decompress_bounded(container_body(blob, body_off), total)
+        with tel.span("inflate", bytes=total):
+            body = ll_mod.make(spec["lossless"]).decompress_bounded(container_body(blob, body_off), total)
         if len(body) != total:
             raise ContainerError(
                 f"hybrid body decompressed to {len(body)} bytes; header "
@@ -421,7 +422,9 @@ class BlockHybridCompressor:
                 f"shape {list(padded_shape)}, work shape {list(work_shape)} and "
                 f"pshape {list(pshape)} do not agree"
             )
-        codes_np = encoder.decode(enc_bytes, n_codes)
+        out_bytes = int(np.prod(pshape, dtype=np.int64)) * pdtype.itemsize
+        with tel.span("unpack", bytes=out_bytes):
+            codes_np = encoder.decode(enc_bytes, n_codes)
         if tag_len != (nb + 3) // 4:
             raise ContainerError(
                 f"corrupt hybrid container: tag channel holds {tag_len} "
@@ -432,51 +435,52 @@ class BlockHybridCompressor:
                 f"corrupt hybrid container: {np.size(codes_np)} codes for {nb} "
                 f"blocks of {blk} and {n_reg} regression blocks"
             )
-        codes = torch.from_numpy(np.ascontiguousarray(codes_np)).to(device)
+        codes = quant_mod.to_device(np.ascontiguousarray(codes_np), device)
         tags_np = _unpack_tags(tag_bytes, nb)
         if int((tags_np == TAG_REG).sum()) != n_reg:
             raise ContainerError("corrupt hybrid container: tags disagree with the regression count")
-        tags = torch.from_numpy(tags_np.copy()).to(device)
-        eb = quantizer.eb
-        use_reg = tags == TAG_REG
-        pos = 0
-        # 1. regression coefficient streams (delta-coded, winning blocks only)
-        qhat: List[torch.Tensor] = []
-        for k in range(nd + 1):
-            dq = quantizer.recover_int_diff(codes[pos : pos + n_reg])
-            pos += n_reg
-            ceb = eb / 2.0 if k == 0 else eb / (2.0 * b)
-            qhat.append(torch.cumsum(dq, 0).to(torch.float64) * (2.0 * ceb))
-        # 2. integer-grid groups: zero (identity), lorenzo order 1 / order 2
-        n_int = nb - n_reg
-        int_blocks = torch.empty((n_int,) + (b,) * nd, dtype=torch.float64, device=device)
-        int_tags = tags[~use_reg]
-        for tag, order in ((TAG_ZERO, 0), (TAG_LOR1, 1), (TAG_LOR2, 2)):
-            sel = int_tags == tag
-            cnt = int(np.count_nonzero(tags_np == tag))
-            d = quantizer.recover_int_diff(codes[pos : pos + cnt * blk])
-            pos += cnt * blk
-            d = d.reshape((cnt,) + (b,) * nd)
-            q = block_lorenzo_inverse(d, order) if order else d
-            int_blocks[sel] = quantizer.dequantize_int(q).to(torch.float64)
-        if hm.get("nfail"):
-            fl = _unpack_mask(hm["fail_mask"], n_int * blk)
-            vals = np.frombuffer(hm["fail_vals"], np.float64)
-            if int(fl.sum()) != vals.size:
-                raise ContainerError(
-                    f"corrupt hybrid container: fail channel holds {vals.size} "
-                    f"values for {int(fl.sum())} masked points"
-                )
-            int_blocks.view(-1)[torch.from_numpy(fl).to(device)] = torch.from_numpy(vals.copy()).to(device)
-        # 3. regression residuals against the coefficient-rebuilt planes
-        pred = _plane(qhat, block_coords(b, nd, device), n_reg)
-        reg_recon = quantizer.recover(pred.reshape(-1), codes[pos:])
-        blocks = torch.empty((nb,) + (b,) * nd, dtype=torch.float64, device=device)
-        blocks[~use_reg] = int_blocks
-        blocks[use_reg] = reg_recon.to(torch.float64).reshape((n_reg,) + (b,) * nd)
-        out = unblockify(blocks, padded_shape, b)
-        out = out[tuple(slice(0, s) for s in work_shape)]
-        pdata = out.to(pdtype).reshape(pshape)
+        tags = quant_mod.to_device(tags_np.copy(), device)
+        with tel.span("rebuild", bytes=out_bytes):
+            eb = quantizer.eb
+            use_reg = tags == TAG_REG
+            pos = 0
+            # 1. regression coefficient streams (delta-coded, winning blocks only)
+            qhat: List[torch.Tensor] = []
+            for k in range(nd + 1):
+                dq = quantizer.recover_int_diff(codes[pos : pos + n_reg])
+                pos += n_reg
+                ceb = eb / 2.0 if k == 0 else eb / (2.0 * b)
+                qhat.append(torch.cumsum(dq, 0).to(torch.float64) * (2.0 * ceb))
+            # 2. integer-grid groups: zero (identity), lorenzo order 1 / order 2
+            n_int = nb - n_reg
+            int_blocks = torch.empty((n_int,) + (b,) * nd, dtype=torch.float64, device=device)
+            int_tags = tags[~use_reg]
+            for tag, order in ((TAG_ZERO, 0), (TAG_LOR1, 1), (TAG_LOR2, 2)):
+                sel = int_tags == tag
+                cnt = int(np.count_nonzero(tags_np == tag))
+                d = quantizer.recover_int_diff(codes[pos : pos + cnt * blk])
+                pos += cnt * blk
+                d = d.reshape((cnt,) + (b,) * nd)
+                q = block_lorenzo_inverse(d, order) if order else d
+                int_blocks[sel] = quantizer.dequantize_int(q).to(torch.float64)
+            if hm.get("nfail"):
+                fl = _unpack_mask(hm["fail_mask"], n_int * blk)
+                vals = np.frombuffer(hm["fail_vals"], np.float64)
+                if int(fl.sum()) != vals.size:
+                    raise ContainerError(
+                        f"corrupt hybrid container: fail channel holds {vals.size} "
+                        f"values for {int(fl.sum())} masked points"
+                    )
+                int_blocks.view(-1)[quant_mod.to_device(fl, device)] = quant_mod.to_device(vals.copy(), device)
+            # 3. regression residuals against the coefficient-rebuilt planes
+            pred = _plane(qhat, block_coords(b, nd, device), n_reg)
+            reg_recon = quantizer.recover(pred.reshape(-1), codes[pos:])
+            blocks = torch.empty((nb,) + (b,) * nd, dtype=torch.float64, device=device)
+            blocks[~use_reg] = int_blocks
+            blocks[use_reg] = reg_recon.to(torch.float64).reshape((n_reg,) + (b,) * nd)
+            out = unblockify(blocks, padded_shape, b)
+            out = out[tuple(slice(0, s) for s in work_shape)]
+            pdata = out.to(pdtype).reshape(pshape)
         conf = CompressionConfig(
             mode=ErrorBoundMode(header["mode"]),
             eb=header["eb"],

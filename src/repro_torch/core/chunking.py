@@ -626,11 +626,15 @@ def decompress_chunked(
     out = torch.empty(shape, dtype=dtype, device=dev)
     flat = out.reshape(-1)
     pos = 0
-    parts = _parallel_map_ordered(
-        lambda b: pl_mod.decompress(body[b[0] : b[0] + b[1]], verify=nested, device=dev, route=route),
-        bounds,
-        workers,
-    )
+
+    def _one(args: Tuple[int, Tuple[int, int]]) -> torch.Tensor:
+        i, (off, ln) = args
+        with tel.span("chunk_decode", order=i) as sp:
+            part = pl_mod.decompress(body[off : off + ln], verify=nested, device=dev, route=route)
+            sp.set(bytes=part.numel() * part.element_size())
+        return part
+
+    parts = _parallel_map_ordered(_one, enumerate(bounds), workers)
     for i, part in enumerate(parts):
         if shape and (part.ndim != len(shape) or tuple(part.shape[1:]) != shape[1:]):
             raise ContainerError(

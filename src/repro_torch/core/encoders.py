@@ -41,6 +41,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from . import telemetry as tel
+
 _MAXLEN = 16
 _SYNC = 1024
 _V2_MARK = -2  # first head int64 of a v2 stream (v1 stores n >= 0 there)
@@ -482,23 +484,28 @@ class HuffmanEncoder(Encoder):
             arr = arr.astype(np.int64)
         if arr.size == 0:
             return np.asarray([0], np.int64).tobytes()
-        vals, freqs, inv = _alphabet_of(arr)
-        lens, present = _huffman_code_lengths(freqs)
-        # alphabet header: K, symbol values (int64), lengths (uint8)
-        table = _cached_table(lens)
-        stream = _encode_stream(inv, table, self.stream_version)
-        head = np.asarray([vals.size], np.int64).tobytes()
-        return head + vals.astype(np.int64).tobytes() + lens.tobytes() + stream
+        # the coder's two halves, each a span: the table, then the stream
+        with tel.span("huffman_table", bytes=arr.nbytes):
+            vals, freqs, inv = _alphabet_of(arr)
+            lens, present = _huffman_code_lengths(freqs)
+            table = _cached_table(lens)
+        with tel.span("huffman_pack", bytes=arr.nbytes):
+            stream = _encode_stream(inv, table, self.stream_version)
+            # alphabet header: K, symbol values (int64), lengths (uint8)
+            head = np.asarray([vals.size], np.int64).tobytes()
+            return head + vals.astype(np.int64).tobytes() + lens.tobytes() + stream
 
     def decode(self, buf, n, handle: Optional[HuffmanDecodeHandle] = None):
         if handle is None:
-            handle = huffman_decode_handle(buf)
+            with tel.span("huffman_table", bytes=len(buf)):
+                handle = huffman_decode_handle(buf)
         if handle is None:  # empty stream (k == 0)
             return np.zeros(0, np.int64)
-        idx, _ = _decode_stream(buf, handle.stream_pos, handle.table)
-        if idx.size != n:
-            raise ValueError(f"huffman stream length mismatch {idx.size} != {n}")
-        return handle.vals[idx]
+        with tel.span("huffman_unpack", bytes=len(buf)):
+            idx, _ = _decode_stream(buf, handle.stream_pos, handle.table)
+            if idx.size != n:
+                raise ValueError(f"huffman stream length mismatch {idx.size} != {n}")
+            return handle.vals[idx]
 
 
 class LegacyHuffmanEncoder(HuffmanEncoder):

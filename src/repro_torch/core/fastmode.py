@@ -62,7 +62,7 @@ from . import transform as tr_mod
 from .config import CompressionConfig, ErrorBoundMode
 from .integrity import ContainerError, guard_alloc, guard_count, guard_shape
 from .pipeline import CompressionResult, container_body, pack_container
-from .quantizers import pairwise_rowsum, to_host, true_div
+from .quantizers import pairwise_rowsum, to_device, to_host, true_div
 from ..kernels.fastmode import ops as fops
 
 _VERSION6 = 6
@@ -455,65 +455,69 @@ class FastModeCompressor:
                 )
             planes_len = guard_alloc(fm["planes_len"], "planes_len")
             total = const_len + means_len + w_len + planes_len
-            body = ll_mod.make(spec["lossless"]).decompress_bounded(
-                container_body(blob, body_off), guard_alloc(total, "fast body")
-            )
+            with tel.span("inflate", bytes=total):
+                body = ll_mod.make(spec["lossless"]).decompress_bounded(
+                    container_body(blob, body_off), guard_alloc(total, "fast body")
+                )
             if len(body) != total:
                 raise ContainerError(
                     f"fast body decompressed to {len(body)} bytes; header "
                     f"declares {total}"
                 )
-            pos = 0
-            const = np.unpackbits(
-                np.frombuffer(body, np.uint8, count=const_len), count=nb
-            ).astype(bool)
-            pos += const_len
-            if int(const.sum()) != n_const:
-                raise ContainerError(
-                    f"corrupt fast container: the constant bitmap marks "
-                    f"{int(const.sum())} blocks, the header {n_const}"
-                )
-            means = np.frombuffer(body, np_pdtype, count=nb, offset=pos)
-            pos += means_len
-            w = np.frombuffer(body, np.uint8, count=w_len, offset=pos)
-            pos += w_len
+            out_bytes = n * np_pdtype.itemsize
+            with tel.span("unpack", bytes=out_bytes):
+                pos = 0
+                const = np.unpackbits(
+                    np.frombuffer(body, np.uint8, count=const_len), count=nb
+                ).astype(bool)
+                pos += const_len
+                if int(const.sum()) != n_const:
+                    raise ContainerError(
+                        f"corrupt fast container: the constant bitmap marks "
+                        f"{int(const.sum())} blocks, the header {n_const}"
+                    )
+                means = np.frombuffer(body, np_pdtype, count=nb, offset=pos)
+                pos += means_len
+                w = np.frombuffer(body, np.uint8, count=w_len, offset=pos)
+                pos += w_len
+                guard_alloc(n_nc * bs * 8, "fast residual grid")
+                q = np.zeros((n_nc, bs), np.int64)
+                for width in np.unique(w):
+                    width = int(width)
+                    sel = w == width
+                    if width == 0:
+                        continue
+                    cnt = int(sel.sum())
+                    u, used = _unpack_planes(body, pos, cnt * bs, width + 1)
+                    pos += used
+                    q[sel] = u.astype(np.int64).reshape(cnt, bs) - (1 << width)
             abs_eb = float(header["abs_eb"])
-            guard_alloc(n_nc * bs * 8, "fast residual grid")
-            q = np.zeros((n_nc, bs), np.int64)
-            for width in np.unique(w):
-                width = int(width)
-                sel = w == width
-                if width == 0:
-                    continue
-                cnt = int(sel.sum())
-                u, used = _unpack_planes(body, pos, cnt * bs, width + 1)
-                pos += used
-                q[sel] = u.astype(np.int64).reshape(cnt, bs) - (1 << width)
             # reconstruction runs in the STORAGE dtype with the same operation
             # order the encoder verified against
-            means_t = torch.from_numpy(means.copy()).to(device)
-            out = means_t[:, None].expand(nb, bs).clone()
-            if n_nc:
-                qe = torch.from_numpy(q).to(device).to(pdtype) * _scalar(2.0 * abs_eb, means_t)
-                nc = torch.from_numpy(~const).to(device)
-                out[nc] = out[nc] + qe
-            flat = out.reshape(-1)[:n]
-            if fm.get("nfail"):
-                idx = np.frombuffer(fm["fail_idx"], np.int64)
-                # a negative corrupt index would silently wrap, an
-                # out-of-range one raise an untyped error: check both
-                if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= n):
-                    raise ContainerError(
-                        "corrupt fast container: fail-channel index outside "
-                        f"[0, {n})"
-                    )
-                vals = np.frombuffer(fm["fail_vals"], np_pdtype)
-                if vals.size != idx.size:
-                    raise ContainerError(
-                        "corrupt fast container: fail-channel index/value "
-                        "counts differ"
-                    )
-                flat[torch.from_numpy(idx.copy()).to(device)] = torch.from_numpy(vals.copy()).to(device)
+            with tel.span("rebuild", bytes=out_bytes):
+                means_t = to_device(means.copy(), device)
+                out = means_t[:, None].expand(nb, bs).clone()
+                if n_nc:
+                    qe = to_device(q, device).to(pdtype) * _scalar(2.0 * abs_eb, means_t)
+                    nc = to_device(~const, device)
+                    out[nc] = out[nc] + qe
+                flat = out.reshape(-1)[:n]
+                if fm.get("nfail"):
+                    idx = np.frombuffer(fm["fail_idx"], np.int64)
+                    # a negative corrupt index would silently wrap, an
+                    # out-of-range one raise an untyped error: check both
+                    if idx.size and (int(idx.min()) < 0 or int(idx.max()) >= n):
+                        raise ContainerError(
+                            "corrupt fast container: fail-channel index outside "
+                            f"[0, {n})"
+                        )
+                    vals = np.frombuffer(fm["fail_vals"], np_pdtype)
+                    if vals.size != idx.size:
+                        raise ContainerError(
+                            "corrupt fast container: fail-channel index/value "
+                            "counts differ"
+                        )
+                    flat[to_device(idx.copy(), device)] = to_device(vals.copy(), device)
         dtype = pl_mod._torch_dtype(header["dtype"], "dtype")
         shape = guard_shape(header["shape"], dtype.itemsize, "shape")
         pshape = guard_shape(header["pshape"], np_pdtype.itemsize, "pshape")

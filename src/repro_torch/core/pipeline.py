@@ -495,7 +495,7 @@ def _decompress_v1(
     )
     with tel.span("predict", bytes=n_elems * pdtype.itemsize):
         pdata = comp.predictor.decompress(
-            torch.from_numpy(np.ascontiguousarray(codes)).to(device),
+            quant_mod.to_device(np.ascontiguousarray(codes), device),
             pshape,
             pdtype,
             comp.quantizer,
@@ -600,7 +600,7 @@ class TruncationCompressor:
         raw = np.zeros((n, dt.itemsize), np.uint8)
         raw[:, :k] = np.frombuffer(kept, np.uint8).reshape(n, k)
         out = raw.reshape(-1).view(dt.newbyteorder(">")).astype(dt).reshape(shape)
-        return torch.from_numpy(out).to(device)
+        return quant_mod.to_device(out, device)
 
 
 class AdaptiveAPSCompressor:

@@ -45,7 +45,7 @@ import torch
 
 from . import telemetry as tel
 from .config import CompressionConfig
-from .quantizers import QuantizerBase, check_numpy_sum_order, pairwise_rowsum, rint_int64, to_host, true_div
+from .quantizers import QuantizerBase, check_numpy_sum_order, pairwise_rowsum, rint_int64, to_device, to_host, true_div
 from ..kernels.lorenzo import ops as lops
 
 
@@ -341,9 +341,7 @@ def _patch_fails(out: torch.Tensor, meta: Dict[str, Any], shape) -> torch.Tensor
             f"fail channel holds {vals.size} values for {int(mask.sum())} masked points"
         )
     out = out.reshape(-1)
-    out[torch.from_numpy(mask).to(out.device)] = torch.from_numpy(vals.copy()).to(
-        out.device, out.dtype
-    )
+    out[to_device(mask, out.device)] = to_device(vals.copy(), out.device, out.dtype)
     return out.reshape(shape)
 
 
@@ -832,7 +830,7 @@ class CompositePredictor(Predictor):
         nd = len(padded_shape)
         eb = quantizer.eb
         dev = codes.device
-        use_reg = torch.from_numpy(_unpack_mask(meta["flags"], nb)).to(dev)
+        use_reg = to_device(_unpack_mask(meta["flags"], nb), dev)
         n_reg = int(meta["n_reg"])
         n_lor = nb - n_reg
         pos = 0
@@ -856,7 +854,7 @@ class CompositePredictor(Predictor):
                     f"fail channel holds {vals.size} values for {int(fl.sum())} masked points"
                 )
             flat = lor_blocks.reshape(-1)
-            flat[torch.from_numpy(fl).to(dev)] = torch.from_numpy(vals.copy()).to(dev)
+            flat[to_device(fl, dev)] = to_device(vals.copy(), dev)
         pred_reg = _plane(qhat, block_coords(b, nd, dev), n_reg)
         reg_recon = quantizer.recover(pred_reg.reshape(-1), codes[pos:])
         blocks = torch.empty((nb,) + (b,) * nd, dtype=torch.float64, device=dev)

@@ -24,7 +24,7 @@ import numpy as np
 import torch
 
 from .config import CompressionConfig, ErrorBoundMode
-from .quantizers import to_host
+from .quantizers import to_device, to_host
 
 
 class Preprocessor(abc.ABC):
@@ -190,7 +190,7 @@ class LogTransform(Preprocessor):
             nf = np.unpackbits(np.frombuffer(meta["nonfinite"], np.uint8), count=n).astype(bool)
             flat[nf] = np.frombuffer(meta["nonfinite_vals"], np.float64)
         out = flat.astype(host.dtype).reshape(host.shape)
-        return torch.from_numpy(out).to(data.device)
+        return to_device(out, data.device)
 
 
 _REGISTRY = {

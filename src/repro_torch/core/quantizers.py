@@ -22,6 +22,8 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
+from . import telemetry as tel
+
 _INT64_MAX = np.iinfo(np.int64).max
 
 
@@ -113,7 +115,18 @@ def check_numpy_sum_order() -> None:
 
 
 def to_host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+    """``t`` as a host array, under a ``to_host`` span (bytes copied); on a
+    CPU tensor the span times a handover."""
+    with tel.span("to_host", bytes=t.numel() * t.element_size()):
+        return t.detach().cpu().numpy()
+
+
+def to_device(arr: np.ndarray, device, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``torch.from_numpy(arr)`` on ``device`` (cast to ``dtype`` where
+    given), under a ``to_device`` span (bytes: the host array's)."""
+    with tel.span("to_device", bytes=arr.nbytes):
+        t = torch.from_numpy(arr)
+        return t.to(device) if dtype is None else t.to(device, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -280,7 +293,7 @@ class QuantizerBase(abc.ABC):
         count = int(mask.sum())
         if count:
             vals = self._load_unpred_int(count)
-            d[mask] = torch.from_numpy(vals).to(d.device)
+            d[mask] = to_device(vals, d.device)
         return d
 
     # -- unpredictable-point storage policy (subclass hook) -----------------
@@ -388,7 +401,7 @@ class LinearScaleQuantizer(QuantizerBase):
             raise ValueError("unpredictable stream exhausted — corrupt payload")
         self._cursor_raw += count
         recon = recon.clone()
-        recon[mask] = torch.from_numpy(vals.copy()).to(recon.device, self._dtype)
+        recon[mask] = to_device(vals.copy(), recon.device, self._dtype)
         return recon
 
 
@@ -440,12 +453,12 @@ class UnpredAwareQuantizer(QuantizerBase):
             raise ValueError("unpredictable stream exhausted — corrupt payload")
         self._cursor_raw += n_raw
         dev = p64.device
-        esc_t = torch.from_numpy(esc.copy()).to(dev)
+        esc_t = to_device(esc.copy(), dev)
         preds = p64[mask]
         vals = torch.empty(count, dtype=torch.float64, device=dev)
-        vals[~esc_t] = preds[~esc_t] + torch.from_numpy(q).to(dev, torch.float64) * (2.0 * self.eb)
+        vals[~esc_t] = preds[~esc_t] + to_device(q, dev, torch.float64) * (2.0 * self.eb)
         if n_raw:
-            vals[esc_t] = torch.from_numpy(raw.copy()).to(dev)
+            vals[esc_t] = to_device(raw.copy(), dev)
         recon = recon.clone()
         recon[mask] = vals.to(self._dtype)
         return recon

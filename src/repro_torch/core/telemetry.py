@@ -15,7 +15,11 @@ reads as a reference trace does.  Three layers, cheapest first:
     parallel chunk workers share the default stream, so at ``workers > 1``
     a span also waits for the work other chunks queued there: its seconds
     are then an upper bound on its stage's own, not the stage's device
-    time.  With tracing off nothing synchronises.
+    time.  With tracing off nothing synchronises.  A span's start
+    (``Span._t0``, exported as ``"t0"``) is read on ``time.perf_counter``:
+    the clock a profiler trace of the device is aligned to (the benchmark's
+    ``portbench/harness/devtrace.py`` ties them with a marker kernel), so a
+    saved trace can be laid over a device trace.
   * **Selection-decision records** — every engine that runs a contest
     (per-chunk pipeline selection, per-block predictor tags, constant-vs-
     fixed-length) emits a schema-pinned record of who contested, who won,
@@ -70,13 +74,27 @@ __all__ = [
     "reset_metrics",
     "get_logger",
     "STAGES",
+    "PORT_SPANS",
 ]
 
-#: canonical stage-span names (engines may add engine-specific ones, e.g.
-#: "chunk"/"select"/"leaf"; exporters treat any name uniformly)
+#: canonical stage-span names, the JAX package's (engines add engine-specific
+#: ones, e.g. "chunk"/"select"/"leaf"; exporters treat any name uniformly).
+#: In this port ``device_transfer`` times a kernel call on data already on
+#: the card (the Lorenzo encode, the transform's forward, ``block_stats``),
+#: not a copy; the copies are the ``to_host`` and ``to_device`` spans.
 STAGES = (
     "predict", "quantize", "huffman", "lossless", "integrity", "device_transfer",
 )
+
+#: span names this port adds and the JAX package never opens: each host-device
+#: copy, the Huffman coder's halves, each chunk of a chunked decode, and the
+#: stages of the transform, hybrid and fast-tier decodes
+PORT_SPANS = frozenset({
+    "to_host", "to_device",
+    "huffman_table", "huffman_pack", "huffman_unpack",
+    "chunk_decode",
+    "inflate", "unpack", "rebuild",
+})
 
 LOG_LEVEL_ENV = "SZ3J_LOG_LEVEL"
 
@@ -210,7 +228,7 @@ class Span:
         return False
 
     def to_dict(self) -> Dict[str, Any]:
-        d: Dict[str, Any] = {"name": self.name, "seconds": self.seconds}
+        d: Dict[str, Any] = {"name": self.name, "t0": self._t0, "seconds": self.seconds}
         if self.attrs:
             d["attrs"] = dict(self.attrs)
         if self.children:

@@ -61,7 +61,7 @@ from .config import CompressionConfig
 from .integrity import ContainerError, guard_alloc, guard_count, guard_shape
 from .pipeline import CompressionResult, container_body, pack_container
 from .predictors import _int_code_bits, _pack_mask, _unpack_mask
-from .quantizers import bitplane_decode, bitplane_encode, to_host, true_div
+from .quantizers import bitplane_decode, bitplane_encode, to_device, to_host, true_div
 from ..kernels.transform import ops as tops
 
 _VERSION3 = 3
@@ -357,37 +357,44 @@ class TransformCompressor:
         payload_len = header.get("payload_len")
         if payload_len is not None:
             payload_len = guard_alloc(payload_len, "payload_len")
-            payload = backend.decompress_bounded(raw, payload_len)
+            with tel.span("inflate", bytes=payload_len):
+                payload = backend.decompress_bounded(raw, payload_len)
             if len(payload) != payload_len:
                 raise ContainerError(
                     f"transform body decompressed to {len(payload)} bytes; "
                     f"header declares {payload_len}"
                 )
         else:  # pre-integrity v3 blob: no declared plaintext size
-            payload = backend.decompress(raw)
-        bands = torch.from_numpy(_decode_bands(payload, nbands, nblocks)).to(device)
-        kstep = _unblockify(bands, pshape).to(torch.float64) * 2.0 ** int(header["step_exp"])
-        crop = tuple(slice(0, s) for s in crop_shape)
-        if meta.get("device") and meta.get("device_backend") == BACKEND_TAG and len(pshape) in (1, 2):
-            # compress verified this blob against the float32 inverse, whose
-            # kernel and plain version are bit-identical; a float32 blob takes
-            # it in float32, which the final cast leaves as it is
-            out_dtype = torch.float32 if dtype == torch.float32 else torch.float64
-            out = tops.inv_pipeline(kstep, out_dtype=out_dtype)[crop]
-        else:
-            out = _inv_host(kstep)[crop]
-        if meta.get("nfail"):
-            mask = torch.from_numpy(_unpack_mask(meta["fail_mask"], out.numel())).to(device)
-            vals = np.frombuffer(meta["fail_vals"], np.float64)
-            if int(mask.sum()) != vals.size:
-                raise ContainerError(
-                    f"corrupt transform container: fail channel holds {vals.size} "
-                    f"values for {int(mask.sum())} masked points"
-                )
-            out = out.reshape(-1).clone()
-            # rounded to a float32 ``out`` as the final cast would round them
-            out[mask] = torch.from_numpy(vals.copy()).to(device, out.dtype)
-        return out.to(dtype).reshape(shape)
+            with tel.span("inflate") as sp:
+                payload = backend.decompress(raw)
+                sp.set(bytes=len(payload))
+        out_bytes = math.prod(crop_shape) * dtype.itemsize
+        with tel.span("unpack", bytes=out_bytes):
+            bands_np = _decode_bands(payload, nbands, nblocks)
+        bands = to_device(bands_np, device)
+        with tel.span("rebuild", bytes=out_bytes):
+            kstep = _unblockify(bands, pshape).to(torch.float64) * 2.0 ** int(header["step_exp"])
+            crop = tuple(slice(0, s) for s in crop_shape)
+            if meta.get("device") and meta.get("device_backend") == BACKEND_TAG and len(pshape) in (1, 2):
+                # compress verified this blob against the float32 inverse, whose
+                # kernel and plain version are bit-identical; a float32 blob takes
+                # it in float32, which the final cast leaves as it is
+                out_dtype = torch.float32 if dtype == torch.float32 else torch.float64
+                out = tops.inv_pipeline(kstep, out_dtype=out_dtype)[crop]
+            else:
+                out = _inv_host(kstep)[crop]
+            if meta.get("nfail"):
+                mask = to_device(_unpack_mask(meta["fail_mask"], out.numel()), device)
+                vals = np.frombuffer(meta["fail_vals"], np.float64)
+                if int(mask.sum()) != vals.size:
+                    raise ContainerError(
+                        f"corrupt transform container: fail channel holds {vals.size} "
+                        f"values for {int(mask.sum())} masked points"
+                    )
+                out = out.reshape(-1).clone()
+                # rounded to a float32 ``out`` as the final cast would round them
+                out[mask] = to_device(vals.copy(), device, out.dtype)
+            return out.to(dtype).reshape(shape)
 
 
 # ---------------------------------------------------------------------------

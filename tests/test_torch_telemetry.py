@@ -20,6 +20,7 @@ the JAX package's, on the CPU.
 import concurrent.futures as cf
 import json
 import logging
+import math
 
 import numpy as np
 import pytest
@@ -47,15 +48,37 @@ def _smooth(n, seed=0):
 REL3 = tc.CompressionConfig(mode=tc.ErrorBoundMode.REL, eb=1e-3)
 
 
-def _strip(spans, attrs=False):
-    return [
-        {
-            "name": s["name"],
-            **({"attrs": sorted((s.get("attrs") or {}).keys())} if attrs else {}),
-            "children": _strip(s.get("children", []), attrs),
-        }
-        for s in spans
-    ]
+def _splice(spans, by_start=False):
+    """``spans`` with every span named in ``telemetry.PORT_SPANS`` replaced
+    by its children; ``by_start`` puts each list of siblings back in the
+    order the spans opened (their ``t0``), which ``to_dict``'s sort by
+    ``order`` moves where a spliced span carried one (``chunk_decode``).
+    The reference's spans never carry ``t0``: they keep their order."""
+    out = []
+    for s in spans:
+        kids = _splice(s.get("children", []), by_start)
+        if s["name"] in telemetry.PORT_SPANS:
+            out += kids
+        else:
+            out.append({**s, "children": kids})
+    return sorted(out, key=lambda s: s["t0"]) if by_start else out
+
+
+def _strip(spans, attrs=False, by_start=False):
+    """Names, nesting and (with ``attrs``) attribute keys of a span tree,
+    with the port's own spans (``telemetry.PORT_SPANS``) spliced out: every
+    span the reference opens is compared, the port's extra ones are not."""
+    def keys(spans):
+        return [
+            {
+                "name": s["name"],
+                **({"attrs": sorted((s.get("attrs") or {}).keys())} if attrs else {}),
+                "children": keys(s["children"]),
+            }
+            for s in spans
+        ]
+
+    return keys(_splice(spans, by_start))
 
 
 # ---------------------------------------------------------------------------
@@ -192,6 +215,144 @@ def test_serial_parallel_traces_structurally_identical():
         trees.append(tr.to_dict()["spans"])
     assert blobs[0] == blobs[1]
     assert _strip(trees[0]) == _strip(trees[1])
+
+
+# ---------------------------------------------------------------------------
+# the port's own spans (telemetry.PORT_SPANS): copies, the Huffman halves,
+# chunked decode, and the stages of the v3, v5 and v6 decodes
+# ---------------------------------------------------------------------------
+
+def _field2d():
+    return np.cumsum(np.random.default_rng(3).standard_normal((64, 256)).astype(np.float32), 0)
+
+
+def _names(spans):
+    return [s["name"] for s in spans]
+
+
+def _find(spans, name):
+    for s in spans:
+        if s["name"] == name:
+            yield s
+        yield from _find(s.get("children", []), name)
+
+
+def _traced_round_trip(comp, x, conf=REL3, **decode_kw):
+    with telemetry.trace("c") as tc_tr:
+        blob = comp.compress(x, conf).blob
+    with telemetry.trace("d") as td_tr:
+        y = tc.decompress(blob, device=CPU, **decode_kw)
+    return blob, y, tc_tr.to_dict()["spans"], td_tr.to_dict()["spans"]
+
+
+def test_port_spans_are_new_names():
+    assert not telemetry.PORT_SPANS & set(telemetry.STAGES)
+    assert {"chunk", "select"}.isdisjoint(telemetry.PORT_SPANS)
+
+
+def test_v1_round_trip_pins_the_copy_and_huffman_spans():
+    x = _field2d()
+    _, y, comp, dec = _traced_round_trip(tc.sz3_lorenzo(device=CPU), x)
+    assert torch.equal(y, tc.decompress(tc.sz3_lorenzo(device=CPU).compress(x, REL3).blob, device=CPU))
+    assert _names(comp) == ["predict", "to_host", "huffman", "lossless", "integrity"]
+    (huff,) = _find(comp, "huffman")
+    assert _names(huff["children"]) == ["huffman_table", "huffman_pack"]
+    assert all(c["attrs"]["bytes"] == huff["attrs"]["bytes"] for c in huff["children"])
+    assert _names(dec) == ["integrity", "lossless", "huffman", "predict"]
+    (huff,) = _find(dec, "huffman")
+    assert _names(huff["children"]) == ["huffman_table", "huffman_unpack"]
+    assert all(c["attrs"]["bytes"] == huff["attrs"]["bytes"] for c in huff["children"])
+    predict = dec[3]
+    assert "to_device" in _names(predict["children"])
+
+
+@pytest.mark.parametrize("workers", [1, 4])
+def test_chunked_decode_opens_a_chunk_decode_span_per_chunk_in_order(workers):
+    x = _field2d()
+    blob, y, _, dec = _traced_round_trip(tc.sz3_auto(chunk_bytes=1 << 14, device=CPU), x, workers=workers)
+    header, _ = tc.parse_header(blob)
+    chunks = [s for s in dec if s["name"] == "chunk_decode"]
+    assert len(chunks) == len(header["chunks"]) == 4
+    assert [c["attrs"]["order"] for c in chunks] == list(range(4))
+    assert sum(c["attrs"]["bytes"] for c in chunks) == x.nbytes
+    starts = [c["t0"] for c in chunks]
+    assert workers > 1 or starts == sorted(starts)
+    for c in chunks:
+        assert c["children"][0]["name"] == "integrity"
+        assert c["seconds"] >= sum(k["seconds"] for k in c["children"])
+
+
+@pytest.mark.parametrize("name", ["sz3_transform", "sz3_hybrid", "sz3_fast"])
+def test_single_body_decode_has_inflate_unpack_and_rebuild(name):
+    x = _field2d()
+    _, y, _, dec = _traced_round_trip(tc.PIPELINES[name](device=CPU), x)
+    stages = [n for n in _names(dec) if n in ("inflate", "unpack", "rebuild")]
+    assert stages == ["inflate", "unpack", "rebuild"]
+    by_name = {s["name"]: s for s in dec}
+    assert by_name["unpack"]["attrs"]["bytes"] == by_name["rebuild"]["attrs"]["bytes"] == x.nbytes
+    assert by_name["inflate"]["attrs"]["bytes"] > 0
+    assert list(_find(dec, "to_device"))
+    if name == "sz3_hybrid":
+        assert _names(by_name["unpack"]["children"]) == ["huffman_table", "huffman_unpack"]
+
+
+@pytest.mark.parametrize("shape,dtype", [((7,), torch.float32), ((3, 5), torch.float64), ((4, 4), torch.int32),
+                                          ((9,), torch.bool)])
+def test_copy_spans_count_the_tensors_bytes(shape, dtype):
+    from repro_torch.core import quantizers
+
+    t = (torch.arange(math.prod(shape)) % 3).reshape(shape).to(dtype)
+    with telemetry.trace("t") as tr:
+        arr = quantizers.to_host(t)
+        back = quantizers.to_device(arr, CPU)
+        wide = quantizers.to_device(arr, CPU, torch.float64)
+    assert torch.equal(back, t) and wide.dtype == torch.float64
+    spans = tr.to_dict()["spans"]
+    assert _names(spans) == ["to_host", "to_device", "to_device"]
+    assert [s["attrs"]["bytes"] for s in spans] == [t.numel() * t.element_size(), arr.nbytes, arr.nbytes]
+    assert arr.nbytes == t.numel() * t.element_size()
+
+
+@pytest.mark.parametrize("name", ["sz3_lorenzo", "sz3_hybrid"])
+def test_huffman_halves_fit_inside_their_parent(name):
+    x = _field2d()
+    _, _, comp, dec = _traced_round_trip(tc.PIPELINES[name](device=CPU), x)
+    parents = list(_find(comp, "huffman")) + list(_find(dec, "huffman")) + list(_find(dec, "unpack"))
+    assert parents
+    for p in parents:
+        halves = [c for c in p["children"] if c["name"].startswith("huffman_")]
+        assert len(halves) == 2
+        assert sum(c["seconds"] for c in halves) <= p["seconds"]
+        assert all(c["t0"] >= p["t0"] for c in halves)
+
+
+@pytest.mark.parametrize("name", ["sz3_lorenzo", "sz3_transform", "sz3_hybrid", "sz3_fast", "sz3_lr"])
+def test_traced_and_untraced_blobs_are_equal(name):
+    """The single-body engines write the same bytes traced or not (the
+    chunked engines add ``sel`` entries under a trace, by design)."""
+    x = _field2d()
+    plain = tc.PIPELINES[name](device=CPU).compress(x, REL3).blob
+    with telemetry.trace("t"):
+        traced = tc.PIPELINES[name](device=CPU).compress(x, REL3).blob
+    assert traced == plain
+    with telemetry.trace("t"):
+        y = tc.decompress(traced, device=CPU)
+    assert torch.equal(y, tc.decompress(plain, device=CPU))
+
+
+def test_to_dict_carries_the_start_on_perf_counter():
+    import time
+
+    with telemetry.trace("t") as tr:
+        before = time.perf_counter()
+        with telemetry.span("outer"):
+            with telemetry.span("inner"):
+                pass
+        after = time.perf_counter()
+    (outer,) = tr.to_dict()["spans"]
+    (inner,) = outer["children"]
+    assert before <= outer["t0"] <= inner["t0"] <= after
+    assert inner["t0"] + inner["seconds"] <= outer["t0"] + outer["seconds"] <= after
 
 
 # ---------------------------------------------------------------------------
@@ -501,7 +662,7 @@ def test_traced_blob_records_and_spans_equal_the_references(name, workers):
         rc.decompress(rblob)
     with telemetry.trace("d") as td:
         tc.decompress(tblob, device=CPU)
-    assert _strip(td.to_dict()["spans"], attrs=True) == _strip(rd.to_dict()["spans"], attrs=True)
+    assert _strip(td.to_dict()["spans"], attrs=True, by_start=True) == _strip(rd.to_dict()["spans"], attrs=True)
 
 
 @needs_reference

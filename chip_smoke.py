@@ -6,7 +6,7 @@ Phases, one JSON line each:
 
 1. environment: the card, torch and CUDA versions, which host packages
    import (they decide the container's lossless backend and checksum);
-2. build: compile the five CUDA sources under
+2. build: compile the six CUDA sources under
    ``src/repro_torch/kernels/*/csrc`` and the transform's baseline (one
    ``nvcc`` each, all at once);
 3. kernels: each kernel against its plain version on the card, bit for bit
@@ -60,6 +60,15 @@ Phases, one JSON line each:
    bytes past an aligned base (the kernels' 4-byte variant) and tie values
    (x * f32(1/(2eb)) exactly k + 1/2, magnitudes just under 2^22 * 2eb,
    diffs of INT32_MIN);
+3b. Huffman pack (``huffman``): the stream pack kernel against its plain
+   version and the host coder's ``_encode_stream``, byte for byte, on
+   ``hacc.lorenzo``'s 70,238,467 particles and on a 4 MiB chunk (291 x
+   3600) of a CESM-ATM-shaped field, each through its Lorenzo encode at REL
+   1e-4; the coder's tensor path against its numpy path, blob for blob;
+   timed with the L2 flushed beside its bytes bound (codes in, stream
+   out) and the plain version, with the host numpy pack's and the whole
+   coder's seconds both ways; and ``sz3_lorenzo`` on the 70.2 M series,
+   one pack launch a compress (the pack replaces host numpy, no TPU kernel);
 4. main paths, each on a smooth 1800x3600 float32 field (the shape of an
    SDRBench CESM-ATM 2-D field) and on a 2^24+3-element series (HACC-like
    particle data, cut from HACC's 280,953,867 elements so the host coding
@@ -324,6 +333,7 @@ _TRANSFORM_SRC = "src/repro_torch/kernels/transform/csrc/transform.cu"
 _FASTMODE_SRC = "src/repro_torch/kernels/fastmode/csrc/fastmode.cu"
 _KVQUANT_SRC = "src/repro_torch/kernels/kvquant/csrc/kvquant.cu"
 _BITPLANE_SRC = "src/repro_torch/kernels/bitplane/csrc/bitplane.cu"
+_HUFFMAN_SRC = "src/repro_torch/kernels/huffman/csrc/huffman.cu"
 #: the transform rotation's first design, the yardstick of its turns
 _TRANSFORM_BASELINE_SRC = "tools/baseline/transform_baseline.cu"
 #: summary name -> (source, the TPU kernel or host code it replaces)
@@ -345,6 +355,7 @@ _KERNELS = {
                         "src/repro/kernels/kvquant/kernel.py:56 + :70 (fused for the int8 decode append)"),
     "bitplane_encode": (_BITPLANE_SRC, "src/repro/kernels/bitplane/kernel.py:36"),
     "bitplane_decode": (_BITPLANE_SRC, "src/repro/kernels/bitplane/kernel.py:49"),
+    "huffman_pack": (_HUFFMAN_SRC, "src/repro_torch/core/encoders.py _encode_stream (numpy on the host; no TPU kernel)"),
 }
 #: bytes each kernel must move per element (inputs read once, outputs
 #: written once) and the ALU operations it does per element
@@ -482,11 +493,12 @@ def phase_environment() -> str:
 def _kernel_modules():
     from repro_torch.kernels.bitplane import kernel as BK
     from repro_torch.kernels.fastmode import kernel as FK
+    from repro_torch.kernels.huffman import kernel as HK
     from repro_torch.kernels.kvquant import kernel as KK
     from repro_torch.kernels.lorenzo import kernel as LK
     from repro_torch.kernels.transform import kernel as TK
 
-    return {"lorenzo": LK, "transform": TK, "fastmode": FK, "kvquant": KK, "bitplane": BK}
+    return {"lorenzo": LK, "transform": TK, "fastmode": FK, "kvquant": KK, "bitplane": BK, "huffman": HK}
 
 
 def _declare_transform_baseline(lib) -> None:
@@ -505,7 +517,7 @@ def transform_baseline():
 
 
 def phase_build() -> None:
-    """Build the five CUDA sources and the transform's baseline at once: one
+    """Build the six CUDA sources and the transform's baseline at once: one
     nvcc process each."""
     mods = dict(_kernel_modules(), transform_baseline=transform_baseline())
     t0 = time.perf_counter()
@@ -526,7 +538,9 @@ def reset_all_launches() -> None:
 
 
 def all_launches() -> dict:
-    """Launch counts under the summary's kernel names."""
+    """Launch counts under the summary's kernel names: the kernels that
+    replace TPU kernels.  The Huffman pack, which every path coding its
+    codes on the card launches, is counted in its own phase."""
     mods = _kernel_modules()
     out = dict(mods["lorenzo"].LAUNCHES)
     out.update({f"transform_{k}": v for k, v in mods["transform"].LAUNCHES.items()})
@@ -1542,6 +1556,115 @@ def phase_kernels(seed: int, bw: float, x2d: torch.Tensor, x1d: torch.Tensor, co
     cases.update(kvquant_kernels(timer, bw, seed))
     cases.update(bitplane_kernels(timer, bw, coder_ints, seed))
     return cases
+
+
+#: ``hacc.lorenzo``'s field: a quarter of HACC's 280,953,867 particles
+HACC_N = 70_238_467
+
+
+def _pack_launcher(values: torch.Tensor, table: torch.Tensor):
+    """The pack kernel's launch alone (its zeroing memsets and the kernel),
+    on buffers made once: the wrapper's read-back of the bit count waits
+    for the card, which a timed call must not."""
+    from repro_torch.kernels._build import check_launch, stream
+    from repro_torch.kernels.huffman import kernel as K
+
+    lib = K.load()
+    n = values.numel()
+    n_words = -(-n // 4)
+    words = torch.empty(n_words, dtype=torch.int64, device="cuda")
+    sync = torch.empty(-(-n // 1024), dtype=torch.int64, device="cuda")
+    scratch = torch.empty(lib.huffman_pack_scratch_words(n), dtype=torch.int64, device="cuda")
+
+    def launch():
+        check_launch(lib.huffman_pack(values.data_ptr(), values.element_size(), n, table.data_ptr(), table.numel(),
+                                      words.data_ptr(), n_words, sync.data_ptr(), scratch.data_ptr(), stream()),
+                     "huffman pack")
+    return launch
+
+
+def huffman_case(timer, label: str, codes: torch.Tensor, bw: float) -> dict:
+    """The pack kernel on one input of int32 codes on the card: against its
+    plain version and the host coder's stream byte for byte, the coder's
+    tensor path against its numpy path blob for blob, then timed."""
+    from repro_torch.core import encoders as E
+    from repro_torch.kernels.huffman import kernel as K
+    from repro_torch.kernels.huffman import ref as R
+
+    flat = codes.reshape(-1)
+    host = flat.cpu().numpy().astype(np.uint16)
+    vals, freqs, inv = E._alphabet_of(host)
+    lens, _ = E._huffman_code_lengths(freqs)
+    table = E._cached_table(lens)
+    host_stream, host_pack_s = _timed(lambda: E._encode_stream(inv, table, 2))
+    dense = torch.from_numpy(E._pack_table(vals, table)).cuda()
+    got = K.pack(flat, dense)
+    torch.cuda.synchronize()
+    want = R.pack(flat, dense)
+    n, total, sync, pos = E._parse_stream_head(host_stream, 0)
+    if not (got[2] == want[2] == total and torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+            and got[0].cpu().numpy().tobytes() == host_stream[pos:] and np.array_equal(got[1].cpu().numpy(), sync)):
+        raise AssertionError(f"huffman {label}: the pack kernel's stream differs from the plain version's or the host's")
+    (_, blob), tensor_s = _timed(lambda: E.HuffmanEncoder().encode_tensor(flat, np.uint16))
+    host_blob, host_s = _timed(lambda: E.HuffmanEncoder().encode(host))
+    if blob != host_blob:
+        raise AssertionError(f"huffman {label}: the coder's tensor path wrote another blob than its numpy path")
+    stream_bytes = (total + 7) // 8
+    return {
+        "name": "huffman_pack",
+        "label": label,
+        "shape": list(codes.shape),
+        "symbols": int(vals.size),
+        "max_len": int(lens.max()),
+        "stream_bytes": stream_bytes,
+        "bit_identical": True,
+        "max_abs_err": 0.0,
+        "kernel_ms": timer(_pack_launcher(flat, dense)),
+        "plain_ms": timer(lambda: R.pack(flat, dense)),
+        "library_ms": None,
+        "host_numpy_pack_ms": host_pack_s * 1e3,
+        "coder_tensor_path_ms": tensor_s * 1e3,
+        "coder_numpy_path_ms": host_s * 1e3,
+        **bound(flat.numel() * flat.element_size() + stream_bytes, 0, bw),
+    }
+
+
+def phase_huffman(seed: int, bw: float, launches_total: dict) -> dict:
+    """The Huffman stream pack at ``hacc.lorenzo``'s field and at a CESM-ATM
+    chunk, then ``sz3_lorenzo`` on that field: one pack launch a compress,
+    within the bound.  Returns the summary's ``huffman_pack`` case."""
+    import repro_torch.core as tc
+    from repro_torch.kernels.huffman import kernel as K
+    from repro_torch.kernels.lorenzo import ops as LO
+
+    timer = Timer()
+    x = particle_series(HACC_N, seed + 90)
+    eb = 1e-4 * float(x.max() - x.min())
+    case = huffman_case(timer, "hacc", LO.encode_pipeline(x, eb=eb, radius=32768)[0], bw)
+    field = smooth_field(SHAPE2D, seed + 91)
+    chunk = field[: CHUNK_2D[0][0]].contiguous()
+    eb2 = 1e-4 * float(field.max() - field.min())
+    chunk_case = huffman_case(Timer(reps=CHUNK_REPS, warmup=5), "cesm chunk",
+                              LO.encode_pipeline(chunk, eb=eb2, radius=32768)[0], bw)
+    conf = tc.CompressionConfig(mode=tc.ErrorBoundMode.REL, eb=1e-4)
+    comp = tc.sz3_lorenzo()
+    comp.compress(x[: 1 << 17], conf)  # warm-up
+    K.reset_launches()
+    res, t_c = _timed(lambda: comp.compress(x, conf))
+    if K.LAUNCHES["pack"] != 1:
+        raise AssertionError(f"huffman: sz3_lorenzo launched the pack {K.LAUNCHES['pack']} times, expected 1")
+    out, t_d = _timed(lambda: tc.decompress(res.blob))
+    abs_eb = tc.parse_header(res.blob)[0]["abs_eb"]
+    err = float((out.double() - x.double()).abs().max())
+    if err > abs_eb:
+        raise AssertionError(f"huffman: sz3_lorenzo's max error {err} breaks the bound {abs_eb}")
+    launches_total["huffman_pack"] = launches_total.get("huffman_pack", 0) + 1
+    emit("huffman", hacc=case, cesm_chunk=chunk_case, sz3_lorenzo_hacc={
+        "n": HACC_N, "compress_s": t_c, "decompress_s": t_d, "ratio": res.ratio, "max_abs_err": err,
+        "abs_eb": abs_eb, "pack_launches": 1})
+    return {"huffman_pack": {**case, "chunk_shape": chunk_case["shape"], "chunk_ms": chunk_case["kernel_ms"],
+                             "chunk_plain_ms": chunk_case["plain_ms"], "chunk_library_ms": None,
+                             "chunk_bound_ms": chunk_case["bound_ms"]}}
 
 
 def _timed(fn):
@@ -4938,8 +5061,9 @@ def main() -> int:
     x1d = particle_series(N1D, args.seed + 1)
     coder_ints = v3_coder_integers(x2d)
     cases = phase_kernels(args.seed, bw, x2d, x1d, coder_ints)
-    t_kernels = time.perf_counter()
     launches = {name: 0 for name in cases}
+    cases.update(phase_huffman(args.seed, bw, launches))
+    t_kernels = time.perf_counter()
     for pipeline in PATHS:
         phase_main_path(pipeline, "2-D", x2d, launches)
         phase_main_path(pipeline, "1-D", x1d, launches)

@@ -266,9 +266,7 @@ class BlockHybridCompressor:
         self.quantizer.begin(abs_eb, pdata.dtype)
         with tel.span("predict", bytes=pdata.numel() * pdata.element_size()):  # per-block contest
             codes_t, tag_bytes, hmeta = self._compress_blocks(pdata)
-        codes = to_host(codes_t).astype(self.quantizer.code_dtype)
-        with tel.span("huffman", bytes=codes.nbytes):
-            enc_bytes = self.encoder.encode(codes)
+        codes, enc_bytes = pl_mod._encode_codes(self.encoder, codes_t, self.quantizer.code_dtype)
         q_bytes = self.quantizer.save()
         spec = self.spec()
         spec["preprocessor"] = pre.name  # the EFFECTIVE preprocessor

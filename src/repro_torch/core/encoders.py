@@ -9,8 +9,11 @@ Instances:
   * RawEncoder          — passthrough (module bypass).
   * LegacyHuffmanEncoder — Huffman that writes the older v1 stream layout.
 
-Entropy coding is byte-level work and stays on the host in numpy; its
-streams are byte-identical to the JAX package's.
+The streams are the contract: byte-identical to the JAX package's.  The
+table half (histogram, code lengths, canonical table) and the decode run on
+the host in numpy.  The stream half, the pack, runs where the codes lie: in
+numpy for host arrays, in the pack kernel (``kernels.huffman``) for codes
+on the card, which writes the same bytes.
 
 Vectorization: encode emits one bitstream
 with *sync points* every ``SYNC`` symbols (a bit-offset each, ~0.06 bit/sym
@@ -40,8 +43,11 @@ from collections import OrderedDict
 from typing import Dict, Optional, Tuple
 
 import numpy as np
+import torch
 
+from ..kernels.huffman import ops as huff_ops
 from . import telemetry as tel
+from .quantizers import to_device, to_host
 
 _MAXLEN = 16
 _SYNC = 1024
@@ -272,6 +278,17 @@ def _pack_codes(
     return words.astype(">u8").tobytes()[:nbytes]
 
 
+def _stream_bytes(n: int, total_bits: int, sync: np.ndarray, payload: bytes, version: int) -> bytes:
+    """Head, sync offsets and payload of a stream of ``n`` symbols: the v2
+    layout unless told (or forced) to v1."""
+    if version == 1 or total_bits >= (1 << 32):
+        # v1 layout (also the >=4-Gbit fallback: sync must fit uint32 in v2)
+        head = np.asarray([n, total_bits, sync.size], np.int64).tobytes()
+        return head + sync.astype(np.int64).tobytes() + payload
+    head = np.asarray([_V2_MARK, n, total_bits, sync.size], np.int64).tobytes()
+    return head + sync.astype(np.uint32).tobytes() + payload
+
+
 def _encode_stream(syms: np.ndarray, table: _HuffTable, version: int = 2) -> bytes:
     """Word-packed encode; emits the v2 head unless told (or forced) to v1."""
     lens = table.enc_len[syms]
@@ -280,17 +297,18 @@ def _encode_stream(syms: np.ndarray, table: _HuffTable, version: int = 2) -> byt
         raise ValueError("symbol outside Huffman alphabet")
     offsets = np.zeros(syms.size + 1, np.int64)
     np.cumsum(lens, out=offsets[1:])
-    sync = offsets[:-1:_SYNC]
     total_bits = int(offsets[-1])
     payload = _pack_codes(codes, lens, offsets, total_bits)
-    if version == 1 or total_bits >= (1 << 32):
-        # v1 layout (also the >=4-Gbit fallback: sync must fit uint32 in v2)
-        head = np.asarray([syms.size, total_bits, sync.size], np.int64).tobytes()
-        return head + sync.astype(np.int64).tobytes() + payload
-    head = np.asarray(
-        [_V2_MARK, syms.size, total_bits, sync.size], np.int64
-    ).tobytes()
-    return head + sync.astype(np.uint32).tobytes() + payload
+    return _stream_bytes(syms.size, total_bits, offsets[:-1:_SYNC], payload, version)
+
+
+def _pack_table(vals: np.ndarray, table: _HuffTable) -> np.ndarray:
+    """The pack kernel's table: ``(code << 8) | length`` as int32 for every
+    value ``0..vals[-1]``; 0 (no code) for a value outside the alphabet.
+    ``table`` codes the ranks of the sorted alphabet ``vals``."""
+    dense = np.zeros(int(vals[-1]) + 1, np.int32)
+    dense[vals] = (table.enc_code.astype(np.int32) << 8) | table.enc_len
+    return dense
 
 
 def _parse_stream_head(
@@ -417,23 +435,36 @@ class BitpackEncoder(Encoder):
         return (bits.astype(np.uint32) << shifts[None, :]).sum(axis=1)
 
 
+def _histogram(arr: np.ndarray) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """(distinct values, frequencies) of a non-empty int array by a bounded
+    ``np.bincount``; None where a value is negative or ``>= _HIST_MAX``."""
+    if 0 <= int(arr.min()) and int(arr.max()) < _HIST_MAX:
+        freqs_full = np.bincount(arr)
+        vals = np.flatnonzero(freqs_full)
+        return vals.astype(np.int64), freqs_full[vals]
+    return None
+
+
 def _alphabet_of(arr: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """(distinct values, frequencies, rank indices) of an int array.
+    """(distinct values, frequencies, rank indices) of a non-empty int array.
 
     Quantization codes are non-negative and bounded by ``2*radius``, so the
     common case is a bounded ``np.bincount`` histogram + an O(n) rank gather
     instead of the O(n log n) sort ``np.unique`` pays per call.
     """
-    lo = int(arr.min()) if arr.size else 0
-    hi = int(arr.max()) if arr.size else 0
-    if 0 <= lo and hi < _HIST_MAX:
-        freqs_full = np.bincount(arr)
-        vals = np.flatnonzero(freqs_full)
-        rank = np.zeros(hi + 1, np.int64)
+    hist = _histogram(arr)
+    if hist is not None:
+        vals, freqs = hist
+        rank = np.zeros(int(vals[-1]) + 1, np.int64)
         rank[vals] = np.arange(vals.size, dtype=np.int64)
-        return vals.astype(np.int64), freqs_full[vals], rank[arr]
+        return vals, freqs, rank[arr]
     vals, inv = np.unique(arr, return_inverse=True)
     return vals, np.bincount(inv), inv.astype(np.int64)
+
+
+def _alphabet_head(vals: np.ndarray, lens: np.ndarray) -> bytes:
+    """Alphabet header: K, symbol values (int64), lengths (uint8)."""
+    return np.asarray([vals.size], np.int64).tobytes() + vals.astype(np.int64).tobytes() + lens.tobytes()
 
 
 class HuffmanDecodeHandle:
@@ -470,7 +501,8 @@ class HuffmanEncoder(Encoder):
     """Canonical Huffman built from the observed code frequencies [36].
 
     ``stream_version=2`` (default) emits the word-packed v2 stream; ``1``
-    emits the older layout (the decoder reads both).
+    emits the older layout (the decoder reads both).  ``encode`` takes a
+    host array or a torch tensor (:meth:`encode_tensor`).
     """
 
     name = "huffman"
@@ -479,6 +511,8 @@ class HuffmanEncoder(Encoder):
         self.stream_version = int(stream_version)
 
     def encode(self, codes):
+        if isinstance(codes, torch.Tensor):
+            return self.encode_tensor(codes)[1]
         arr = np.ascontiguousarray(codes).reshape(-1)
         if arr.dtype.kind not in "iu":
             arr = arr.astype(np.int64)
@@ -491,9 +525,38 @@ class HuffmanEncoder(Encoder):
             table = _cached_table(lens)
         with tel.span("huffman_pack", bytes=arr.nbytes):
             stream = _encode_stream(inv, table, self.stream_version)
-            # alphabet header: K, symbol values (int64), lengths (uint8)
-            head = np.asarray([vals.size], np.int64).tobytes()
-            return head + vals.astype(np.int64).tobytes() + lens.tobytes() + stream
+            return _alphabet_head(vals, lens) + stream
+
+    def encode_tensor(self, codes: torch.Tensor, code_dtype=None) -> Tuple[np.ndarray, bytes]:
+        """The codes' host copy (cast to ``code_dtype`` where given) and
+        their blob: the bytes :meth:`encode` writes for that copy.
+
+        The table half runs on the host copy; the stream is packed where the
+        codes lie, by the pack kernel on the card and by its plain version
+        on the CPU (``kernels.huffman``), with the value itself as the
+        table's index, so no rank array is made.  Codes that are not
+        integers in ``[0, _HIST_MAX)`` go through :meth:`encode`'s host
+        path whole.  Both spans count the host copy's bytes (codes in)."""
+        flat = codes.reshape(-1)
+        itemsize = np.dtype(code_dtype).itemsize if code_dtype is not None else flat.element_size()
+        nbytes = flat.numel() * itemsize
+        hist = None
+        with tel.span("huffman_table", bytes=nbytes):
+            arr = to_host(flat)
+            if code_dtype is not None:
+                arr = arr.astype(code_dtype)
+            if arr.size and arr.dtype.kind in "iu":
+                hist = _histogram(arr)
+            if hist is not None:
+                vals, freqs = hist
+                lens, _ = _huffman_code_lengths(freqs)
+                table = _cached_table(lens)
+        if hist is None:
+            return arr, self.encode(arr)
+        with tel.span("huffman_pack", bytes=nbytes):
+            payload, sync, total_bits = huff_ops.pack(flat, to_device(_pack_table(vals, table), flat.device))
+            stream = _stream_bytes(arr.size, total_bits, to_host(sync), to_host(payload).tobytes(), self.stream_version)
+            return arr, _alphabet_head(vals, lens) + stream
 
     def decode(self, buf, n, handle: Optional[HuffmanDecodeHandle] = None):
         if handle is None:

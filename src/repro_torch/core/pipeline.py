@@ -140,6 +140,19 @@ def _finite_stats(data: torch.Tensor) -> Tuple[float, float]:
     return mx - mn, max(abs(mn), abs(mx))
 
 
+def _encode_codes(encoder, codes_t: torch.Tensor, code_dtype) -> Tuple[np.ndarray, bytes]:
+    """The codes on the host, cast to ``code_dtype``, and the encoder's
+    bytes for them, under the ``huffman`` span (codes in, as ``code_dtype``).
+    Codes on the card go to a Huffman encoder as they are: it copies them to
+    the host for its table and packs the stream on the card."""
+    if codes_t.is_cuda and isinstance(encoder, enc_mod.HuffmanEncoder):
+        with tel.span("huffman", bytes=codes_t.numel() * np.dtype(code_dtype).itemsize):
+            return encoder.encode_tensor(codes_t, code_dtype)
+    codes = quant_mod.to_host(codes_t).astype(code_dtype)
+    with tel.span("huffman", bytes=codes.nbytes):
+        return codes, encoder.encode(codes)
+
+
 def _clean_meta(meta: Dict[str, Any]) -> Dict[str, Any]:
     """Coerce numpy scalars and arrays so msgpack accepts the header."""
     out = {}
@@ -264,9 +277,7 @@ class SZ3Compressor:
         self.quantizer.begin(abs_eb, pdata.dtype)
         with tel.span("predict", bytes=pdata.numel() * pdata.element_size()):
             codes_t, pred_meta = self.predictor.compress(pdata, self.quantizer, conf2)  # 2-5
-        codes = quant_mod.to_host(codes_t).astype(self.quantizer.code_dtype)
-        with tel.span("huffman", bytes=codes.nbytes):
-            enc_bytes = self.encoder.encode(codes)  # lines 9-10
+        codes, enc_bytes = _encode_codes(self.encoder, codes_t, self.quantizer.code_dtype)  # lines 9-10
         q_bytes = self.quantizer.save()  # line 8
         header = {
             "v": _VERSION,

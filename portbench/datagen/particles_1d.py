@@ -4,7 +4,10 @@
   smoothly along the particle order: ``box / 2 + amplitude * sin(2 pi waves
   t + phase)`` plus a random walk of ``step``-sized Gaussian steps, wrapped
   into ``[0, box)`` (the character of ``chip_smoke.py``'s
-  ``particle_series``, with the box's periodicity).
+  ``particle_series``, with the box's periodicity).  The walk is summed in
+  a fixed order (:func:`_walk`): a 1-D ``torch.cumsum`` on the card adds
+  in an order that changes from call to call, so one seed would give
+  fields that differ in a few points.
 * ``velocity``: a rougher series, white noise filtered by
   ``k ** (-slope / 2)`` and scaled to deviation ``scale``.  Its lowest
   ``shared_modes`` spectral modes, which set its range, are drawn from one
@@ -23,6 +26,8 @@ from portbench.harness.fields import field_seed
 
 #: the seed of the modes that every velocity field shares
 _SHARED_SEED = 0x5EED_0F_1A12E
+#: the length of the rows a walk is summed along
+_ROW = 4096
 
 
 def _fft_length(n: int) -> int:
@@ -36,10 +41,25 @@ def _fft_length(n: int) -> int:
     return best
 
 
+def _walk(steps: torch.Tensor) -> torch.Tensor:
+    """The running sum of ``steps`` (1-D), the same bits on every call: each
+    row of ``_ROW`` steps is summed along the row on the device (the scan of
+    the innermost axis, whose order is fixed), and the rows' carries on the
+    host."""
+    n = steps.numel()
+    rows = -(-n // _ROW)
+    padded = torch.zeros(rows * _ROW, dtype=steps.dtype, device=steps.device)
+    padded[:n] = steps
+    within = torch.cumsum(padded.view(rows, _ROW), 1)
+    carry = torch.zeros(rows, dtype=steps.dtype)
+    carry[1:] = torch.cumsum(within[:-1, -1].cpu(), 0)
+    return (within + carry.to(steps.device)[:, None]).view(-1)[:n]
+
+
 def _position(n: int, kind: Dict, gen: torch.Generator, device) -> torch.Tensor:
     phase = float(torch.rand((), generator=gen, device=device, dtype=torch.float64)) * 2 * math.pi
     t = torch.arange(n, device=device, dtype=torch.float64) / n
-    walk = torch.cumsum(kind["step"] * torch.randn(n, generator=gen, device=device, dtype=torch.float64), 0)
+    walk = _walk(kind["step"] * torch.randn(n, generator=gen, device=device, dtype=torch.float64))
     x = kind["box"] / 2 + kind["amplitude"] * torch.sin(2 * math.pi * kind["waves"] * t + phase) + walk
     return torch.remainder(x, kind["box"]).to(torch.float32)
 

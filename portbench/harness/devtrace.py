@@ -5,7 +5,9 @@ recording, which would slow the host-bound paths it traces) and returns each
 device operation (kernel, copy, set) as ``(name, start, end)`` on the host's
 ``perf_counter`` clock.  The two clocks are tied by a marker kernel launched
 right after a synchronise at a known host time: the alignment is off by about
-one launch (some microseconds).
+one launch (some microseconds).  A marker is launched as the trace starts and
+again as it ends; the profiler sometimes loses one of them, so either ties
+the clocks (the first where both are kept).
 
 The reductions are plain functions of those intervals and of the host spans:
 ``busy_seconds`` (the union of device operations), ``top_ops`` (device time by
@@ -27,21 +29,28 @@ _MARKER = "spin_kernel"
 class DeviceTrace:
     def __init__(self):
         self._prof = None
-        self._mark_host = 0.0
+        #: host times of the start and the end marker
+        self._marks_host: List[float] = []
+
+    @staticmethod
+    def _mark() -> float:
+        """Launch a marker on an idle device; its host launch time."""
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+        return t
 
     def __enter__(self) -> "DeviceTrace":
         from torch.profiler import ProfilerActivity, profile
 
         self._prof = profile(activities=[ProfilerActivity.CUDA])
         self._prof.__enter__()
-        torch.cuda.synchronize()
-        self._mark_host = time.perf_counter()
-        torch.cuda._sleep(1000)
-        torch.cuda.synchronize()
+        self._marks_host = [self._mark()]
         return self
 
     def __exit__(self, *exc) -> bool:
-        torch.cuda.synchronize()
+        self._marks_host.append(self._mark())
         self._prof.__exit__(*exc)
         return False
 
@@ -51,12 +60,25 @@ class DeviceTrace:
         for e in self._prof.profiler.kineto_results.events():
             if e.device_type() == torch.autograd.DeviceType.CUDA:
                 raw.append((e.name(), e.start_ns(), e.start_ns() + e.duration_ns()))
-        marks = [r for r in raw if _MARKER in r[0]]
-        if not marks:
-            raise RuntimeError("the profiler recorded no clock marker: no device trace to read")
-        offset = min(m[1] for m in marks) * 1e-9 - self._mark_host
-        ops = [(n, s * 1e-9 - offset, t * 1e-9 - offset) for n, s, t in raw if _MARKER not in n]
-        return sorted(ops, key=lambda o: o[1])
+        return align(raw, self._marks_host)
+
+
+def align(raw: Sequence[Tuple[str, int, int]], marks_host: Sequence[float]) -> List[Interval]:
+    """The device operations ``raw`` (name, start and end in device ns) on the
+    host's clock, earliest first, tied by the start marker, or by the end
+    marker where the trace lost the start one.  Every other operation runs
+    after the start marker and before the end one, which tells a lone marker's
+    place."""
+    marks = sorted(s for n, s, _ in raw if _MARKER in n)
+    others = [s for n, s, _ in raw if _MARKER not in n]
+    if not marks:
+        raise RuntimeError("the profiler recorded no clock marker: no device trace to read")
+    if len(marks) > 1 or not others or marks[0] <= min(others):
+        offset = marks[0] * 1e-9 - marks_host[0]
+    else:
+        offset = marks[-1] * 1e-9 - marks_host[-1]
+    ops = [(n, s * 1e-9 - offset, t * 1e-9 - offset) for n, s, t in raw if _MARKER not in n]
+    return sorted(ops, key=lambda o: o[1])
 
 
 def busy_seconds(ops: Sequence[Interval], t0: float, t1: float) -> float:

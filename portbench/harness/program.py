@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import importlib
 import pkgutil
 from typing import Dict, Iterator, List
@@ -17,17 +18,27 @@ import torch
 
 def _span_tree(span) -> List[Dict]:
     """A telemetry span's children as plain dicts, with each span's start
-    on the host's ``perf_counter`` clock where the span records one."""
+    on the host's ``perf_counter`` clock where the span records one, its
+    ``bytes``, and in ``attrs`` every other int, float or str attribute."""
     return [
         {
             "name": c.name,
             "t0": getattr(c, "_t0", None),
             "seconds": c.seconds,
             "bytes": int(c.attrs.get("bytes", 0)),
+            "attrs": {k: v for k, v in c.attrs.items() if k != "bytes" and isinstance(v, (int, float, str))},
             "children": _span_tree(c),
         }
         for c in span.children
     ]
+
+
+@dataclasses.dataclass
+class Recording:
+    """What a traced call leaves: the span tree and the trace's counters."""
+
+    spans: List[Dict] = dataclasses.field(default_factory=list)
+    counters: Dict[str, float] = dataclasses.field(default_factory=dict)
 
 
 class PortProgram:
@@ -74,12 +85,14 @@ class PortProgram:
         return self.core.decompress(blob, device=self.device)
 
     @contextlib.contextmanager
-    def traced(self) -> Iterator[List[Dict]]:
-        """Record the program's spans; the yielded list receives their tree."""
-        tree: List[Dict] = []
+    def traced(self) -> Iterator[Recording]:
+        """Record the program's spans and counters; the yielded recording
+        receives them when the block ends."""
+        rec = Recording()
         with self.core.telemetry.trace("portbench") as tr:
-            yield tree
-        tree.extend(_span_tree(tr.root))
+            yield rec
+        rec.spans.extend(_span_tree(tr.root))
+        rec.counters.update(tr.counters)
 
     def close(self) -> None:
         self.comp = None

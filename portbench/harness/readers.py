@@ -1,4 +1,5 @@
-"""Arithmetic the metric readers share: span totals and call totals."""
+"""Arithmetic the metric readers share: span totals, counter totals and
+call totals."""
 from __future__ import annotations
 
 from typing import Dict, Iterable, List, Optional, Tuple
@@ -33,6 +34,14 @@ def span_MBps(run, op: str, name: str) -> Optional[float]:
     if not count or seconds <= 0 or nbytes <= 0:
         return None
     return nbytes / 1e6 / seconds
+
+
+def counter_total(run, op: str, name: str) -> Optional[float]:
+    """The sum of the program's counter ``name`` over the traces of every
+    finished ``op`` call; None where no call counted it (an untraced run
+    keeps no counters)."""
+    counts = [c.counters[op][name] for c in run.done if name in c.counters.get(op, {})]
+    return sum(counts) if counts else None
 
 
 def call_MBps(run, op: str) -> Optional[float]:

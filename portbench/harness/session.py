@@ -45,6 +45,9 @@ class Call:
     error: Optional[str] = None
     #: the program's span trees ("compress", "decompress"), traced runs only
     spans: Dict[str, List[Dict]] = dataclasses.field(default_factory=dict)
+    #: the program's counters by op, as the trace of each call left them,
+    #: traced runs only
+    counters: Dict[str, Dict[str, float]] = dataclasses.field(default_factory=dict)
     #: the harness's own spans around the two calls, as span-tree roots
     host: List[Dict] = dataclasses.field(default_factory=list)
 
@@ -95,10 +98,10 @@ def _round_trip(program, x: torch.Tensor, call: Call, device: str, trace: bool) 
         r0 = resource.getrusage(resource.RUSAGE_SELF)
         t0 = time.perf_counter()
         if trace:
-            with program.traced() as tree:
+            with program.traced() as rec:
                 out = fn()
                 _sync(device)
-            call.spans[op] = tree
+            call.spans[op], call.counters[op] = rec.spans, rec.counters
         else:
             out = fn()
             _sync(device)
@@ -119,10 +122,11 @@ def _round_trip(program, x: torch.Tensor, call: Call, device: str, trace: bool) 
 
 def _judge(reference, traffic: Dict, xs: List[torch.Tensor], seals: List, run: Run):
     """(checks, failed calls): the reference's numbers over every finished
-    call beside their limits, and the calls that raised or failed one."""
+    call beside their limits, and the calls that raised or failed one.  The
+    reference gets the whole traffic mix, so that it can hold the program
+    to what the mix asked for as well as to the bound."""
     limits = reference.LIMITS
-    verdicts = [reference.judge_field(xs[c.index], c.decoded, c.blob, c.ratio, traffic["mode"], float(traffic["eb"]),
-                                      seals[c.index])
+    verdicts = [reference.judge_field(xs[c.index], c.decoded, c.blob, c.ratio, traffic, seals[c.index])
                 for c in run.done]
     for v in verdicts:
         for f in v.blob_faults[:3]:

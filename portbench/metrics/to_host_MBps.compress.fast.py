@@ -1,0 +1,12 @@
+"""``to_host_MBps.compress`` in the fast tier's cell: bytes over seconds of
+the ``to_host`` spans of compress calls, outside the chunk contest."""
+from portbench.harness import readers
+
+UNIT, BETTER, SOURCE = "MB/s", "higher", "program_span"
+#: the fast cell's one end-to-end metric besides setup_s: its rates are
+#: per-layer there (compress_MBps.fast, decompress_MBps.fast)
+LAYER, MOVES = "host-device copies", "ratio"
+
+
+def read(run):
+    return readers.span_MBps(run, "compress", "to_host")

@@ -165,11 +165,12 @@ def blob_faults(x: torch.Tensor, blob: bytes, ratio: float, abs_eb: float) -> (f
 
 
 def judge_field(x: torch.Tensor, decoded: Optional[torch.Tensor], blob: bytes, ratio: float,
-                mode: str, eb: float, sealed: Optional[Seal] = None) -> FieldVerdict:
+                traffic: Dict, sealed: Optional[Seal] = None) -> FieldVerdict:
     """One field's numbers, against the bound that ``sealed`` kept from
-    before the program saw ``x`` (without a seal, derived from ``x`` now)."""
+    before the program saw ``x`` (without a seal, derived from ``x`` now
+    by the traffic mix's ``mode`` and ``eb``)."""
     if sealed is None:
-        sealed = seal(x, mode, eb)
+        sealed = seal(x, traffic["mode"], float(traffic["eb"]))
     abs_eb = sealed.abs_eb
     changed = digest(x) != sealed.digest
     gap, faults = blob_faults(x, blob, ratio, abs_eb)

@@ -14,9 +14,6 @@ for p in (str(ROOT / "src"), str(ROOT)):
     if p not in sys.path:
         sys.path.insert(0, p)
 
-#: a tiny stand-in for each real configuration: same kinds, small shape
-TINY_SHAPES = {"cesm-atm": [96, 512], "hacc": [50000]}
-
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "cuda: needs an NVIDIA GPU; skips itself where torch.cuda.is_available() is false")
@@ -37,23 +34,46 @@ def benchmark() -> dict:
         return json.load(f)
 
 
-def write_tiny(tmp: pathlib.Path, benchmark: dict, fields: int = 6) -> dict:
-    """Tiny copies of every configuration and traffic mix under ``tmp``, and
-    a BENCHMARK dict whose cells name them (same cell names)."""
-    from portbench.harness.catalog import BENCH_DIR
+def tiny_shape(path: pathlib.Path, config: dict) -> list:
+    """The ``tiny_shape`` a configuration file names for its CPU stand-in;
+    an error that names the file and the key where it is missing or has
+    another number of axes than ``shape``."""
+    shape = config.get("tiny_shape")
+    if not isinstance(shape, list) or not all(isinstance(n, int) and n > 0 for n in shape):
+        raise ValueError(f"{path}: 'tiny_shape' must be a list of positive axis lengths, found {shape!r}")
+    if len(shape) != len(config["shape"]):
+        raise ValueError(f"{path}: 'tiny_shape' {shape} has {len(shape)} axes, 'shape' {config['shape']} has "
+                         f"{len(config['shape'])}")
+    return shape
 
+
+def write_tiny(tmp: pathlib.Path, benchmark: dict, fields: int = 6, dirs=None) -> dict:
+    """Tiny copies of every configuration and traffic mix under ``tmp``, each
+    configuration cut to its own ``tiny_shape``, and a BENCHMARK dict whose
+    cells name them (same cell names).  Files are looked up in ``dirs`` in
+    order (the benchmark's own by default), as the catalog looks them up."""
+    from portbench.harness.catalog import BENCH_DIR, Catalog
+
+    catalog = Catalog(benchmark, dirs or [BENCH_DIR])
     (tmp / "configs").mkdir(parents=True, exist_ok=True)
     (tmp / "traffic").mkdir(exist_ok=True)
     bench = json.loads(json.dumps(benchmark))
     for cell in bench["workloads"]:
-        config = json.loads((BENCH_DIR / "configs" / f"{cell['config']}.json").read_text())
-        config["shape"] = TINY_SHAPES[cell["config"]]
+        path = catalog.path("configs", cell["config"], ".json")
+        config = json.loads(path.read_text())
+        config["shape"] = tiny_shape(path, config)
         (tmp / "configs" / f"tiny-{cell['config']}.json").write_text(json.dumps(config))
-        traffic = json.loads((BENCH_DIR / "traffic" / f"{cell['traffic']}.json").read_text())
+        traffic = json.loads(catalog.path("traffic", cell["traffic"], ".json").read_text())
         traffic["fields"] = fields
         (tmp / "traffic" / f"tiny-{cell['traffic']}.json").write_text(json.dumps(traffic))
         cell["config"], cell["traffic"] = f"tiny-{cell['config']}", f"tiny-{cell['traffic']}"
     return bench
+
+
+@pytest.fixture
+def tiny_writer():
+    """:func:`write_tiny`, for a test that cuts cells of its own."""
+    return write_tiny
 
 
 @pytest.fixture

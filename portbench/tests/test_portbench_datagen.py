@@ -90,3 +90,16 @@ def test_configs_state_their_reductions(benchmark):
         config = json.loads((BENCH_DIR.parent / entry["file"]).read_text())
         assert config["name"] == entry["name"] and config["reduced"] == entry["reduced"]
         assert config["source"] == entry["source"]
+
+
+@pytest.mark.parametrize("n", [1, 4095, 4096, 4097, 3 * 4096 + 5])
+def test_the_walk_is_the_running_sum_of_its_steps(n):
+    """The positions' walk, summed row by row in a fixed order, is the plain
+    running sum to float64 rounding."""
+    walk = Catalog({"workloads": []}, [BENCH_DIR]).module("datagen", "particles_1d")._walk
+    steps = torch.randn(n, generator=torch.Generator().manual_seed(n), dtype=torch.float64)
+    plain = torch.cumsum(steps, 0)
+    got = walk(steps)
+    assert got.shape == plain.shape and got.dtype == torch.float64
+    assert float((got - plain).abs().max()) <= n * 2.2e-16 * (float(plain.abs().max()) + 1.0)
+    assert torch.equal(walk(steps), got)

@@ -1,5 +1,6 @@
 """The harness on the CPU: every file found by name, the result line's
-schema, the import check, and a throwaway cell added by new files alone."""
+schema, the import check, each configuration's tiny stand-in, what a
+traced call keeps, and throwaway cells added by new files alone."""
 import json
 import math
 import os
@@ -13,6 +14,7 @@ import pytest
 
 from portbench.harness import devtrace, guard, session
 from portbench.harness.catalog import BENCH_DIR, ROOT, Catalog
+from portbench.harness.program import PortProgram, _span_tree
 
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
@@ -139,6 +141,146 @@ def test_a_throwaway_cell_needs_only_new_files(tmp_path, benchmark):
     assert result["metrics"]["calls.window"]["value"] == result["attempted"]
 
 
+#: the new files of a 3-D configuration: a tiny stand-in, a generator, a
+#: traffic mix that names the interpolation's kind, a reference that holds
+#: the program to that kind as well as to the bound, and a metric that reads
+#: a counter
+CUBE_FILES = {
+    "configs/cube.json": json.dumps({
+        "name": "cube", "shape": [512, 512, 512], "tiny_shape": [12, 16, 20], "generator": "waves_3d",
+        "reference": "sz3_kind", "precision": "float32", "kinds": [{"freq": 0.3}, {"freq": 0.7}], "reduced": []}),
+    "traffic/interp.json": json.dumps({
+        "pipeline": "sz3_interp", "options": {"kind": "cubic"}, "mode": "rel", "eb": 1e-3, "fields": 4,
+        "why": "multi-level cubic interpolation on 3-D fields"}),
+    "datagen/waves_3d.py": (
+        "import torch\n"
+        "def make(config, items, seed, device):\n"
+        "    axes = [torch.arange(n, dtype=torch.float32, device=device) for n in config['shape']]\n"
+        "    i, j, k = torch.meshgrid(*axes, indexing='ij')\n"
+        "    out = []\n"
+        "    for fid, kind in items:\n"
+        "        f = config['kinds'][kind]['freq'] * (1 + (seed + fid) % 7 / 7)\n"
+        "        out.append((torch.sin(f * i) + torch.cos(f * j) * torch.sin(0.5 * f * k) + fid).contiguous())\n"
+        "    return out\n"),
+    "reference/sz3_kind.py": (
+        "import dataclasses\n"
+        "from portbench.reference import container, sz3_bound\n"
+        "LIMITS = {**sz3_bound.LIMITS, 'kind_mismatch': 0}\n"
+        "seal = sz3_bound.seal\n"
+        "@dataclasses.dataclass\n"
+        "class Verdict(sz3_bound.FieldVerdict):\n"
+        "    kind_mismatch: int = 0\n"
+        "def judge_field(x, decoded, blob, ratio, traffic, sealed=None):\n"
+        "    v = sz3_bound.judge_field(x, decoded, blob, ratio, traffic, sealed)\n"
+        "    want = traffic['options']['kind']\n"
+        "    kinds = [p['header'].get('pred_meta', {}).get('kind') for p in container.leaves(blob)]\n"
+        "    return Verdict(**dataclasses.asdict(v), kind_mismatch=sum(k != want for k in kinds))\n"
+        "def summarize(verdicts):\n"
+        "    return {**sz3_bound.summarize(verdicts), 'kind_mismatch': sum(v.kind_mismatch for v in verdicts)}\n"),
+    "metrics/counted_fields.compress.py": (
+        "from portbench.harness import readers\n"
+        "UNIT, BETTER, SOURCE = 'fields', 'higher', 'program_counter'\n"
+        "LAYER, MOVES = 'entry points', 'compress_MBps'\n"
+        "def read(run):\n    return readers.counter_total(run, 'compress', 'cube.fields')\n"),
+}
+
+
+class _Counting(PortProgram):
+    """The port with one counter of its own, which a sound compress of the
+    port does not emit: one count a field compressed."""
+
+    def compress(self, x):
+        self.core.telemetry.count("cube.fields")
+        return super().compress(x)
+
+
+def _linear(traffic, device):
+    """The port asked for the linear interpolation whatever the mix says."""
+    return _Counting({**traffic, "options": {**traffic["options"], "kind": "linear"}}, device)
+
+
+def test_a_3d_configuration_with_its_own_reference_needs_only_new_files(tmp_path, benchmark, tiny_writer):
+    """A 3-D configuration, its tiny stand-in, its own reference with a limit
+    read from the traffic's options, a traffic mix and a counter-reading
+    metric go in as new files: the tiny stand-in, ``run_cell`` (traced and
+    untraced) and the judge take them, and a program that ignores the
+    mix's kind is caught by the new limit alone."""
+    new = tmp_path / "new"
+    for rel, text in CUBE_FILES.items():
+        (new / rel).parent.mkdir(parents=True, exist_ok=True)
+        (new / rel).write_text(text)
+    bench = json.loads(json.dumps(benchmark))
+    bench["configs"].append({"name": "cube", "source": "a throwaway 3-D configuration", "file": "new/configs/cube.json",
+                             "reduced": [], "why": "3-D fields through sz3_interp"})
+    bench["workloads"].append({"name": "cube.interp", "config": "cube", "traffic": "interp", "chips": 1,
+                               "why": "a throwaway 3-D cell"})
+    bench["per_layer"].append({"name": "counted_fields.compress", "unit": "fields", "better": "higher",
+                               "source": "program_counter", "layer": "entry points", "moves": "compress_MBps",
+                               "workloads": ["cube.interp"]})
+    small = tiny_writer(tmp_path / "tiny", bench, fields=4, dirs=[new, BENCH_DIR])
+    assert json.loads((tmp_path / "tiny" / "configs" / "tiny-cube.json").read_text())["shape"] == [12, 16, 20]
+    catalog = Catalog(small, [tmp_path / "tiny", new, BENCH_DIR])
+    for trace in (False, True):
+        result = session.run_cell(catalog, "cube.interp", 2**31 + 21, 0.0, trace, device="cpu",
+                                  program_factory=_Counting)
+        _check_result(result, small, "cube.interp", trace)
+        assert result["correct"] is True and result["attempted"] == 2
+        assert result["checks"]["kind_mismatch"] == {"value": 0, "limit": 0}
+        assert result["checks"]["err_over_bound"]["value"] <= 1.0
+    assert result["metrics"]["counted_fields.compress"]["value"] == result["attempted"]
+    wrong = session.run_cell(catalog, "cube.interp", 2**31 + 21, 0.0, True, device="cpu", program_factory=_linear)
+    assert wrong["correct"] is False and wrong["failed"] == wrong["attempted"] == 2
+    assert wrong["checks"]["kind_mismatch"]["value"] == 2
+    assert wrong["checks"]["err_over_bound"]["value"] <= 1.0
+
+
+def _config_paths():
+    return sorted((BENCH_DIR / "configs").glob("*.json"))
+
+
+@pytest.mark.parametrize("path", _config_paths(), ids=lambda p: p.stem)
+def test_every_configuration_names_a_tiny_stand_in_of_its_shape(path):
+    config = json.loads(path.read_text())
+    tiny, shape = config["tiny_shape"], config["shape"]
+    assert len(tiny) == len(shape) and math.prod(tiny) <= 65536
+    assert all(0 < t <= s for t, s in zip(tiny, shape))
+
+
+@pytest.mark.parametrize("tiny_shape, match", [(None, "must be a list"), ([96], "has 1 axes"), ([96, 0], "positive")])
+def test_a_configuration_without_a_sound_tiny_shape_is_named(tmp_path, benchmark, tiny_writer, tiny_shape, match):
+    new = tmp_path / "new" / "configs"
+    new.mkdir(parents=True)
+    config = json.loads((BENCH_DIR / "configs" / "cesm-atm.json").read_text())
+    config.pop("tiny_shape")
+    if tiny_shape is not None:
+        config["tiny_shape"] = tiny_shape
+    (new / "cesm-atm.json").write_text(json.dumps(config))
+    with pytest.raises(ValueError, match=match) as err:
+        tiny_writer(tmp_path / "tiny", benchmark, dirs=[new.parent, BENCH_DIR])
+    assert str(new / "cesm-atm.json") in str(err.value) and "'tiny_shape'" in str(err.value)
+
+
+def test_a_traced_call_keeps_span_attributes_and_counters():
+    """``attrs`` holds every int, float or str attribute but ``bytes``,
+    which stays where it is; the recording keeps the trace's counters."""
+    import repro_torch.core as core
+
+    program = PortProgram({"pipeline": "sz3_lorenzo", "options": {}, "mode": "rel", "eb": 1e-3}, "cpu")
+    with program.traced() as rec:
+        with core.telemetry.span("outer", bytes=64, order=2, kind="cubic", scale=0.5, skip=[1, 2], flag=None):
+            with core.telemetry.span("inner"):
+                core.telemetry.count("passes", 3)
+                core.telemetry.count("passes")
+    assert rec.counters == {"passes": 4}
+    (outer,) = rec.spans
+    assert outer["bytes"] == 64 and outer["attrs"] == {"order": 2, "kind": "cubic", "scale": 0.5}
+    assert outer["children"][0]["attrs"] == {} and outer["children"][0]["bytes"] == 0
+    with core.telemetry.trace("direct") as tr:
+        with core.telemetry.span("s", bytes=8, n=1):
+            pass
+    assert _span_tree(tr.root)[0]["attrs"] == {"n": 1}
+
+
 def test_a_traffic_key_the_harness_does_not_act_on_is_refused(tmp_path, benchmark):
     """Every run is a closed loop with one client: a mix that asks for
     anything else (an open loop, more clients) is refused, not measured as
@@ -201,6 +343,23 @@ def test_busy_and_idle_arithmetic():
         {"name": "huffman", "t0": 2.6, "seconds": 0.9, "children": []}]}]
     idle = dict(map(tuple, devtrace.idle_by_host_span(ops, spans, 0.0, 6.0)))
     assert idle == pytest.approx({"compress/huffman": 0.9, "compress": 0.5 + 0.1, "harness": 0.5 + 0.5 + 1.0})
+
+
+@pytest.mark.parametrize("kept", ["both", "start", "end"])
+def test_the_trace_is_tied_to_the_host_clock_by_either_marker(kept):
+    """The markers were launched at host seconds 11 and 13 and ran at device
+    seconds 1 and 3: an operation at device second 1.5 is host second 11.5
+    whichever marker the trace kept; a trace that kept neither is refused."""
+    marks = {"start": ("spin_kernel", 1_000_000_000, 1_000_000_500),
+             "end": ("spin_kernel", 3_000_000_000, 3_000_000_500)}
+    ops = [("b", 2_500_000_000, 2_600_000_000), ("a", 1_500_000_000, 1_750_000_000)]
+    raw = ops + [marks[k] for k in marks if kept in (k, "both")]
+    got = devtrace.align(raw, [11.0, 13.0])
+    assert [n for n, _, _ in got] == ["a", "b"]
+    assert [s for _, s, _ in got] == pytest.approx([11.5, 12.5])
+    assert got[1][2] == pytest.approx(12.6)
+    with pytest.raises(RuntimeError, match="no clock marker"):
+        devtrace.align(ops, [11.0, 13.0])
 
 
 def _copy_bench(dst: pathlib.Path, with_program: bool) -> None:

@@ -14,6 +14,11 @@ def _field(n=4096, seed=0):
     return (100 + torch.cumsum(torch.randn(n, generator=g), 0)).to(torch.float32)
 
 
+def _mix(eb, mode="rel", pipeline="sz3_lorenzo"):
+    """A traffic mix as the judge gets it."""
+    return {"pipeline": pipeline, "options": {}, "mode": mode, "eb": eb, "fields": 1}
+
+
 def _blob(x, pipeline="sz3_lorenzo", eb=1e-4):
     import repro_torch.core as core
 
@@ -65,7 +70,7 @@ def test_abs_bound_is_the_programs():
 def test_a_sound_round_trip_passes(pipeline):
     x = _field(1 << 15).reshape(128, 256)
     blob, ratio, out = _blob(x, pipeline)
-    v = sz3_bound.judge_field(x, out, blob, ratio, "rel", 1e-4)
+    v = sz3_bound.judge_field(x, out, blob, ratio, _mix(1e-4, pipeline=pipeline))
     assert v.err_over_bound <= 1.0 and v.abs_eb_gap == 0.0 and v.blob_faults == []
 
 
@@ -75,17 +80,17 @@ def test_the_judge_catches_each_kind_of_fault():
     abs_eb = sz3_bound.abs_bound(x, "rel", 1e-4)
     moved = out.clone()
     moved[17] += 3 * abs_eb
-    assert sz3_bound.judge_field(x, moved, blob, ratio, "rel", 1e-4).err_over_bound > 2.9
+    assert sz3_bound.judge_field(x, moved, blob, ratio, _mix(1e-4)).err_over_bound > 2.9
     nan = out.clone()
     nan[0] = float("nan")
-    assert sz3_bound.judge_field(x, nan, blob, ratio, "rel", 1e-4).err_over_bound == math.inf
-    assert sz3_bound.judge_field(x, out, blob, ratio * 1.01, "rel", 1e-4).blob_faults
-    assert sz3_bound.judge_field(x, out[:-1], blob, ratio, "rel", 1e-4).blob_faults
-    assert sz3_bound.judge_field(x, None, blob, ratio, "rel", 1e-4).blob_faults
-    assert sz3_bound.judge_field(x, out, blob, ratio, "rel", 2e-4).abs_eb_gap == pytest.approx(0.5)
-    assert sz3_bound.judge_field(x, out, blob[:40], 4 * x.numel() / 40, "rel", 1e-4).blob_faults
+    assert sz3_bound.judge_field(x, nan, blob, ratio, _mix(1e-4)).err_over_bound == math.inf
+    assert sz3_bound.judge_field(x, out, blob, ratio * 1.01, _mix(1e-4)).blob_faults
+    assert sz3_bound.judge_field(x, out[:-1], blob, ratio, _mix(1e-4)).blob_faults
+    assert sz3_bound.judge_field(x, None, blob, ratio, _mix(1e-4)).blob_faults
+    assert sz3_bound.judge_field(x, out, blob, ratio, _mix(2e-4)).abs_eb_gap == pytest.approx(0.5)
+    assert sz3_bound.judge_field(x, out, blob[:40], 4 * x.numel() / 40, _mix(1e-4)).blob_faults
     other = _blob(_field(seed=1))[0]
-    assert sz3_bound.judge_field(x, out, other, 4 * x.numel() / len(other), "rel", 1e-4).abs_eb_gap > 0
+    assert sz3_bound.judge_field(x, out, other, 4 * x.numel() / len(other), _mix(1e-4)).abs_eb_gap > 0
 
 
 def test_a_v1_body_must_inflate_to_its_declared_length():
@@ -100,7 +105,7 @@ def test_a_v1_body_must_inflate_to_its_declared_length():
     else:
         new_body = zlib.compress(zlib.decompress(body) + b"\x00")
     tampered = blob[:4] + hlen.to_bytes(8, "little") + len(new_body).to_bytes(8, "little") + blob[20 : 20 + hlen] + new_body
-    v = sz3_bound.judge_field(x, out, tampered, 4 * x.numel() / len(tampered), "rel", 1e-4)
+    v = sz3_bound.judge_field(x, out, tampered, 4 * x.numel() / len(tampered), _mix(1e-4))
     assert any("inflates to" in f for f in v.blob_faults)
 
 
@@ -125,9 +130,9 @@ def test_a_sealed_input_written_in_the_window_is_caught():
     x = _field()
     sealed = sz3_bound.seal(x, "rel", 1e-4)
     blob, ratio, out = _blob(x)
-    assert not sz3_bound.judge_field(x, out, blob, ratio, "rel", 1e-4, sealed).input_changed
+    assert not sz3_bound.judge_field(x, out, blob, ratio, _mix(1e-4), sealed).input_changed
     x.copy_(out)
-    v = sz3_bound.judge_field(x, out, blob, ratio, "rel", 1e-4, sealed)
+    v = sz3_bound.judge_field(x, out, blob, ratio, _mix(1e-4), sealed)
     assert v.input_changed and v.err_over_bound == 0.0
     assert sz3_bound.summarize([v])["inputs_changed"] == 1
 
